@@ -1,0 +1,184 @@
+"""`bwbble` command-line interface of the PyTorch/CUDA port.
+
+Counterpart of bwbble_tpu/cli.py: subcommands `index`, `fasta2ref` and
+`align` with the reference's single-letter flags and positional arguments
+(mg-aligner/main.c:72-160) and the same derived file names
+(`<fasta>.{ref,ann,bwt}`).  Engine options are long options only (--engine,
+--batch, --arena, --queued, --device), so every reference invocation works
+verbatim.  `aln2sam` and `eval` are not ported yet.
+
+Run as `python -m bwbble_tpu_torch ...`.
+"""
+
+from __future__ import annotations
+
+import getopt
+import sys
+import time
+
+import numpy as np
+
+
+def _usage() -> int:
+    print("Usage:   bwbble command [options]")
+    print("Command: index    index sequences in the FASTA format")
+    print("         align    exact or inexact read alignment")
+    print("         fasta2ref    constructs a single linear reference "
+          "from the input file")
+    return 1
+
+
+def read_external_sa(path: str, n: int) -> np.ndarray:
+    """Stream a 40-bit/entry external suffix array (eSAIS format) into the
+    (n+1)-row full SA expected by FMIndex.build (esa2bwt, bwt.c:132-158):
+    row 0 is the virtual total-'$' (value n), rows 1..n come from the file."""
+    raw = np.fromfile(path, dtype=np.uint8)
+    if raw.shape[0] < 5 * n:
+        raise ValueError(f"external SA file {path} too short: "
+                         f"{raw.shape[0]} bytes < {5 * n}")
+    raw = raw[:5 * n].reshape(n, 5).astype(np.int64)
+    vals = (raw[:, 0] | (raw[:, 1] << 8) | (raw[:, 2] << 16)
+            | (raw[:, 3] << 24) | (raw[:, 4] << 32))
+    return np.concatenate([np.array([n], dtype=np.int64), vals])
+
+
+def cmd_index(argv: list[str]) -> int:
+    from bwbble_tpu_torch.formats.fasta import fasta2ref, read_ref
+    from bwbble_tpu_torch.index.fmindex import FMIndex
+
+    try:
+        opts, args = getopt.getopt(argv, "e:")
+    except getopt.GetoptError as e:
+        print(e)
+        return 1
+    if not args:
+        print("Usage: bwbble index [options] <seq_fasta>")
+        print("Options: e    file with the SA precomputed by the external "
+              "memory eSAIS algorithm.")
+        return 1
+    esa = dict(opts).get("-e")
+    fasta = args[0]
+    print("**** BWT Index ****")
+    t = time.time()
+    if esa is None:
+        codes, _ann = fasta2ref(fasta, fasta + ".ref", fasta + ".ann")
+        idx = FMIndex.build(codes)
+    else:
+        codes = read_ref(fasta + ".ref")
+        idx = FMIndex.build(codes, full_sa=read_external_sa(
+            esa, codes.shape[0]))
+    print(f"Total BWT construction time: {time.time() - t:.2f} sec")
+    idx.store(fasta + ".bwt")
+    return 0
+
+
+def cmd_fasta2ref(argv: list[str]) -> int:
+    from bwbble_tpu_torch.formats.fasta import fasta2ref
+    if not argv:
+        print("Usage: bwbble fasta2ref <seq_fasta>")
+        return 1
+    fasta2ref(argv[0], argv[0] + ".ref", argv[0] + ".ann")
+    return 0
+
+
+def cmd_align(argv: list[str]) -> int:
+    from bwbble_tpu_torch.align.params import AlnParams
+    from bwbble_tpu_torch.align.pipeline import align_reads_gold
+    from bwbble_tpu_torch.formats.aln import write_aln_file
+    from bwbble_tpu_torch.formats.fastq import read_fastq
+    from bwbble_tpu_torch.index.fmindex import FMIndex
+
+    long_opts = ["engine=", "batch=", "arena=", "queued", "device=",
+                 "mesh=", "dist="]
+    try:
+        opts, args = getopt.gnu_getopt(argv, "M:O:E:n:k:o:e:l:m:t:SP",
+                                       long_opts)
+    except getopt.GetoptError as e:
+        print(e)
+        return 1
+    if len(args) < 3:
+        print("Usage: bwbble align [options] <seq_fasta> <reads_fastq> "
+              "<output_aln>")
+        return 1
+    kw: dict = {}
+    engine = "device"
+    batch = None
+    arena = None
+    queued = False
+    device = None
+    flag_kw = {"-M": "mm_score", "-O": "gapo_score", "-E": "gape_score",
+               "-n": "max_diff", "-k": "max_diff_seed", "-o": "max_gapo",
+               "-e": "max_gape", "-l": "seed_length", "-m": "max_entries",
+               "-t": "n_threads"}
+    for o, v in opts:
+        if o in flag_kw:
+            kw[flag_kw[o]] = int(v)
+        elif o == "-S":
+            raise NotImplementedError(
+                "-S single-genome mode is not ported yet")
+        elif o == "-P":
+            raise NotImplementedError(
+                "-P seeded search (align/precalc.py) is not ported yet")
+        elif o == "--engine":
+            engine = v
+        elif o == "--batch":
+            batch = int(v)
+        elif o == "--arena":
+            arena = int(v)
+        elif o == "--queued":
+            queued = True
+        elif o == "--device":
+            device = v
+        elif o in ("--mesh", "--dist"):
+            raise NotImplementedError(
+                f"{o} (parallel/ on torch.distributed) is not ported yet")
+    fasta, fastq, alnf = args[0], args[1], args[2]
+    if batch is not None:
+        kw["batch_size"] = batch
+    params = AlnParams(**kw)
+
+    print("**** BWBBLE Read Alignment ****")
+    t = time.time()
+    idx = FMIndex.load(fasta + ".bwt", load_sa=False)
+    print(f"Total BWT loading time: {time.time() - t:.2f} sec")
+    t = time.time()
+    reads = read_fastq(fastq)
+    print(f"Total read loading time: {time.time() - t:.2f} sec")
+
+    t = time.time()
+    if engine == "gold":
+        alns = align_reads_gold(idx, reads, params)
+    else:
+        from bwbble_tpu_torch.engine.device_index import from_fmindex
+        from bwbble_tpu_torch.engine.inexact import EngineConfig
+        from bwbble_tpu_torch.engine.pipeline import align_reads_device
+        cfg = EngineConfig(cap=arena or int(params.arena_cap))
+        didx = from_fmindex(idx, device=device)
+        alns = align_reads_device(idx, didx, reads, params, cfg,
+                                  queued=queued, device=device)
+    print(f"Total read alignment time: {time.time() - t:.2f} sec")
+    write_aln_file(alnf, alns)
+    return 0
+
+
+def main(argv: list[str] | None = None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if not argv:
+        return _usage()
+    cmd, rest = argv[0], argv[1:]
+    if cmd == "index":
+        return cmd_index(rest)
+    if cmd == "align":
+        return cmd_align(rest)
+    if cmd == "fasta2ref":
+        return cmd_fasta2ref(rest)
+    if cmd in ("aln2sam", "eval"):
+        raise NotImplementedError(
+            f"`{cmd}` (device SA resolution, rank.sa_resolve) is not "
+            "ported yet")
+    print(f"Error: Unknown command '{cmd}'")
+    return _usage()
+
+
+if __name__ == "__main__":
+    sys.exit(main())

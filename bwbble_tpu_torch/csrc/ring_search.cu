@@ -1,0 +1,574 @@
+// ring_search.cu — the queued ("ring") inexact search as one CUDA kernel.
+//
+// Replaces: bwbble_tpu/engine/kernel.py:_resident_kernel in ring mode, with
+// its compute core _iter_math (_rank16, _exact_cands, _merge_compact,
+// _merge_groups_tail, _emit) and the flush-time path walk of
+// bwbble_tpu/engine/inexact.py:switch_step, which the TPU ran between kernel
+// segments.  Seen from outside it is the same function: per read, the
+// alignments the score-bucketed best-first DFS (inexact_match.c:256-506)
+// reports, in discovery order, with their packed state paths.
+//
+// Design: one thread per lane runs its reads to completion.  A lane takes
+// the next read id from a global counter (atomicAdd keeps the caller's
+// hardest-first queue order), initialises, loops
+//   pop -> prune -> emit | exact-complete | expand -> link -> write frame,
+// then walks the parent chains of the read's reported alignments, writes the
+// per-read outputs and takes the next read.  A lane restarts its pop clock at
+// every read (it has already walked the finished read's chains), so the
+// lane's arena column is used as a plain array of NFRAME frame rows and a
+// read overflows exactly when it needs more than NFRAME of its own pops —
+// the per-read ring budget of the TPU engine.  Any capacity overflow ends
+// the read at once with its overflow flag set: callers discard and retry
+// such reads, so nothing after the flag is observable.
+//
+// What bounds it on an H100: every pop is a chain of dependent random reads
+// — the popped node's 16-byte slot of a 512-byte frame row, then two
+// 128-byte rank rows of the index table — followed by up to 23 16-byte slot
+// writes; an exact completion reads two rank rows per list entry per
+// character.  That is memory latency and bytes, not arithmetic (a rank is 64
+// popcounts).  What this first design does about it: nothing beyond giving
+// each lane a warp of its own (thread 0 of the warp; the other 31 exit), so
+// that lanes on different control paths do not serialise each other; a
+// lane's loads are not overlapped with one another.  Warp-wide lanes, coalesced row reads, shared
+// memory and more lanes are left to later work.
+//
+// Memory notes.  The bucket heads head[NB] are indexed dynamically and their
+// number depends on the scoring parameters, so they live in shared memory,
+// NB words for each of the block's lanes.  The two exact-completion interval
+// lists (capacity XC entries each) are too large for registers and live in
+// per-lane global scratch (`xlist`), as does the frame arena.  Reported
+// alignments are written straight into the per-read output slab, which also
+// serves the duplicate check.  The kernel allocates nothing and runs on the
+// stream it is given.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+#include <string.h>
+
+#define RS_ROWW 128          // int32 words per frame row (512 bytes)
+#define RS_NC 11             // non-skipped IUPAC codes
+#define RS_NSLOT 23          // 1 insertion + NC deletions + NC matches
+#define RS_NROOT 1
+#define RS_PARENT (RS_NSLOT * 4)   // frame-row word holding the parent id
+#define RS_WARP 32           // threads per lane: each lane owns a warp
+#define RS_BLOCK_LANES 4     // lanes (warps) per thread block
+
+#define STATE_M 0
+#define STATE_I 1
+#define STATE_D 2
+
+// int32 fields, filled from a host int array in this order
+struct RSParams {
+    int p_mm, p_go, p_ge, p_maxdiff, p_maxgapo, p_maxgape, p_seedlen,
+        p_maxdiffseed, p_maxbest, p_noindel, p_maxentries;
+    int NB, NFRAME, ACAP, XC, PATHCAP, max_iters;
+    int Q, Lmax, DS, LEN, lanes, PW;
+};
+
+// ---- alphabet tables, derived from the Gray-code definition (constants.py)
+__host__ __device__ constexpr int gray_val(int j) { return j ^ (j >> 1); }
+__host__ __device__ constexpr int popc4(int m) {
+    return (m & 1) + ((m >> 1) & 1) + ((m >> 2) & 1) + ((m >> 3) & 1);
+}
+// three-base codes get no in-block counts in the DFS rank (quirk Q1) and
+// are never expanded
+__host__ __device__ constexpr bool is_skipped(int j) {
+    return popc4(gray_val(j)) == 3;
+}
+__host__ __device__ constexpr bool is_snp(int j) {
+    return popc4(gray_val(j)) >= 2;
+}
+__host__ __device__ constexpr bool is_order_n(int j) {
+    return gray_val(j) == 15;
+}
+// nt4 base (A=0, G=1, C=2, T=3) -> bitmask (A=8, C=4, G=2, T=1)
+__device__ __forceinline__ int base_mask(int c) {
+    return c == 0 ? 8 : (c == 1 ? 2 : (c == 2 ? 4 : 1));
+}
+
+__device__ __forceinline__ uint32_t pack1(int i, int mm, int go, int ge,
+                                          int st, int plen) {
+    return (uint32_t)i | ((uint32_t)mm << 8) | ((uint32_t)go << 13)
+         | ((uint32_t)ge << 16) | ((uint32_t)st << 20)
+         | ((uint32_t)plen << 22);
+}
+
+// Occurrence bounds C[j] + O(j, i) + inc for the codes in `need`
+// (engine/rank.py:_rank_all).  DFS = the inexact-search variant: skipped
+// codes return C + inc - first_dec without counts.  Returns the number of
+// table rows read (0 on the i < 0 and i == LEN-1 edge paths).
+template <bool DFS>
+__device__ __forceinline__ int rank16(const int32_t* __restrict__ table,
+                                      const int* carr, int LEN, int i,
+                                      int inc, uint32_t need, int out[16]) {
+    const int len_m1 = LEN - 1;
+    if (i == len_m1) {
+#pragma unroll
+        for (int j = 1; j < 16; j++) out[j] = carr[j + 1] + inc;
+        out[0] = 0;
+        return 0;
+    }
+    if (i < 0) {
+#pragma unroll
+        for (int j = 1; j < 16; j++) out[j] = carr[j] + inc;
+        out[0] = 0;
+        return 0;
+    }
+    int hi = len_m1 - 1 > 0 ? len_m1 - 1 : 0;
+    int ic = i < hi ? i : hi;
+    int k = ic >> 7, off = ic & 127;
+    const int4* row = reinterpret_cast<const int4*>(table + (size_t)k * 32);
+    uint32_t pl[4][4];
+    int ck[16];
+#pragma unroll
+    for (int t = 0; t < 4; t++) {
+        int4 v = __ldg(row + t);
+        pl[t][0] = (uint32_t)v.x; pl[t][1] = (uint32_t)v.y;
+        pl[t][2] = (uint32_t)v.z; pl[t][3] = (uint32_t)v.w;
+    }
+#pragma unroll
+    for (int t = 0; t < 4; t++) {
+        int4 v = __ldg(row + 4 + t);
+        ck[4 * t] = v.x; ck[4 * t + 1] = v.y;
+        ck[4 * t + 2] = v.z; ck[4 * t + 3] = v.w;
+    }
+    uint32_t mask[4];
+#pragma unroll
+    for (int w = 0; w < 4; w++) {
+        int nbits = off + 1 - 32 * w;
+        mask[w] = nbits >= 32 ? 0xFFFFFFFFu
+                : (nbits <= 0 ? 0u : ((1u << nbits) - 1u));
+    }
+    int first = (int)((pl[0][0] & 1u) | ((pl[1][0] & 1u) << 1)
+                      | ((pl[2][0] & 1u) << 2) | ((pl[3][0] & 1u) << 3));
+#pragma unroll
+    for (int j = 1; j < 16; j++) {
+        if (!((need >> j) & 1u)) continue;
+        int val = carr[j] + inc - (first == j ? 1 : 0);
+        if (!(DFS && is_skipped(j))) {
+            int cnt = 0;
+#pragma unroll
+            for (int w = 0; w < 4; w++) {
+                uint32_t m = mask[w];
+#pragma unroll
+                for (int t = 0; t < 4; t++)
+                    m &= ((j >> t) & 1) ? pl[t][w] : ~pl[t][w];
+                cnt += __popc(m);
+            }
+            val += ck[j] + cnt;
+        }
+        out[j] = val;
+    }
+    out[0] = 0;
+    return 1;
+}
+
+// Per-read search state that emission updates.
+struct ReadState {
+    int n_alns, overflow, best_score, max_diff, num_best;
+};
+
+// emit_alns of engine/inexact.py (inexact_match.c:331-375 and
+// add_alignment's gap dedup, align.c:271-298) for `cnt` intervals read
+// through getL/getU.  Returns true when the read is finished (max_best stop
+// or ACAP overflow).
+template <typename GetLU>
+__device__ __forceinline__ bool emit_alns(const RSParams& P, ReadState& S,
+                                          int32_t* oA, int node, uint32_t m1,
+                                          uint32_t m2, int cnt, int extra_m,
+                                          GetLU get) {
+    const int mm = (m1 >> 8) & 0x1F, go = (m1 >> 13) & 0x7,
+              ge = (m1 >> 16) & 0xF, plen = (m1 >> 22) & 0x1FF;
+    const int snp = m2 & 0xFF;
+    const int score = mm * P.p_mm + go * P.p_go + ge * P.p_ge;
+    if (S.n_alns == 0) {
+        S.best_score = score;
+        int nb = mm + go + ge + 1;
+        S.max_diff = nb < P.p_maxdiff ? nb : P.p_maxdiff;
+    }
+    uint32_t width = 0;
+    for (int s = 0; s < cnt; s++) {
+        int L, U;
+        get(s, L, U);
+        width += (uint32_t)(U - L + 1);
+    }
+    const bool is_best = score == S.best_score;
+    const int old_nb = S.num_best;
+    if (is_best) S.num_best = (int)((uint32_t)S.num_best + width);
+    if (!is_best && old_nb > P.p_maxbest) return true;   // stop this read
+    const int A = P.ACAP;
+    for (int s = 0; s < cnt; s++) {
+        int L, U;
+        get(s, L, U);
+        if (go > 0) {
+            bool dup = false;
+            for (int k = 0; k < S.n_alns; k++)
+                dup |= (oA[k] == L) & (oA[A + k] == U);
+            if (dup) continue;
+        }
+        if (S.n_alns >= A) { S.overflow = 1; return true; }
+        int k = S.n_alns++;
+        oA[k] = L;
+        oA[A + k] = U;
+        oA[2 * A + k] = score;
+        oA[3 * A + k] = plen + extra_m;
+        oA[4 * A + k] = node;
+        oA[5 * A + k] = (int)m1;
+        oA[6 * A + k] = snp;
+    }
+    return false;
+}
+
+__global__ void ring_search_kernel(
+        RSParams P, const int32_t* __restrict__ table,
+        const int32_t* __restrict__ carr_g, const int8_t* __restrict__ rc,
+        const int32_t* __restrict__ lens, const int32_t* __restrict__ D,
+        const int32_t* __restrict__ Ds, int32_t* __restrict__ arena,
+        int32_t* __restrict__ xlist, int32_t* counter,
+        int32_t* __restrict__ q_alns, int32_t* __restrict__ q_meta,
+        uint8_t* __restrict__ q_paths) {
+    const int gtid = blockIdx.x * blockDim.x + threadIdx.x;
+    if (gtid % RS_WARP != 0) return;
+    const int lane = gtid / RS_WARP;
+    if (lane >= P.lanes) return;
+
+    int carr[17];
+#pragma unroll
+    for (int j = 0; j < 17; j++) carr[j] = carr_g[j];
+
+    extern __shared__ int head_smem[];        // [RS_BLOCK_LANES][NB]
+    int* const head = head_smem + (threadIdx.x / RS_WARP) * P.NB;
+    int32_t* const A = arena + (size_t)lane * P.NFRAME * RS_ROWW;
+    int32_t* const X = xlist + (size_t)lane * 4 * P.XC;   // [2][XC][L,U]
+    const int NB = P.NB, Lmax = P.Lmax, LEN = P.LEN;
+
+    for (;;) {
+        const int rid = atomicAdd(counter, 1);
+        if (rid >= P.Q) break;
+        const int rlen = lens[rid];
+        const int8_t* rcr = rc + (size_t)rid * Lmax;
+        const int32_t* Dr = D + (size_t)rid * (Lmax + 1) * 2;
+        const int32_t* Dsr = Ds + (size_t)rid * P.DS * 2;
+        int32_t* oA = q_alns + (size_t)rid * 7 * P.ACAP;
+
+        ReadState S;
+        S.n_alns = 0; S.overflow = 0; S.best_score = NB;
+        S.max_diff = P.p_maxdiff; S.num_best = 0;
+        int work = 0, rank_rows = 0, frame_rd = 0, frame_wr = 0, pf = 0;
+
+        // up-front N-count discard (inexact_match.c:259-266)
+        int n_count = 0;
+        for (int p = 0; p < Lmax && p < rlen; p++) n_count += rcr[p] > 3;
+        bool alive = n_count <= P.p_maxdiff;
+
+        int n_open = 1, minb = 0;
+        if (alive) {
+            for (int b = 0; b < NB; b++) head[b] = -1;
+            head[0] = 0;                       // the root node
+        }
+
+        while (alive) {
+            // ring budget: NFRAME of the read's own pops
+            if (pf >= P.NFRAME || work >= P.max_iters) {
+                S.overflow = 1;
+                break;
+            }
+            if (n_open == 0 || n_open > P.p_maxentries) break;
+            // pop: lowest occupied bucket, most recent push (heap_pop)
+            while (minb < NB && head[minb] < 0) minb++;
+            if (minb >= NB) break;
+            const int bucket = minb;
+            const int node = head[bucket];
+            int eL, eU;
+            uint32_t m1, m2;
+            if (node < RS_NROOT) {
+                eL = 0; eU = LEN - 1;
+                m1 = pack1(rlen, 0, 0, 0, STATE_M, 0);
+                m2 = 0;
+            } else {
+                int nn = node - RS_NROOT;
+                int f = nn / RS_NSLOT, s = nn - f * RS_NSLOT;
+                int4 v = *reinterpret_cast<const int4*>(
+                    A + (size_t)f * RS_ROWW + 4 * s);
+                eL = v.x; eU = v.y; m1 = (uint32_t)v.z; m2 = (uint32_t)v.w;
+                frame_rd++;
+            }
+            head[bucket] = (int)((m2 >> 8) & 0xFFFFFFu) - 1;   // 24-bit link
+            n_open--;
+            work++;
+            if (bucket > S.best_score + P.p_mm) break;         // stop
+
+            // this pop owns frame `pf` whether or not it pushes anything
+            const int myf = pf;
+            const int base = RS_NROOT + pf * RS_NSLOT;
+            pf++;
+
+            const int ei = m1 & 0xFF, emm = (m1 >> 8) & 0x1F,
+                      ego = (m1 >> 13) & 0x7, ege = (m1 >> 16) & 0xF,
+                      est = (m1 >> 20) & 0x3, eplen = (m1 >> 22) & 0x1FF;
+            const int esnp = m2 & 0xFF;
+
+            // prune chain (inexact_match.c:309-328)
+            const int diff_left = S.max_diff - emm - ego - ege;
+            auto dclip = [&](int t) { return t < 0 ? 0 : (t > Lmax ? Lmax : t); };
+            auto sclip = [&](int t) {
+                return t < 0 ? 0 : (t > P.DS - 1 ? P.DS - 1 : t);
+            };
+            const int D1n = Dr[dclip(ei - 1) * 2];
+            const int dls = P.p_maxdiffseed - emm - ego - ege;
+            const int seed_index = ei - (rlen - P.p_seedlen);
+            const int S1n = Dsr[sclip(seed_index - 1) * 2];
+            bool cont = diff_left < 0;
+            cont |= (ei > 0) && (diff_left < D1n);
+            cont |= (seed_index > 0) && (dls < S1n);
+            if (cont) continue;
+
+            // hit at i == 0 (inexact_match.c:332-344)
+            if (ei == 0) {
+                bool fin = emit_alns(P, S, oA, node, m1, m2, 1, 0,
+                                     [&](int, int& L, int& U) {
+                                         L = eL; U = eU;
+                                     });
+                if (fin) break;
+                continue;
+            }
+
+            // exact completion when the budget is exhausted (:345-375):
+            // exact_match_bounded with add_sa_interval merging at list
+            // capacity XC
+            if (diff_left == 0) {
+                // a read still searching right after its NFRAME-th pop is
+                // over its ring budget, whatever the scan would find
+                if (pf >= P.NFRAME) { S.overflow = 1; break; }
+                int32_t* cur = X;
+                int32_t* nxt = X + 2 * P.XC;
+                cur[0] = eL; cur[1] = eU;
+                int cnt = 1;
+                bool over = false;
+                for (int j = ei - 1; j >= 0 && cnt > 0; j--) {
+                    if (work >= P.max_iters) { over = true; break; }
+                    work++;
+                    int c = rcr[j < Lmax ? j : Lmax - 1];
+                    if (c > 3) { cnt = 0; break; }
+                    const int bm = base_mask(c);
+                    uint32_t need = 0;
+#pragma unroll
+                    for (int q = 1; q < 16; q++)
+                        if ((gray_val(q) & bm) && !is_order_n(q))
+                            need |= 1u << q;
+                    int ncnt = 0, tailU = -2;
+                    for (int s = 0; s < cnt && !over; s++) {
+                        int occL[16], occU[16];
+                        rank_rows += rank16<false>(table, carr, LEN,
+                                                   cur[2 * s] - 1, 1, need,
+                                                   occL);
+                        rank_rows += rank16<false>(table, carr, LEN,
+                                                   cur[2 * s + 1], 0, need,
+                                                   occU);
+#pragma unroll
+                        for (int q = 1; q < 16; q++) {
+                            if (!((need >> q) & 1u)) continue;
+                            int L = occL[q], U = occU[q];
+                            if (L > U || over) continue;
+                            if (ncnt > 0 && L == tailU + 1) {
+                                nxt[2 * (ncnt - 1) + 1] = U;
+                            } else if (ncnt >= P.XC) {
+                                over = true;
+                            } else {
+                                nxt[2 * ncnt] = L;
+                                nxt[2 * ncnt + 1] = U;
+                                ncnt++;
+                            }
+                            tailU = U;
+                        }
+                    }
+                    if (over) break;
+                    int32_t* t = cur; cur = nxt; nxt = t;
+                    cnt = ncnt;
+                }
+                if (over) { S.overflow = 1; break; }
+                if (cnt > 0) {
+                    // the scan consumed ei chars: the path extends by ei
+                    // implicit matches (inexact_match.c:365)
+                    const int32_t* lst = cur;
+                    bool fin = emit_alns(P, S, oA, node, m1, m2, cnt, ei,
+                                         [&](int s, int& L, int& U) {
+                                             L = lst[2 * s];
+                                             U = lst[2 * s + 1];
+                                         });
+                    if (fin) break;
+                }
+                continue;
+            }
+
+            // expansion (inexact_match.c:377-504)
+            uint32_t need_dfs = 0;
+#pragma unroll
+            for (int q = 1; q < 16; q++)
+                if (!is_skipped(q)) need_dfs |= 1u << q;
+            int Lv[16], Uv[16];
+            rank_rows += rank16<true>(table, carr, LEN, eL - 1, 1, need_dfs,
+                                      Lv);
+            rank_rows += rank16<true>(table, carr, LEN, eU, 0, need_dfs, Uv);
+
+            const int D2n = Dr[dclip(ei - 2) * 2];
+            const int D1w = Dr[dclip(ei - 1) * 2 + 1];
+            const int D2w = Dr[dclip(ei - 2) * 2 + 1];
+            const int S2n = Dsr[sclip(seed_index - 2) * 2];
+            const int S1w = Dsr[sclip(seed_index - 1) * 2 + 1];
+            const int S2w = Dsr[sclip(seed_index - 2) * 2 + 1];
+            bool allow_diff = true, allow_mm = true;
+            const bool pm = ei - 1 > 0;
+            const bool ad1 = diff_left - 1 < D2n;
+            const bool am1 = (D1n == diff_left - 1) && (D2n == diff_left - 1)
+                             && (D1w == D2w);
+            if (pm && ad1) allow_diff = false;
+            if (pm && !ad1 && am1) allow_mm = false;
+            const bool ps = seed_index - 1 > 0;
+            const bool ad2 = dls - 1 < S2n;
+            const bool am2 = (S1n == dls - 1) && (S2n == dls - 1)
+                             && (S1w == S2w);
+            if (ps && ad2) allow_diff = false;
+            if (ps && !ad2 && am2) allow_mm = false;
+
+            const int tmp = ego + ege;
+            bool allow_indels = !(((ei - 1) < (P.p_noindel + tmp))
+                                  || ((rlen - (ei - 1)) < (P.p_noindel + tmp)));
+            allow_indels = allow_indels
+                && !((ego >= P.p_maxgapo) && (ege >= P.p_maxgape));
+            const bool allow_open = ego < P.p_maxgapo;
+            const bool allow_extend = ege < P.p_maxgape;
+
+            int c = rcr[(ei - 1) < Lmax ? (ei - 1) : Lmax - 1];
+            c = c < 0 ? 0 : (c > 4 ? 4 : c);
+            const bool is_I = est == STATE_I, is_M = est == STATE_M;
+            const bool ind_ok = allow_diff && allow_indels;
+            if (eplen + 1 >= P.PATHCAP) { S.overflow = 1; break; }
+            const int nplen = eplen + 1;
+
+            // sequential LIFO push of slots 0..NSLOT-1 into the score
+            // buckets (inexact_match.c:510-610)
+            int32_t* frow = A + (size_t)myf * RS_ROWW;
+            int total = 0;
+            auto push = [&](int s, int L, int U, uint32_t cm1, int snp) {
+                int sc = ((cm1 >> 8) & 0x1F) * P.p_mm
+                       + ((cm1 >> 13) & 0x7) * P.p_go
+                       + ((cm1 >> 16) & 0xF) * P.p_ge;
+                int b = sc < 0 ? 0 : (sc > NB - 1 ? NB - 1 : sc);
+                uint32_t cm2 = ((uint32_t)snp & 0xFFu)
+                             | ((uint32_t)(head[b] + 1) << 8);
+                *reinterpret_cast<int4*>(frow + 4 * s) =
+                    make_int4(L, U, (int)cm1, (int)cm2);
+                head[b] = base + s;
+                if (b < minb) minb = b;
+                total++;
+            };
+
+            // slot 0: insertion (extend if state == I else open if M)
+            if (ind_ok && ((is_I && allow_extend) || (is_M && allow_open)))
+                push(0, eL, eU,
+                     pack1(ei - 1, emm, ego + (is_M ? 1 : 0),
+                           ege + (is_I ? 1 : 0), STATE_I, nplen), esnp);
+            // slots 1..NC: deletions (consume a reference char, keep i)
+            {
+                const bool del_any = ind_ok && !is_I
+                    && ((is_M && allow_open) || (!is_M && allow_extend));
+                const uint32_t dm1 = pack1(ei, emm, ego + (is_M ? 1 : 0),
+                                           ege + (is_M ? 0 : 1), STATE_D,
+                                           nplen);
+                int t = 0;
+#pragma unroll
+                for (int q = 1; q < 16; q++) {
+                    if (is_skipped(q)) continue;
+                    if (del_any && Lv[q] <= Uv[q])
+                        push(1 + t, Lv[q], Uv[q], dm1, esnp);
+                    t++;
+                }
+            }
+            // slots NC+1..2NC: match / mismatch (or the exact-only
+            // continuation when mismatches are suppressed)
+            {
+                const bool mm_branch = allow_diff && allow_mm;
+                const int bm = c <= 3 ? base_mask(c) : 0;
+                int t = 0;
+#pragma unroll
+                for (int q = 1; q < 16; q++) {
+                    if (is_skipped(q)) continue;
+                    const bool nonempty = Lv[q] <= Uv[q];
+                    const bool is_match = (c <= 3) && !is_order_n(q)
+                                          && ((gray_val(q) & bm) != 0);
+                    const bool ok_mm = mm_branch && nonempty;
+                    const bool ok_ex = !mm_branch && (c < 4) && is_match
+                                       && nonempty;
+                    if (ok_mm || ok_ex) {
+                        int mmn = emm + ((ok_mm && !is_match) ? 1 : 0);
+                        push(1 + RS_NC + t, Lv[q], Uv[q],
+                             pack1(ei - 1, mmn, ego, ege, STATE_M, nplen),
+                             (esnp + (is_snp(q) ? 1 : 0)) & 0xFF);
+                    }
+                    t++;
+                }
+            }
+            if (total > 0) {
+                frow[RS_PARENT] = node;
+                frame_wr++;
+                n_open += total;
+            }
+        }
+
+        // walk the parent chains of the reported alignments (the flush-time
+        // walk of switch_step): entry t is the state of the t-th ancestor,
+        // node first, root excluded; 2 bits per state
+        if (!S.overflow) {
+            for (int k = 0; k < S.n_alns; k++) {
+                uint8_t* pp = q_paths + ((size_t)rid * P.ACAP + k) * P.PW;
+                int cur = oA[4 * P.ACAP + k];
+                int t = 0;
+                uint32_t acc = 0;
+                while (t < P.PATHCAP && cur >= RS_NROOT) {
+                    int nn = cur - RS_NROOT;
+                    int f = nn / RS_NSLOT, s = nn - f * RS_NSLOT;
+                    int st = s == 0 ? STATE_I
+                                    : (s <= RS_NC ? STATE_D : STATE_M);
+                    acc |= (uint32_t)st << (2 * (t & 3));
+                    if ((t & 3) == 3) { pp[t >> 2] = (uint8_t)acc; acc = 0; }
+                    cur = A[(size_t)f * RS_ROWW + RS_PARENT];
+                    frame_rd++;
+                    t++;
+                }
+                if (t & 3) pp[t >> 2] = (uint8_t)acc;
+            }
+        }
+
+        int32_t* qm = q_meta + (size_t)rid * 8;
+        qm[0] = S.n_alns; qm[1] = S.overflow; qm[2] = lane; qm[3] = work;
+        qm[4] = rank_rows; qm[5] = frame_rd; qm[6] = frame_wr; qm[7] = pf;
+    }
+}
+
+extern "C" int ring_search_num_params() {
+    return (int)(sizeof(RSParams) / sizeof(int));
+}
+
+// Launches on `stream`; returns cudaGetLastError() (0 on success), or -1
+// when the parameter block does not match RSParams or the bucket heads do
+// not fit a block's shared memory.
+extern "C" int ring_search_launch(
+        const int* hp, int nhp, const void* table, const void* carr,
+        const void* rc, const void* lens, const void* D, const void* Ds,
+        void* arena, void* xlist, void* counter, void* q_alns, void* q_meta,
+        void* q_paths, void* stream) {
+    if (nhp != (int)(sizeof(RSParams) / sizeof(int))) return -1;
+    RSParams P;
+    memcpy(&P, hp, sizeof(P));
+    const size_t smem = (size_t)RS_BLOCK_LANES * P.NB * sizeof(int);
+    if (P.NB < 1 || smem > 48 * 1024) return -1;
+    const int threads = RS_BLOCK_LANES * RS_WARP;
+    const int blocks = (P.lanes + RS_BLOCK_LANES - 1) / RS_BLOCK_LANES;
+    ring_search_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
+        P, (const int32_t*)table, (const int32_t*)carr, (const int8_t*)rc,
+        (const int32_t*)lens, (const int32_t*)D, (const int32_t*)Ds,
+        (int32_t*)arena, (int32_t*)xlist, (int32_t*)counter,
+        (int32_t*)q_alns, (int32_t*)q_meta, (uint8_t*)q_paths);
+    return (int)cudaGetLastError();
+}

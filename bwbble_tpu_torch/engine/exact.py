@@ -1,0 +1,47 @@
+"""Lockstep exact backward search over a read batch.
+
+Counterpart of bwbble_tpu/engine/exact.py (multi-genome mode): the device
+equivalent of exact_match (exact_match.c:58-119).  All reads advance one
+character per step with masked inactive lanes; interval lists live in
+fixed [B, K] arrays (see engine.intervals).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from bwbble_tpu_torch.engine import index_device
+from bwbble_tpu_torch.engine.device_index import DeviceIndex
+from bwbble_tpu_torch.engine.intervals import expand_step
+
+
+def exact_search(didx: DeviceIndex, seq, lengths, K: int = 16, device=None):
+    """Multi-genome exact search of full reads (exact_match.c:58-60).
+
+    Args: seq int8/int32 [B, Lmax] nt4 codes (padded); lengths int32 [B].
+    Returns (Ls, Us, cnt, overflow): interval lists per lane; overflow lanes
+    must be recomputed on the host.
+    """
+    dev = index_device(didx, device)
+    seq = torch.as_tensor(seq).to(dev).to(torch.int32)
+    lengths = torch.as_tensor(lengths).to(dev).to(torch.int32)
+    B, Lmax = seq.shape
+    Ls = torch.zeros((B, K), dtype=torch.int32, device=dev)
+    Us = torch.full((B, K), -1, dtype=torch.int32, device=dev)
+    Us[:, 0] = didx.length - 1
+    cnt = torch.ones((B,), dtype=torch.int32, device=dev)
+    over = torch.zeros((B,), dtype=torch.bool, device=dev)
+    four = torch.full((B,), 4, dtype=torch.int32, device=dev)
+
+    for s in range(Lmax):
+        r = lengths - 1 - s
+        active = (r >= 0) & (cnt > 0)
+        c = torch.where(active,
+                        seq.gather(1, r.clamp(min=0).long()[:, None])[:, 0],
+                        four)
+        nLs, nUs, ncnt, _w, ov = expand_step(didx, Ls, Us, cnt, c)
+        Ls = torch.where(active[:, None], nLs, Ls)
+        Us = torch.where(active[:, None], nUs, Us)
+        cnt = torch.where(active, ncnt, cnt)
+        over = over | (active & ov)
+    return Ls, Us, cnt, over

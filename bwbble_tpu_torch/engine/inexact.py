@@ -1,0 +1,633 @@
+"""Ring-queue inexact search: the plain PyTorch version and the public
+`inexact_search_queued` entry point.
+
+Counterpart of bwbble_tpu/engine/inexact.py (queue mode).  The search is the
+reference's score-bucketed best-first DFS (inexact_match.c:256-506):
+
+- **Dense frames.**  Every pop reserves one frame of NSLOT candidate rows in
+  the lane's arena; slot s of the frame holds expansion candidate s (slot 0
+  the insertion, 1..NC the deletions, NC+1..2NC the match/mismatch pushes
+  over the NC = 11 non-skipped IUPAC codes).  Node ids are
+  NROOT + frame * NSLOT + slot, so a node's appended path state is a static
+  function of its slot and only the parent id is stored per frame.
+- **Score-bucket stacks.**  The reference heap (score buckets, LIFO within a
+  bucket, pop = tail of the best bucket) is per-lane bucket heads plus a
+  per-node `prev` link.  Exploration order is bit-identical.
+- **Packed node words.**  A node is 4 int32s: L, U, meta1
+  (i|mm|go|ge|state|plen), meta2 (snps | prev+1 << 8).
+- **Per-read ring budget.**  A read may make NFRAME = (cap - NROOT) // NSLOT
+  - 1 pops of its own; one that is not finished right after its NFRAME-th
+  pop is flagged overflow.  Exact-completion characters and emissions cost
+  no budget, so results do not depend on which lane serves a read or when.
+- **Exact completion** (inexact_match.c:345-375) runs over interval lists of
+  capacity `xcap` (or `kx` when xcap == 0) with add_sa_interval merging; a
+  list that would exceed the capacity flags overflow.
+
+Any capacity overflow (ring budget, interval list, ACAP, path length,
+max_iters work units) ends the read at once with its flag set: callers
+discard and retry such reads, so their other outputs are reported as zero.
+
+On CUDA tensors `inexact_search_queued` launches the hand-written kernel
+(engine/kernel.py, csrc/ring_search.cu); the plain version here serves CPU
+tensors, the tests, and the on-card comparison against the kernel.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from bwbble_tpu_torch import constants as C
+from bwbble_tpu_torch.align.params import AlnParams
+from bwbble_tpu_torch.engine import index_device
+from bwbble_tpu_torch.engine.device_index import DeviceIndex
+from bwbble_tpu_torch.engine.intervals import expand_step
+from bwbble_tpu_torch.engine.rank import rank_all_dfs_pair
+
+MODE_DFS, MODE_EXACT, MODE_DONE = 0, 1, 2
+
+_MATCH = np.asarray(C.MATCH_MATRIX, dtype=np.int32)       # [5, 16]
+_IS_SNP = np.asarray(C.IS_SNP, dtype=np.int32)
+
+# meta1 bit layout: i(8) | mm(5) | go(3) | ge(4) | st(2) | plen(9)
+_SH_MM, _SH_GO, _SH_GE, _SH_ST, _SH_PLEN = 8, 13, 16, 20, 22
+
+NROOT = 1
+CHARS = tuple(j for j in range(1, 16) if j not in C.SKIPPED_ORDERS)
+NC = len(CHARS)
+NSLOT = 1 + 2 * NC
+NB_MAX = 1024         # score buckets of the device engine's domain
+# q_meta columns
+(META_NALN, META_OVER, META_LANE, META_WORK, META_RANK, META_FRD, META_FWR,
+ META_POPS) = range(8)
+
+
+def _pack1(i, mm, go, ge, st, plen):
+    return (i | (mm << _SH_MM) | (go << _SH_GO) | (ge << _SH_GE)
+            | (st << _SH_ST) | (plen << _SH_PLEN))
+
+
+def _unpack1(m):
+    return (m & 0xFF, (m >> _SH_MM) & 0x1F, (m >> _SH_GO) & 0x7,
+            (m >> _SH_GE) & 0xF, (m >> _SH_ST) & 0x3, (m >> _SH_PLEN) & 0x1FF)
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    cap: int = 32768          # arena rows per lane (bounds a read's pops)
+    acap: int = 24            # reported alignments per read
+    kx: int = 4               # exact-completion list capacity when xcap == 0
+    max_iters: int = 200_000  # safety bound on one read's work units
+    pathcap: int = 0          # reported path length bound (0 => Lmax + 32)
+    xcap: int = 0             # exact-completion interval-list capacity
+
+
+@dataclasses.dataclass(frozen=True)
+class RingStatics:
+    """Sizes derived from (params, cfg, shapes), shared by the kernel
+    wrapper and the plain version."""
+    NB: int
+    NFRAME: int
+    ACAP: int
+    XC: int
+    PATHCAP: int
+    PW: int
+    max_iters: int
+    Lmax: int
+    DS: int
+
+
+def ring_statics(params: AlnParams, cfg: EngineConfig, Lmax: int,
+                 DS: int) -> RingStatics:
+    if not params.is_multiref:
+        raise NotImplementedError(
+            "single-genome (-S) search is not ported yet")
+    p = params
+    if not (p.max_diff + 1 <= 31 and p.max_gapo + 1 <= 7
+            and p.max_gape + 1 <= 15):
+        raise ValueError("alignment parameters exceed the packed node word")
+    pathcap = int(cfg.pathcap) or (Lmax + 32)
+    if Lmax > 255 or pathcap > 511:
+        raise ValueError("reads longer than 255 or paths longer than 511")
+    cap = int(cfg.cap)
+    if (cap - NROOT) // NSLOT < 2:
+        raise ValueError(f"cfg.cap={cap} too small: need >= "
+                         f"{NROOT + 2 * NSLOT} rows")
+    nframe = (cap - NROOT) // NSLOT - 1
+    # prev links pack as (node + 1) << 8 into meta2's upper 24 bits; a lane
+    # restarts its pop clock at every read, so ids stay below this
+    if NROOT + (nframe + 1) * NSLOT >= (1 << 24):
+        raise ValueError("cfg.cap too large for 24-bit packed prev links")
+    nb = ((p.max_diff + 1) * p.mm_score + (p.max_gapo + 1) * p.gapo_score
+          + (p.max_gape + 1) * p.gape_score)
+    if not 0 < nb <= NB_MAX:
+        raise ValueError(f"{nb} score buckets: the search holds 1..{NB_MAX}")
+    xc = int(cfg.xcap) if int(cfg.xcap) > 0 else int(cfg.kx)
+    return RingStatics(NB=int(nb), NFRAME=nframe, ACAP=int(cfg.acap), XC=xc,
+                       PATHCAP=pathcap, PW=(pathcap + 3) // 4,
+                       max_iters=int(cfg.max_iters), Lmax=int(Lmax),
+                       DS=int(DS))
+
+
+def slot_states(nc: int = NC) -> np.ndarray:
+    """State appended by each candidate slot: [I, D*nc, M*nc]."""
+    return np.array([C.STATE_I] + [C.STATE_D] * nc + [C.STATE_M] * nc,
+                    dtype=np.int8)
+
+
+def pack_paths(paths: torch.Tensor) -> torch.Tensor:
+    """[..., PC] int8 state walks (values 0..3) -> [..., ceil(PC/4)] uint8,
+    2 bits per state (`unpack_paths` restores them host-side)."""
+    pc = paths.shape[-1]
+    pad = (-pc) % 4
+    if pad:
+        paths = torch.nn.functional.pad(paths, (0, pad))
+    g = paths.reshape(paths.shape[:-1] + ((pc + pad) // 4, 4)).to(torch.int32)
+    packed = (g[..., 0] | (g[..., 1] << 2) | (g[..., 2] << 4)
+              | (g[..., 3] << 6))
+    return packed.to(torch.uint8)
+
+
+def unpack_paths(packed: np.ndarray, pathcap: int) -> np.ndarray:
+    """Host-side inverse of pack_paths (vectorized numpy)."""
+    out = np.zeros(packed.shape[:-1] + (packed.shape[-1] * 4,),
+                   dtype=np.int8)
+    for i in range(4):
+        out[..., i::4] = (packed >> (2 * i)) & 3
+    return out[..., :pathcap]
+
+
+def _wrap32(x: torch.Tensor) -> torch.Tensor:
+    """int64 -> int32 with two's-complement wrap."""
+    return (((x + 2**31) % 2**32) - 2**31).to(torch.int32)
+
+
+def alloc_outputs(Q: int, S: RingStatics, device):
+    """Zeroed per-read result slabs: q_alns [Q, 7, ACAP] =
+    (L, U, score, len, node, m1, snp); q_meta [Q, 8] (META_* columns);
+    q_paths [Q, ACAP, PW] 2-bit packed reverse-order state walks."""
+    return (torch.zeros((Q, 7, S.ACAP), dtype=torch.int32, device=device),
+            torch.zeros((Q, 8), dtype=torch.int32, device=device),
+            torch.zeros((Q, S.ACAP, S.PW), dtype=torch.uint8, device=device))
+
+
+def result_dict(q_alns, q_meta, q_paths):
+    """The per-read result dict of inexact_search_queued.  Outputs of
+    overflowed reads are zeroed (only their flag and counters mean
+    anything)."""
+    over = q_meta[:, META_OVER] > 0
+    keep = (~over).to(torch.int32)
+    qa = q_alns * keep[:, None, None]
+    m1o = qa[:, 5]
+    return dict(
+        n_alns=q_meta[:, META_NALN] * keep,
+        o_L=qa[:, 0], o_U=qa[:, 1], o_score=qa[:, 2], o_len=qa[:, 3],
+        o_node=qa[:, 4], o_lane=q_meta[:, META_LANE],
+        o_mm=(m1o >> _SH_MM) & 0x1F,
+        o_go=(m1o >> _SH_GO) & 0x7,
+        o_ge=(m1o >> _SH_GE) & 0xF,
+        o_snp=qa[:, 6],
+        o_plen=(m1o >> _SH_PLEN) & 0x1FF,
+        overflow=over,
+        paths=q_paths * keep.to(torch.uint8)[:, None, None],
+        # per-read counters: work units (pops + exact chars), index-table
+        # rank rows read, frame rows read (pops + path walk) and written
+        n_work=q_meta[:, META_WORK], rank_rows=q_meta[:, META_RANK],
+        frame_rd=q_meta[:, META_FRD], frame_wr=q_meta[:, META_FWR],
+        pops=q_meta[:, META_POPS],
+    )
+
+
+# --------------------------------------------------------------------------
+# the plain PyTorch version
+# --------------------------------------------------------------------------
+
+def _plain_chunk(didx: DeviceIndex, rc, lengths, D, Ds, params: AlnParams,
+                 S: RingStatics, q_alns, q_meta, q_paths):
+    """Run one chunk of reads, one lane per read, in lockstep to completion;
+    fills the chunk's rows of the result slabs."""
+    dev = rc.device
+    B, Lmax = rc.shape
+    LEN = int(didx.length)
+    I32 = torch.int32
+    p = params
+    p_mm, p_go, p_ge = int(p.mm_score), int(p.gapo_score), int(p.gape_score)
+    p_maxdiff, p_maxgapo = int(p.max_diff), int(p.max_gapo)
+    p_maxgape, p_seedlen = int(p.max_gape), int(p.seed_length)
+    p_maxdiffseed, p_maxbest = int(p.max_diff_seed), int(p.max_best)
+    p_noindel, p_maxentries = int(p.no_indel_length), int(p.max_entries)
+    NB, NFRAME, ACAP, XC, PATHCAP = S.NB, S.NFRAME, S.ACAP, S.XC, S.PATHCAP
+    ROWP = NSLOT * 4 + 1               # frame row: slots + parent id
+    PAR = NSLOT * 4
+
+    def zi():
+        return torch.zeros((B,), dtype=I32, device=dev)
+
+    rc = rc.to(I32)
+    lengths = lengths.to(I32)
+    D = D.to(I32)
+    Ds = Ds.to(I32)
+    arena = torch.zeros((B, NFRAME * ROWP), dtype=I32, device=dev)
+    head = torch.full((B, NB), -1, dtype=I32, device=dev)
+    head[:, 0] = 0                     # the root node
+    n_open = torch.ones((B,), dtype=I32, device=dev)
+    best = torch.full((B,), NB, dtype=I32, device=dev)
+    maxd = torch.full((B,), p_maxdiff, dtype=I32, device=dev)
+    num_best, n_alns, pf, work = zi(), zi(), zi(), zi()
+    rank_rows, frame_rd, frame_wr = zi(), zi(), zi()
+    overflow = torch.zeros((B,), dtype=torch.bool, device=dev)
+    oA = torch.zeros((B, 7, ACAP), dtype=I32, device=dev)
+    xL = torch.zeros((B, XC), dtype=I32, device=dev)
+    xU = torch.full((B, XC), -1, dtype=I32, device=dev)
+    x_cnt, x_j, x_node, x_m1, x_m2 = zi(), zi(), zi(), zi(), zi()
+
+    # up-front N-count discard (inexact_match.c:259-266)
+    pos = torch.arange(Lmax, dtype=I32, device=dev)[None, :]
+    n_count = ((rc > 3) & (pos < lengths[:, None])).sum(dim=1)
+    mode = torch.where(n_count > p_maxdiff, MODE_DONE, MODE_DFS).to(I32)
+
+    col_a = torch.arange(ACAP, dtype=I32, device=dev)[None, :]
+    ar4 = torch.arange(4, dtype=torch.int64, device=dev)[None, :]
+    match_t = torch.from_numpy(_MATCH).to(dev)
+    states_t = torch.from_numpy(slot_states().astype(np.int32)).to(dev)
+
+    def score_of(mm, go, ge):
+        return mm * p_mm + go * p_go + ge * p_ge
+
+    def in_table(i):
+        """rank queries that read a table row (not the edge paths)."""
+        return ((i >= 0) & (i <= LEN - 2)).to(I32)
+
+    def emit_alns(ix, node, m1, m2, Ls, Us, cnt, extra_m):
+        """Record alignments for lanes `ix` (inexact_match.c:331-375 and
+        add_alignment's gap dedup, align.c:271-298); returns the lanes whose
+        read is finished (max_best stop or ACAP overflow)."""
+        _i, mm, go, ge, _st, plen = _unpack1(m1)
+        snp = m2 & 0xFF
+        score = score_of(mm, go, ge)
+        first = n_alns[ix] == 0
+        best[ix] = torch.where(first, score, best[ix])
+        maxd[ix] = torch.where(first, (mm + go + ge + 1).clamp(max=p_maxdiff),
+                               maxd[ix])
+        K = Ls.shape[1]
+        livek = torch.arange(K, dtype=I32, device=dev)[None, :] < cnt[:, None]
+        width = torch.where(livek, Us - Ls + 1, torch.zeros_like(Ls)
+                            ).sum(dim=1)
+        is_best = score == best[ix]
+        old = num_best[ix]
+        num_best[ix] = torch.where(is_best, _wrap32(old.long() + width), old)
+        fin = ~is_best & (old > p_maxbest)        # stop this read
+        oa = oA[ix]
+        na = n_alns[ix]
+        ovl = torch.zeros_like(fin)
+        add_len = plen + extra_m
+        for s in range(int(cnt.max())):
+            Lv, Uv = Ls[:, s], Us[:, s]
+            ok = ~fin & (s < cnt)
+            dup = ((oa[:, 0] == Lv[:, None]) & (oa[:, 1] == Uv[:, None])
+                   & (col_a < na[:, None])).any(dim=1)
+            ok = ok & ~(dup & (go > 0))
+            full = ok & (na >= ACAP)
+            ovl = ovl | full
+            fin = fin | full
+            ok = ok & ~full
+            rows = ok.nonzero()[:, 0]
+            if rows.numel():
+                vals = torch.stack([Lv, Uv, score, add_len, node, m1, snp],
+                                   dim=1)
+                oa[rows, :, na[rows].long()] = vals[rows]
+            na = na + ok.to(I32)
+        oA[ix] = oa
+        n_alns[ix] = na
+        overflow[ix] = overflow[ix] | ovl
+        return fin
+
+    def exact_step(ix):
+        """One character of the exact-completion scan for lanes `ix`."""
+        j = x_j[ix]
+        c = rc[ix, j.clamp(0, Lmax - 1).long()]
+        Ls, Us, cnt = xL[ix], xU[ix], x_cnt[ix]
+        live = ((torch.arange(XC, dtype=I32, device=dev)[None, :]
+                 < cnt[:, None]) & (c < 4)[:, None]).to(I32)
+        rank_rows[ix] += ((in_table(Ls - 1) + in_table(Us)) * live
+                          ).sum(dim=1).to(I32)
+        nL, nU, ncnt, _w, ov = expand_step(didx, Ls, Us, cnt, c)
+        work[ix] += 1
+        nj = j - 1
+        xL[ix], xU[ix], x_cnt[ix], x_j[ix] = nL, nU, ncnt, nj
+        overflow[ix] = overflow[ix] | ov
+        finished = ~ov & ((ncnt == 0) | (nj < 0))
+        matched = finished & (ncnt > 0)
+        new_mode = torch.where(ov, MODE_DONE,
+                               torch.where(finished, MODE_DFS, MODE_EXACT)
+                               ).to(I32)
+        mi = matched.nonzero()[:, 0]
+        if mi.numel():
+            lx = ix[mi]
+            # the scan consumed (e.i) chars => the path extends by e.i
+            # implicit matches (inexact_match.c:365)
+            fin = emit_alns(lx, x_node[lx], x_m1[lx], x_m2[lx], nL[mi],
+                            nU[mi], ncnt[mi], x_m1[lx] & 0xFF)
+            new_mode[mi] = torch.where(fin, MODE_DONE, MODE_DFS).to(I32)
+        mode[ix] = new_mode
+
+    def dfs_step(ix):
+        """One pop (prune / emit / start an exact completion / expand, link
+        and write the frame) for lanes `ix`."""
+        no = n_open[ix]
+        gone = (no == 0) | (no > p_maxentries)
+        mode[ix[gone]] = MODE_DONE
+        ix = ix[~gone]
+        if not ix.numel():
+            return
+        # ---- pop: lowest occupied bucket, most recent push (heap_pop)
+        h = head[ix]
+        bucket = (h >= 0).to(I32).argmax(dim=1).to(I32)
+        node = h.gather(1, bucket.long()[:, None])[:, 0]
+        isroot = node < NROOT
+        nn = (node - NROOT).clamp(min=0)
+        f = torch.div(nn, NSLOT, rounding_mode="floor")
+        s = nn - f * NSLOT
+        words = arena[ix[:, None], (f * ROWP + 4 * s).long()[:, None] + ar4]
+        eL = torch.where(isroot, 0, words[:, 0]).to(I32)
+        eU = torch.where(isroot, LEN - 1, words[:, 1]).to(I32)
+        m1 = torch.where(isroot, _pack1(lengths[ix], 0, 0, 0, C.STATE_M, 0),
+                         words[:, 2]).to(I32)
+        m2 = torch.where(isroot, 0, words[:, 3]).to(I32)
+        frame_rd[ix] += (~isroot).to(I32)
+        head[ix, bucket.long()] = ((m2 >> 8) & 0xFFFFFF) - 1   # 24-bit link
+        n_open[ix] -= 1
+        work[ix] += 1
+
+        stop = bucket > best[ix] + p_mm
+        mode[ix[stop]] = MODE_DONE
+        keep = ~stop
+        ix, node, eL, eU, m1, m2 = (v[keep] for v in
+                                    (ix, node, eL, eU, m1, m2))
+        if not ix.numel():
+            return
+        # this pop owns frame `pf` whether or not it pushes anything
+        myf = pf[ix]
+        base = NROOT + myf * NSLOT
+        pf[ix] += 1
+
+        ei, emm, ego, ege, est, eplen = _unpack1(m1)
+        esnp = m2 & 0xFF
+        Dx, Dsx, lenx = D[ix], Ds[ix], lengths[ix]
+
+        def Dp(arr, idx, w):
+            return arr[:, :, w].gather(
+                1, idx.clamp(0, arr.shape[1] - 1).long()[:, None])[:, 0]
+
+        # ---- prune chain (inexact_match.c:309-328)
+        diff_left = maxd[ix] - emm - ego - ege
+        D1n = Dp(Dx, ei - 1, 0)
+        dls = p_maxdiffseed - emm - ego - ege
+        seed_index = ei - (lenx - p_seedlen)
+        S1n = Dp(Dsx, seed_index - 1, 0)
+        cont = ((diff_left < 0) | ((ei > 0) & (diff_left < D1n))
+                | ((seed_index > 0) & (dls < S1n)))
+        live = ~cont
+
+        # ---- hit at i == 0 (inexact_match.c:332-344)
+        hit = live & (ei == 0)
+        hi = hit.nonzero()[:, 0]
+        if hi.numel():
+            lx = ix[hi]
+            fin = emit_alns(lx, node[hi], m1[hi], m2[hi], eL[hi][:, None],
+                            eU[hi][:, None],
+                            torch.ones_like(lx, dtype=I32),
+                            torch.zeros_like(lx, dtype=I32))
+            mode[lx] = torch.where(fin, MODE_DONE, MODE_DFS).to(I32)
+        live = live & ~hit
+
+        # ---- exact completion when the budget is exhausted (:345-375)
+        to_exact = live & (diff_left == 0)
+        ti = to_exact.nonzero()[:, 0]
+        if ti.numel():
+            lx = ix[ti]
+            mode[lx] = MODE_EXACT
+            x_node[lx], x_m1[lx], x_m2[lx] = node[ti], m1[ti], m2[ti]
+            x_j[lx] = ei[ti] - 1
+            x_cnt[lx] = 1
+            nl = torch.zeros((ti.numel(), XC), dtype=I32, device=dev)
+            nu = torch.full((ti.numel(), XC), -1, dtype=I32, device=dev)
+            nl[:, 0] = eL[ti]
+            nu[:, 0] = eU[ti]
+            xL[lx], xU[lx] = nl, nu
+        live = live & ~to_exact
+
+        # ---- expansion (inexact_match.c:377-504)
+        path_over = live & (eplen + 1 >= PATHCAP)
+        po = ix[path_over]
+        overflow[po] = True
+        mode[po] = MODE_DONE
+        live = live & ~path_over
+        (ix, node, eL, eU, ei, emm, ego, ege, est, eplen, esnp, diff_left,
+         D1n, dls, seed_index, S1n, Dx, Dsx, lenx, myf, base) = (
+            v[live] for v in (ix, node, eL, eU, ei, emm, ego, ege, est,
+                              eplen, esnp, diff_left, D1n, dls, seed_index,
+                              S1n, Dx, Dsx, lenx, myf, base))
+        n = ix.numel()
+        if not n:
+            return
+        Lv, Uv = rank_all_dfs_pair(didx, eL - 1, eU)
+        rank_rows[ix] += in_table(eL - 1) + in_table(eU)
+
+        D2n = Dp(Dx, ei - 2, 0)
+        D1w, D2w = Dp(Dx, ei - 1, 1), Dp(Dx, ei - 2, 1)
+        S2n = Dp(Dsx, seed_index - 2, 0)
+        S1w, S2w = Dp(Dsx, seed_index - 1, 1), Dp(Dsx, seed_index - 2, 1)
+        pm = ei - 1 > 0
+        ad1 = diff_left - 1 < D2n
+        am1 = ((D1n == diff_left - 1) & (D2n == diff_left - 1)
+               & (D1w == D2w))
+        ps = seed_index - 1 > 0
+        ad2 = dls - 1 < S2n
+        am2 = (S1n == dls - 1) & (S2n == dls - 1) & (S1w == S2w)
+        allow_diff = ~(pm & ad1) & ~(ps & ad2)
+        allow_mm = ~(pm & ~ad1 & am1) & ~(ps & ~ad2 & am2)
+
+        tmp = ego + ege
+        allow_indels = ~(((ei - 1) < (p_noindel + tmp))
+                         | ((lenx - (ei - 1)) < (p_noindel + tmp)))
+        allow_indels = allow_indels & ~((ego >= p_maxgapo)
+                                        & (ege >= p_maxgape))
+        allow_open = ego < p_maxgapo
+        allow_extend = ege < p_maxgape
+        c = rc[ix, (ei - 1).clamp(0, Lmax - 1).long()].clamp(0, 4)
+        is_I = est == C.STATE_I
+        is_M = est == C.STATE_M
+        ind_ok = allow_diff & allow_indels
+        nplen = eplen + 1
+
+        candL = torch.zeros((n, NSLOT), dtype=I32, device=dev)
+        candU = torch.zeros((n, NSLOT), dtype=I32, device=dev)
+        candM1 = torch.zeros((n, NSLOT), dtype=I32, device=dev)
+        candSc = torch.zeros((n, NSLOT), dtype=I32, device=dev)
+        candSnp = esnp[:, None].repeat(1, NSLOT)
+        valid = torch.zeros((n, NSLOT), dtype=torch.bool, device=dev)
+
+        # slot 0: insertion (extend if state == I else open if state == M)
+        valid[:, 0] = ind_ok & ((is_I & allow_extend) | (is_M & allow_open))
+        candL[:, 0], candU[:, 0] = eL, eU
+        go0 = ego + is_M.to(I32)
+        ge0 = ege + is_I.to(I32)
+        candM1[:, 0] = _pack1(ei - 1, emm, go0, ge0, C.STATE_I, nplen)
+        candSc[:, 0] = score_of(emm, go0, ge0)
+
+        match_row = match_t[c.long()]                     # [n, 16]
+        mm_branch = allow_diff & allow_mm
+        god = ego + is_M.to(I32)
+        ged = ege + (~is_M).to(I32)
+        for t, j in enumerate(CHARS):
+            Lj, Uj = Lv[:, j], Uv[:, j]
+            nonempty = Lj <= Uj
+            # deletion: consumes a reference char, keeps i
+            sd = 1 + t
+            valid[:, sd] = (ind_ok & ~is_I & nonempty
+                            & ((is_M & allow_open) | (~is_M & allow_extend)))
+            candL[:, sd], candU[:, sd] = Lj, Uj
+            candM1[:, sd] = _pack1(ei, emm, god, ged, C.STATE_D, nplen)
+            candSc[:, sd] = score_of(emm, god, ged)
+            # match/mismatch (or exact-only continuation when mismatches
+            # are suppressed)
+            is_match = ((c <= 3) & (match_row[:, j] > 0)
+                        & torch.tensor(j != C.ORDER_N, device=dev))
+            ok_mm = mm_branch & nonempty
+            ok_ex = ~mm_branch & (c < 4) & is_match & nonempty
+            sm = 1 + NC + t
+            valid[:, sm] = ok_mm | ok_ex
+            candL[:, sm], candU[:, sm] = Lj, Uj
+            mmn = emm + (ok_mm & ~is_match).to(I32)
+            candM1[:, sm] = _pack1(ei - 1, mmn, ego, ege, C.STATE_M, nplen)
+            candSc[:, sm] = score_of(mmn, ego, ege)
+            candSnp[:, sm] = (esnp + int(_IS_SNP[j])) & 0xFF
+
+        # sequential LIFO push of slots 0..NSLOT-1 into the score buckets
+        # (inexact_match.c:510-610)
+        hsub = head[ix]
+        candM2 = torch.zeros((n, NSLOT), dtype=I32, device=dev)
+        for sl in range(NSLOT):
+            v = valid[:, sl]
+            b = candSc[:, sl].clamp(0, NB - 1).long()[:, None]
+            prev_s = hsub.gather(1, b)[:, 0]
+            candM2[:, sl] = candSnp[:, sl] | _wrap32(
+                (prev_s.long() + 1) << 8)
+            hsub.scatter_(1, b, torch.where(v, base + sl, prev_s)[:, None])
+        head[ix] = hsub
+        total = valid.sum(dim=1).to(I32)
+        # invalid slots still occupy the row; they are simply never linked
+        frow = torch.cat(
+            [torch.stack([candL, candU, candM1, candM2], dim=2
+                         ).reshape(n, NSLOT * 4), node[:, None]], dim=1)
+        cols = (myf * ROWP).long()[:, None] + torch.arange(
+            ROWP, dtype=torch.int64, device=dev)[None, :]
+        arena[ix[:, None], cols] = frow
+        frame_wr[ix] += (total > 0).to(I32)
+        n_open[ix] += total
+
+    # ------------------------------------------------------------ main loop
+    while True:
+        act = mode != MODE_DONE
+        if not bool(act.any()):
+            break
+        # ring budget (NFRAME of the read's own pops) and work bound
+        ov = act & ((pf >= NFRAME) | (work >= S.max_iters))
+        overflow |= ov
+        mode = torch.where(ov, MODE_DONE, mode).to(I32)
+        ex = (mode == MODE_EXACT).nonzero()[:, 0]
+        df = (mode == MODE_DFS).nonzero()[:, 0]
+        if ex.numel():
+            exact_step(ex)
+        if df.numel():
+            dfs_step(df)
+
+    # ---- walk the parent chains of the reported alignments: entry t is
+    # the state of the t-th ancestor (node first, root excluded)
+    paths = torch.zeros((B, ACAP, PATHCAP), dtype=torch.int8, device=dev)
+    cur = torch.where((col_a < n_alns[:, None]) & ~overflow[:, None],
+                      oA[:, 4, :], -1).to(I32)
+    lane_col = torch.arange(B, device=dev)[:, None]
+    for t in range(PATHCAP):
+        alive = cur >= NROOT
+        if not bool(alive.any()):
+            break
+        nn = (cur - NROOT).clamp(min=0)
+        f = torch.div(nn, NSLOT, rounding_mode="floor")
+        s = nn - f * NSLOT
+        par = arena[lane_col, (f * ROWP + PAR).long()]
+        paths[:, :, t] = torch.where(alive, states_t[s.long()], 0
+                                     ).to(torch.int8)
+        frame_rd += alive.sum(dim=1).to(I32)
+        cur = torch.where(alive, par, -1).to(I32)
+
+    q_alns.copy_(oA)
+    q_paths.copy_(pack_paths(paths))
+    q_meta[:, META_NALN] = n_alns
+    q_meta[:, META_OVER] = overflow.to(I32)
+    q_meta[:, META_LANE] = torch.arange(B, dtype=I32, device=dev)
+    q_meta[:, META_WORK] = work
+    q_meta[:, META_RANK] = rank_rows
+    q_meta[:, META_FRD] = frame_rd
+    q_meta[:, META_FWR] = frame_wr
+    q_meta[:, META_POPS] = pf
+
+
+def ring_search_plain(didx: DeviceIndex, rc_all, lengths_all, D_all, Ds_all,
+                      params: AlnParams, cfg: EngineConfig, lanes: int):
+    """The plain PyTorch version of the ring search: same inputs, outputs
+    and per-read semantics as the CUDA kernel.
+
+    Per-read results do not depend on which lane serves a read or when, so
+    this version gives every read a lane of its own and has no refill:
+    reads run in chunks of `lanes`, each chunk in lockstep to completion
+    (active lanes are compacted every iteration).  That bounds the arena
+    to `lanes` columns, as in the kernel."""
+    Q, Lmax = rc_all.shape
+    S = ring_statics(params, cfg, Lmax, Ds_all.shape[1])
+    q_alns, q_meta, q_paths = alloc_outputs(Q, S, rc_all.device)
+    lanes = max(1, int(lanes))
+    for s in range(0, Q, lanes):
+        e = min(s + lanes, Q)
+        _plain_chunk(didx, rc_all[s:e], lengths_all[s:e], D_all[s:e],
+                     Ds_all[s:e], params, S, q_alns[s:e], q_meta[s:e],
+                     q_paths[s:e])
+    return result_dict(q_alns, q_meta, q_paths)
+
+
+def inexact_search_queued(didx: DeviceIndex, rc_all, lengths_all, D_all,
+                          Ds_all, params: AlnParams, cfg: EngineConfig,
+                          lanes: int, seed_L=None, seed_U=None,
+                          seed_cnt=None, device=None):
+    """Continuous-batching search: `lanes` lanes stream through all NR reads
+    (global work queue, queue order = the order given); outputs are per-read
+    [NR, ...] tensors on the device.
+
+    Args:
+      rc_all:      int8/int32 [NR, Lmax] nt4 reverse-complement reads (the
+                   search operates on the RC, inexact_match.c:59-65).
+      lengths_all: int32 [NR].
+      D_all/Ds_all: int32 [NR, *, 2] lower bounds from engine.dbound.
+      device:      None means CUDA (raises without one); the tensors and the
+                   index must live there.  On a CUDA device the hand-written
+                   kernel is launched; the plain version runs only for CPU
+                   tensors.
+    """
+    if seed_L is not None or seed_U is not None or seed_cnt is not None:
+        raise NotImplementedError(
+            "seeded (-P, NROOT > 1) search is not ported yet")
+    dev = index_device(didx, device)
+    rc_all = torch.as_tensor(rc_all).to(dev).to(torch.int8).contiguous()
+    lengths_all = torch.as_tensor(lengths_all).to(dev).to(
+        torch.int32).contiguous()
+    D_all = torch.as_tensor(D_all).to(dev).to(torch.int32).contiguous()
+    Ds_all = torch.as_tensor(Ds_all).to(dev).to(torch.int32).contiguous()
+    if dev.type == "cpu":
+        return ring_search_plain(didx, rc_all, lengths_all, D_all, Ds_all,
+                                 params, cfg, lanes)
+    from bwbble_tpu_torch.engine import kernel
+    return kernel.ring_search(didx, rc_all, lengths_all, D_all, Ds_all,
+                              params, cfg, lanes)

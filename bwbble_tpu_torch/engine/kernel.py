@@ -1,0 +1,157 @@
+"""Build, bind and launch the hand-written CUDA kernels of the port.
+
+Counterpart of bwbble_tpu/engine/kernel.py: `ring_search` takes the place of
+`run_loop_resident_queued` driving `_resident_kernel` in ring mode.  The
+kernel source is csrc/ring_search.cu; its plain PyTorch version is
+engine/inexact.py:ring_search_plain.
+
+Build: at first use, `nvcc` compiles the source for sm_90a into a shared
+library with a plain C interface under `build/` at the repository root,
+named by a content hash of the source so a stale build is never loaded; the
+library is bound with ctypes.  A build or load failure raises.  Nothing here
+runs when the module is imported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import threading
+
+import numpy as np
+import torch
+
+from bwbble_tpu_torch.align.params import AlnParams
+from bwbble_tpu_torch.engine.device_index import DeviceIndex
+from bwbble_tpu_torch.engine.inexact import (EngineConfig, alloc_outputs,
+                                             result_dict, ring_statics)
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+CSRC = os.path.join(os.path.dirname(_HERE), "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "build")
+ROWW = 128                 # int32 words per frame row (RS_ROWW in the .cu)
+
+# launches per kernel, incremented where a kernel is launched and nowhere
+# else (a run can show that its path went through the kernels)
+LAUNCHES = {"ring_search": 0}
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    cand = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                        "bin", "nvcc")
+    return cand if os.path.exists(cand) else "nvcc"
+
+
+def build(name: str = "ring_search") -> str:
+    """Compile csrc/<name>.cu into build/lib<name>_<hash>.so (if not there
+    yet) and return the library's path; the compiler's report (registers,
+    stack, spills) is kept beside it as <library>.log."""
+    src = os.path.join(CSRC, name + ".cu")
+    with open(src, "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+    out = os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
+    if os.path.exists(out):
+        return out
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+           "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+           "-o", tmp, src]
+    r = subprocess.run(cmd, capture_output=True, text=True)
+    if r.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {src}:\n{r.stdout}\n{r.stderr}")
+    with open(out + ".log", "w") as f:
+        f.write(r.stderr)
+    os.replace(tmp, out)
+    return out
+
+
+def _load(name: str = "ring_search") -> ctypes.CDLL:
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(build(name))
+            vp = ctypes.c_void_p
+            lib.ring_search_launch.argtypes = [vp, ctypes.c_int] + [vp] * 13
+            lib.ring_search_launch.restype = ctypes.c_int
+            lib.ring_search_num_params.argtypes = []
+            lib.ring_search_num_params.restype = ctypes.c_int
+            _libs[name] = lib
+        return lib
+
+
+def _check(t: torch.Tensor, name: str, dtype, ndim: int, dev) -> None:
+    if not (t.is_cuda and t.device == dev and t.dtype == dtype
+            and t.dim() == ndim and t.is_contiguous()):
+        raise ValueError(
+            f"ring_search: `{name}` must be a contiguous {ndim}-d {dtype} "
+            f"CUDA tensor on {dev}; got {t.dtype} {tuple(t.shape)} on "
+            f"{t.device}")
+
+
+def ring_search(didx: DeviceIndex, rc_all: torch.Tensor,
+                lengths_all: torch.Tensor, D_all: torch.Tensor,
+                Ds_all: torch.Tensor, params: AlnParams, cfg: EngineConfig,
+                lanes: int) -> dict:
+    """Launch the ring-search kernel on CUDA tensors; returns the per-read
+    result dict (engine/inexact.py:result_dict) of device tensors.  Does not
+    synchronise.  Raises for anything the kernel does not take — there is
+    no fallback to the plain version."""
+    dev = didx.table.device
+    if dev.type != "cuda":
+        raise ValueError("ring_search launches a CUDA kernel: the index "
+                         f"lives on {dev}")
+    _check(didx.table, "table", torch.int32, 2, dev)
+    _check(didx.Carr, "Carr", torch.int32, 1, dev)
+    _check(rc_all, "rc", torch.int8, 2, dev)
+    _check(lengths_all, "lengths", torch.int32, 1, dev)
+    _check(D_all, "D", torch.int32, 3, dev)
+    _check(Ds_all, "Ds", torch.int32, 3, dev)
+    Q, Lmax = rc_all.shape
+    if (didx.table.shape[1] != 32 or didx.Carr.shape[0] != 17
+            or lengths_all.shape[0] != Q
+            or tuple(D_all.shape) != (Q, Lmax + 1, 2)
+            or D_all.shape[0] != Ds_all.shape[0] or Ds_all.shape[2] != 2):
+        raise ValueError("ring_search: inconsistent input shapes")
+    if int(didx.length) < 2 or Q < 1:
+        raise ValueError("ring_search: empty index or read set")
+    S = ring_statics(params, cfg, Lmax, Ds_all.shape[1])
+    lanes = max(1, min(int(lanes), Q))
+    lib = _load()
+    p = params
+    hp = np.array(
+        [p.mm_score, p.gapo_score, p.gape_score, p.max_diff, p.max_gapo,
+         p.max_gape, p.seed_length, p.max_diff_seed, p.max_best,
+         p.no_indel_length, min(int(p.max_entries), 2**31 - 1),
+         S.NB, S.NFRAME, S.ACAP, S.XC, S.PATHCAP, S.max_iters,
+         Q, Lmax, S.DS, int(didx.length), lanes, S.PW],
+        dtype=np.int32)
+    if hp.size != lib.ring_search_num_params():
+        raise RuntimeError("ring_search: parameter block out of date")
+
+    with torch.cuda.device(dev):
+        q_alns, q_meta, q_paths = alloc_outputs(Q, S, dev)
+        arena = torch.empty((lanes, S.NFRAME, ROWW), dtype=torch.int32,
+                            device=dev)
+        xlist = torch.empty((lanes, 2, S.XC, 2), dtype=torch.int32,
+                            device=dev)
+        counter = torch.zeros((1,), dtype=torch.int32, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.ring_search_launch(
+            hp.ctypes.data, hp.size, didx.table.data_ptr(),
+            didx.Carr.data_ptr(), rc_all.data_ptr(), lengths_all.data_ptr(),
+            D_all.data_ptr(), Ds_all.data_ptr(), arena.data_ptr(),
+            xlist.data_ptr(), counter.data_ptr(), q_alns.data_ptr(),
+            q_meta.data_ptr(), q_paths.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"ring_search: launch failed with CUDA error {rc}")
+    LAUNCHES["ring_search"] += 1
+    # the scratch tensors stay referenced by the caching allocator's stream
+    # ordering: later allocations on this stream cannot reuse them before
+    # the kernel has finished
+    return result_dict(q_alns, q_meta, q_paths)

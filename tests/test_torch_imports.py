@@ -1,0 +1,119 @@
+"""The port imports neither jax nor the JAX package, and it never carries on
+on the CPU by itself: with no CUDA device, entry points that are not told
+`device="cpu"` raise."""
+
+import os
+import pkgutil
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import bwbble_tpu_torch
+from bwbble_tpu_torch import worlds
+from bwbble_tpu_torch.align.params import AlnParams
+from bwbble_tpu_torch.engine import kernel
+from bwbble_tpu_torch.engine.dbound import calc_d
+from bwbble_tpu_torch.engine.device_index import from_fmindex
+from bwbble_tpu_torch.engine.inexact import (EngineConfig,
+                                             inexact_search_queued)
+from bwbble_tpu_torch.engine.pipeline import align_reads_device
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _submodules():
+    return sorted(m.name for m in pkgutil.walk_packages(
+        bwbble_tpu_torch.__path__, "bwbble_tpu_torch."))
+
+
+def test_importing_every_submodule_pulls_in_no_jax():
+    mods = [m for m in _submodules() if not m.endswith("__main__")]
+    assert len(mods) > 20
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}:\n"
+            "    importlib.import_module(m)\n"
+            "bad = [m for m in sys.modules if m == 'jax' or "
+            "m.startswith('jax.') or m == 'bwbble_tpu' or "
+            "m.startswith('bwbble_tpu.')]\n"
+            "print('BAD', bad)\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert "BAD []" in r.stdout, r.stdout
+
+
+def test_sources_name_neither_jax_nor_the_jax_package():
+    pat = re.compile(r"^\s*(import|from)\s+(jax|bwbble_tpu)(\.|\s|$)",
+                     re.M)
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, names in os.walk(os.path.join(ROOT, "bwbble_tpu_torch")):
+        files += [os.path.join(d, n) for n in names if n.endswith(".py")]
+    for path in files:
+        with open(path) as f:
+            assert not pat.search(f.read()), path
+
+
+@pytest.fixture(scope="module")
+def small():
+    idx, reads = worlds.mixed_world(n_reads=8)
+    return idx, reads
+
+
+def test_default_device_raises_without_cuda(small):
+    if torch.cuda.is_available():
+        pytest.skip("this check is for a machine without a CUDA device")
+    idx, reads = small
+    with pytest.raises(RuntimeError, match="CUDA"):
+        from_fmindex(idx)
+    didx = from_fmindex(idx, device="cpu")
+    assert didx.table.device.type == "cpu"
+    seq = np.asarray(reads.seq, dtype=np.int8)
+    ln = reads.lengths.astype(np.int32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        calc_d(didx, seq, ln, K=2)
+    D, _ = calc_d(didx, seq, ln, K=2, device="cpu")
+    Ds = torch.zeros((reads.count, 33, 2), dtype=torch.int32)
+    p = AlnParams(max_diff=1, batch_size=4)
+    cfg = EngineConfig(cap=512)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        inexact_search_queued(didx, np.asarray(reads.rc, dtype=np.int8), ln,
+                              D, Ds, p, cfg, lanes=4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        align_reads_device(idx, didx, reads, p, cfg, queued=True)
+
+
+def test_kernel_wrapper_never_runs_the_plain_version(small):
+    """The kernel's wrapper launches or raises: given CPU tensors it
+    refuses, it does not fall back."""
+    idx, reads = small
+    didx = from_fmindex(idx, device="cpu")
+    ln = torch.from_numpy(reads.lengths.astype(np.int32))
+    rc = torch.from_numpy(np.asarray(reads.rc, dtype=np.int8))
+    D = torch.zeros((reads.count, reads.max_len + 1, 2), dtype=torch.int32)
+    Ds = torch.zeros((reads.count, 33, 2), dtype=torch.int32)
+    before = dict(kernel.LAUNCHES)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernel.ring_search(didx, rc, ln, D, Ds, AlnParams(max_diff=1),
+                           EngineConfig(cap=512), lanes=4)
+    assert kernel.LAUNCHES == before
+
+
+def test_unported_paths_raise_not_implemented(small):
+    idx, reads = small
+    didx = from_fmindex(idx, device="cpu")
+    cfg = EngineConfig(cap=512)
+    with pytest.raises(NotImplementedError, match="fixed-batch"):
+        align_reads_device(idx, didx, reads, AlnParams(max_diff=1), cfg,
+                           queued=False, device="cpu")
+    with pytest.raises(NotImplementedError, match="-S|single-genome"):
+        align_reads_device(idx, didx, reads,
+                           AlnParams(max_diff=1, is_multiref=False), cfg,
+                           queued=True, device="cpu")
+    with pytest.raises(NotImplementedError, match="-P"):
+        align_reads_device(idx, didx, reads,
+                           AlnParams(max_diff=1, use_precalc=True), cfg,
+                           queued=True, device="cpu")
