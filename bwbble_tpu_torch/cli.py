@@ -1,11 +1,11 @@
 """`bwbble` command-line interface of the PyTorch/CUDA port.
 
-Counterpart of bwbble_tpu/cli.py: subcommands `index`, `fasta2ref` and
-`align` with the reference's single-letter flags and positional arguments
-(mg-aligner/main.c:72-160) and the same derived file names
+Counterpart of bwbble_tpu/cli.py: subcommands `index`, `fasta2ref`, `align`,
+`aln2sam` and `eval` with the reference's single-letter flags and positional
+arguments (mg-aligner/main.c:72-160) and the same derived file names
 (`<fasta>.{ref,ann,bwt}`).  Engine options are long options only (--engine,
 --batch, --arena, --queued, --device), so every reference invocation works
-verbatim.  `aln2sam` and `eval` are not ported yet.
+verbatim.  `-P`, `--mesh` and `--dist` are not ported yet.
 
 Run as `python -m bwbble_tpu_torch ...`.
 """
@@ -25,6 +25,8 @@ def _usage() -> int:
     print("         align    exact or inexact read alignment")
     print("         fasta2ref    constructs a single linear reference "
           "from the input file")
+    print("         aln2sam  convert alignment results to SAM file format "
+          "for single-end mapping")
     return 1
 
 
@@ -114,8 +116,7 @@ def cmd_align(argv: list[str]) -> int:
         if o in flag_kw:
             kw[flag_kw[o]] = int(v)
         elif o == "-S":
-            raise NotImplementedError(
-                "-S single-genome mode is not ported yet")
+            kw["is_multiref"] = False
         elif o == "-P":
             raise NotImplementedError(
                 "-P seeded search (align/precalc.py) is not ported yet")
@@ -161,6 +162,94 @@ def cmd_align(argv: list[str]) -> int:
     return 0
 
 
+def device_sa_resolver(idx, device=None):
+    """rows -> text positions through lockstep invPsi walks on the device
+    (engine/rank.py:sa_resolve; reference hot path bwt.c:320-329).  `device`
+    None means CUDA, and without one this raises: there is no fallback to
+    the host loop."""
+    import torch
+
+    from bwbble_tpu_torch.engine.device_index import from_fmindex
+    from bwbble_tpu_torch.engine.rank import sa_resolve
+    didx = from_fmindex(idx, device=device)
+
+    def resolve(rows):
+        rows = np.asarray(rows, dtype=np.int64)
+        if rows.shape[0] == 0:
+            return rows
+        out = sa_resolve(didx, torch.from_numpy(rows.astype(np.int32)))
+        return out.cpu().numpy().astype(np.int64)
+    return resolve
+
+
+def cmd_aln2sam(argv: list[str]) -> int:
+    from bwbble_tpu_torch.align.pipeline import alns_to_sam
+    from bwbble_tpu_torch.formats.aln import read_aln_file
+    from bwbble_tpu_torch.formats.fasta import read_ann
+    from bwbble_tpu_torch.formats.fastq import read_fastq
+    from bwbble_tpu_torch.index.fmindex import FMIndex
+
+    try:
+        opts, args = getopt.gnu_getopt(argv, "n:So", ["device="])
+    except getopt.GetoptError as e:
+        print(e)
+        return 1
+    if len(args) < 4:
+        print("Usage: bwbble aln2sam [-S, -n] <seq_fasta> <reads_fastq> "
+              "<alns_aln> <out_sam>")
+        return 1
+    max_diff = 6
+    device = None
+    for o, v in opts:
+        if o == "-n":
+            max_diff = int(v)
+        elif o == "--device":
+            device = v
+    fasta, fastq, alnf, samf = args[:4]
+    idx = FMIndex.load(fasta + ".bwt", load_sa=True)
+    ann = read_ann(fasta + ".ann")
+    reads = read_fastq(fastq)
+    per_read = read_aln_file(alnf)
+    # SA rows resolve on the device in one batch (`--device cpu`: the same
+    # ops on CPU tensors)
+    sam = alns_to_sam(idx, ann, reads, per_read, max_diff=max_diff,
+                      sa_resolver=device_sa_resolver(idx, device))
+    with open(samf, "w") as f:
+        f.write(sam)
+    return 0
+
+
+def cmd_eval(argv: list[str]) -> int:
+    """Simulation-truth evaluation (eval_alns, align.c:655-722; not exposed
+    by the reference CLI)."""
+    from bwbble_tpu_torch.align.evaluate import eval_alns
+    from bwbble_tpu_torch.formats.aln import read_aln_file
+    from bwbble_tpu_torch.formats.fastq import read_fastq
+    from bwbble_tpu_torch.index.fmindex import FMIndex
+
+    try:
+        opts, args = getopt.gnu_getopt(argv, "n:S")
+    except getopt.GetoptError as e:
+        print(e)
+        return 1
+    if len(args) < 3:
+        print("Usage: bwbble eval [-S, -n] <seq_fasta> <reads_fastq> "
+              "<alns_aln>")
+        return 1
+    is_multiref, max_diff = True, 6
+    for o, v in opts:
+        if o == "-S":
+            is_multiref = False
+        elif o == "-n":
+            max_diff = int(v)
+    print("**** BWBBLE Alignment Evaluation ****")
+    idx = FMIndex.load(args[0] + ".bwt", load_sa=True)
+    reads = read_fastq(args[1])
+    eval_alns(idx, reads, read_aln_file(args[2]), is_multiref=is_multiref,
+              max_diff=max_diff)
+    return 0
+
+
 def main(argv: list[str] | None = None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     if not argv:
@@ -172,10 +261,10 @@ def main(argv: list[str] | None = None) -> int:
         return cmd_align(rest)
     if cmd == "fasta2ref":
         return cmd_fasta2ref(rest)
-    if cmd in ("aln2sam", "eval"):
-        raise NotImplementedError(
-            f"`{cmd}` (device SA resolution, rank.sa_resolve) is not "
-            "ported yet")
+    if cmd == "aln2sam":
+        return cmd_aln2sam(rest)
+    if cmd == "eval":
+        return cmd_eval(rest)
     print(f"Error: Unknown command '{cmd}'")
     return _usage()
 

@@ -1,25 +1,39 @@
-// ring_search.cu — the queued ("ring") inexact search as one CUDA kernel.
+// ring_search.cu — the inexact search as one CUDA kernel, in two launch
+// modes (ring queue, fixed batch) and for two alphabets (the 16-letter
+// multi-genome, the 4-letter single genome of `-S`): four instantiations of
+// one template.
 //
-// Replaces: bwbble_tpu/engine/kernel.py:_resident_kernel in ring mode, with
-// its compute core _iter_math (_rank16, _exact_cands, _merge_compact,
-// _merge_groups_tail, _emit) and the flush-time path walk of
-// bwbble_tpu/engine/inexact.py:switch_step, which the TPU ran between kernel
-// segments.  Seen from outside it is the same function: per read, the
-// alignments the score-bucketed best-first DFS (inexact_match.c:256-506)
-// reports, in discovery order, with their packed state paths.
+// Replaces: bwbble_tpu/engine/kernel.py:_resident_kernel, in ring mode
+// (driven by run_loop_resident_queued) and in fixed-batch mode (driven by
+// run_loop_resident), with its compute core _iter_math (_rank16,
+// _exact_cands, _merge_compact, _merge_groups_tail, _emit) and the path walk
+// the TPU ran outside the kernel (the flush-time walk of
+// bwbble_tpu/engine/inexact.py:switch_step; walk_paths after a fixed batch).
+// Seen from outside it is the same function: per read, the alignments the
+// score-bucketed best-first DFS (inexact_match.c:256-506) reports, in
+// discovery order, with their packed state paths.
 //
-// Design: one thread per lane runs its reads to completion.  A lane takes
-// the next read id from a global counter (atomicAdd keeps the caller's
-// hardest-first queue order), initialises, loops
+// Design: one thread per lane runs its reads to completion.  In ring mode a
+// lane takes the next read id from a global counter (atomicAdd keeps the
+// caller's hardest-first queue order); in fixed mode lane b runs read b and
+// nothing else.  For a read the lane initialises, loops
 //   pop -> prune -> emit | exact-complete | expand -> link -> write frame,
-// then walks the parent chains of the read's reported alignments, writes the
-// per-read outputs and takes the next read.  A lane restarts its pop clock at
-// every read (it has already walked the finished read's chains), so the
-// lane's arena column is used as a plain array of NFRAME frame rows and a
-// read overflows exactly when it needs more than NFRAME of its own pops —
-// the per-read ring budget of the TPU engine.  Any capacity overflow ends
-// the read at once with its overflow flag set: callers discard and retry
+// then walks the parent chains of the read's reported alignments and writes
+// the per-read outputs.  A lane restarts its pop clock at every read (it has
+// already walked the finished read's chains), so the lane's arena column is
+// a plain array of NFRAME frame rows and a read's frame budget is NFRAME of
+// its own pops.  Ring mode flags a read that is not finished right after
+// its NFRAME-th pop; fixed mode flags a read that attempts one more pop
+// after NFRAME (engine/inexact.py states both rules).  Any capacity overflow
+// ends the read at once with its reason bit set: callers discard and retry
 // such reads, so nothing after the flag is observable.
+//
+// The alphabet is a compile-time parameter so that the expansion loops
+// unroll and the rank vectors stay in registers: NC = 11 codes, NSLOT = 23
+// and 128-word frame rows for a multi-genome; NC = 4, NSLOT = 9 and 40-word
+// rows (37 used) for a single genome, where every code is a pure base, so
+// the IUPAC match test reduces to equality, no code counts as a SNP, and an
+// exact completion keeps one interval.
 //
 // What bounds it on an H100: every pop is a chain of dependent random reads
 // — the popped node's 16-byte slot of a 512-byte frame row, then two
@@ -44,18 +58,22 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <string.h>
+#include <utility>
 
-#define RS_ROWW 128          // int32 words per frame row (512 bytes)
-#define RS_NC 11             // non-skipped IUPAC codes
-#define RS_NSLOT 23          // 1 insertion + NC deletions + NC matches
 #define RS_NROOT 1
-#define RS_PARENT (RS_NSLOT * 4)   // frame-row word holding the parent id
 #define RS_WARP 32           // threads per lane: each lane owns a warp
 #define RS_BLOCK_LANES 4     // lanes (warps) per thread block
 
 #define STATE_M 0
 #define STATE_I 1
 #define STATE_D 2
+
+// overflow reasons (engine/inexact.py OV_*)
+#define OV_LIST 1
+#define OV_ACAP 2
+#define OV_PATH 4
+#define OV_FRAMES 8
+#define OV_WORK 16
 
 // int32 fields, filled from a host int array in this order
 struct RSParams {
@@ -82,9 +100,47 @@ __host__ __device__ constexpr bool is_order_n(int j) {
     return gray_val(j) == 15;
 }
 // nt4 base (A=0, G=1, C=2, T=3) -> bitmask (A=8, C=4, G=2, T=1)
-__device__ __forceinline__ int base_mask(int c) {
+__host__ __device__ constexpr int base_mask(int c) {
     return c == 0 ? 8 : (c == 1 ? 2 : (c == 2 ? 4 : 1));
 }
+// nt4 base -> the code of the pure base (constants.py NT4_GRAY)
+__host__ __device__ constexpr int pure_code(int c) {
+    int r = 0;
+    for (int j = 1; j < 16; j++)
+        if (gray_val(j) == base_mask(c)) r = j;
+    return r;
+}
+
+// f(integral_constant<int, 0>) ... f(integral_constant<int, N-1>), in order:
+// a loop whose index is a constant expression inside the body
+template <typename F, int... T>
+__device__ __forceinline__ void static_for(
+        std::integer_sequence<int, T...>, F f) {
+    (f(std::integral_constant<int, T>{}), ...);
+}
+
+// The alphabet a node expands over, in slot order.
+template <bool MULTI>
+struct Alpha {
+    static constexpr int NC = MULTI ? 11 : 4;     // expanded codes
+    static constexpr int NSLOT = 1 + 2 * NC;      // insertion, dels, matches
+    static constexpr int ROWW = MULTI ? 128 : 40; // int32 words a frame row
+    static constexpr int PARENT = NSLOT * 4;      // word of the parent id
+    // the t-th code: the non-skipped IUPAC codes in increasing order, or
+    // the pure bases A, G, C, T
+    __host__ __device__ static constexpr int code(int t) {
+        if (!MULTI) return pure_code(t);
+        int n = 0, r = 0;
+        for (int j = 1; j < 16; j++)
+            if (!is_skipped(j)) { if (n == t) r = j; n++; }
+        return r;
+    }
+    __host__ __device__ static constexpr uint32_t mask() {
+        uint32_t m = 0;
+        for (int t = 0; t < NC; t++) m |= 1u << code(t);
+        return m;
+    }
+};
 
 __device__ __forceinline__ uint32_t pack1(int i, int mm, int go, int ge,
                                           int st, int plen) {
@@ -206,7 +262,7 @@ __device__ __forceinline__ bool emit_alns(const RSParams& P, ReadState& S,
                 dup |= (oA[k] == L) & (oA[A + k] == U);
             if (dup) continue;
         }
-        if (S.n_alns >= A) { S.overflow = 1; return true; }
+        if (S.n_alns >= A) { S.overflow |= OV_ACAP; return true; }
         int k = S.n_alns++;
         oA[k] = L;
         oA[A + k] = U;
@@ -219,6 +275,7 @@ __device__ __forceinline__ bool emit_alns(const RSParams& P, ReadState& S,
     return false;
 }
 
+template <bool MULTI, bool FIXED>
 __global__ void ring_search_kernel(
         RSParams P, const int32_t* __restrict__ table,
         const int32_t* __restrict__ carr_g, const int8_t* __restrict__ rc,
@@ -238,13 +295,14 @@ __global__ void ring_search_kernel(
 
     extern __shared__ int head_smem[];        // [RS_BLOCK_LANES][NB]
     int* const head = head_smem + (threadIdx.x / RS_WARP) * P.NB;
-    int32_t* const A = arena + (size_t)lane * P.NFRAME * RS_ROWW;
+    typedef Alpha<MULTI> AL;
+    constexpr int ROWW = AL::ROWW, NSLOT = AL::NSLOT, NC = AL::NC;
+    int32_t* const A = arena + (size_t)lane * P.NFRAME * ROWW;
     int32_t* const X = xlist + (size_t)lane * 4 * P.XC;   // [2][XC][L,U]
     const int NB = P.NB, Lmax = P.Lmax, LEN = P.LEN;
 
-    for (;;) {
-        const int rid = atomicAdd(counter, 1);
-        if (rid >= P.Q) break;
+    for (int rid = FIXED ? lane : atomicAdd(counter, 1); rid < P.Q;
+         rid = FIXED ? P.Q : atomicAdd(counter, 1)) {
         const int rlen = lens[rid];
         const int8_t* rcr = rc + (size_t)rid * Lmax;
         const int32_t* Dr = D + (size_t)rid * (Lmax + 1) * 2;
@@ -268,12 +326,17 @@ __global__ void ring_search_kernel(
         }
 
         while (alive) {
-            // ring budget: NFRAME of the read's own pops
-            if (pf >= P.NFRAME || work >= P.max_iters) {
-                S.overflow = 1;
-                break;
+            if (!FIXED) {
+                // ring budget: NFRAME of the read's own pops
+                if (pf >= P.NFRAME) { S.overflow |= OV_FRAMES; break; }
+                if (work >= P.max_iters) { S.overflow |= OV_WORK; break; }
             }
             if (n_open == 0 || n_open > P.p_maxentries) break;
+            // fixed rule: the work bound binds at an attempted pop
+            if (FIXED && work >= P.max_iters) {
+                S.overflow |= OV_WORK;
+                break;
+            }
             // pop: lowest occupied bucket, most recent push (heap_pop)
             while (minb < NB && head[minb] < 0) minb++;
             if (minb >= NB) break;
@@ -287,9 +350,9 @@ __global__ void ring_search_kernel(
                 m2 = 0;
             } else {
                 int nn = node - RS_NROOT;
-                int f = nn / RS_NSLOT, s = nn - f * RS_NSLOT;
+                int f = nn / NSLOT, s = nn - f * NSLOT;
                 int4 v = *reinterpret_cast<const int4*>(
-                    A + (size_t)f * RS_ROWW + 4 * s);
+                    A + (size_t)f * ROWW + 4 * s);
                 eL = v.x; eU = v.y; m1 = (uint32_t)v.z; m2 = (uint32_t)v.w;
                 frame_rd++;
             }
@@ -297,10 +360,12 @@ __global__ void ring_search_kernel(
             n_open--;
             work++;
             if (bucket > S.best_score + P.p_mm) break;         // stop
+            // fixed rule: a pop past the stop check after NFRAME pops
+            if (FIXED && pf >= P.NFRAME) { S.overflow |= OV_FRAMES; break; }
 
             // this pop owns frame `pf` whether or not it pushes anything
             const int myf = pf;
-            const int base = RS_NROOT + pf * RS_NSLOT;
+            const int base = RS_NROOT + pf * NSLOT;
             pf++;
 
             const int ei = m1 & 0xFF, emm = (m1 >> 8) & 0x1F,
@@ -337,24 +402,31 @@ __global__ void ring_search_kernel(
             // exact_match_bounded with add_sa_interval merging at list
             // capacity XC
             if (diff_left == 0) {
-                // a read still searching right after its NFRAME-th pop is
-                // over its ring budget, whatever the scan would find
-                if (pf >= P.NFRAME) { S.overflow = 1; break; }
+                // ring rule: a read still searching right after its
+                // NFRAME-th pop is over budget, whatever the scan would find
+                if (!FIXED && pf >= P.NFRAME) {
+                    S.overflow |= OV_FRAMES;
+                    break;
+                }
                 int32_t* cur = X;
                 int32_t* nxt = X + 2 * P.XC;
                 cur[0] = eL; cur[1] = eU;
                 int cnt = 1;
-                bool over = false;
+                int over = 0;
                 for (int j = ei - 1; j >= 0 && cnt > 0; j--) {
-                    if (work >= P.max_iters) { over = true; break; }
+                    if (work >= P.max_iters) { over = OV_WORK; break; }
                     work++;
                     int c = rcr[j < Lmax ? j : Lmax - 1];
                     if (c > 3) { cnt = 0; break; }
                     const int bm = base_mask(c);
+                    // the codes that contain the base (N excluded); within
+                    // a single genome that is the pure base alone, so the
+                    // list keeps one interval
                     uint32_t need = 0;
 #pragma unroll
                     for (int q = 1; q < 16; q++)
-                        if ((gray_val(q) & bm) && !is_order_n(q))
+                        if ((gray_val(q) & bm) && !is_order_n(q)
+                                && (MULTI || gray_val(q) == bm))
                             need |= 1u << q;
                     int ncnt = 0, tailU = -2;
                     for (int s = 0; s < cnt && !over; s++) {
@@ -373,7 +445,7 @@ __global__ void ring_search_kernel(
                             if (ncnt > 0 && L == tailU + 1) {
                                 nxt[2 * (ncnt - 1) + 1] = U;
                             } else if (ncnt >= P.XC) {
-                                over = true;
+                                over = OV_LIST;
                             } else {
                                 nxt[2 * ncnt] = L;
                                 nxt[2 * ncnt + 1] = U;
@@ -386,7 +458,7 @@ __global__ void ring_search_kernel(
                     int32_t* t = cur; cur = nxt; nxt = t;
                     cnt = ncnt;
                 }
-                if (over) { S.overflow = 1; break; }
+                if (over) { S.overflow |= over; break; }
                 if (cnt > 0) {
                     // the scan consumed ei chars: the path extends by ei
                     // implicit matches (inexact_match.c:365)
@@ -402,14 +474,13 @@ __global__ void ring_search_kernel(
             }
 
             // expansion (inexact_match.c:377-504)
-            uint32_t need_dfs = 0;
-#pragma unroll
-            for (int q = 1; q < 16; q++)
-                if (!is_skipped(q)) need_dfs |= 1u << q;
+            // (the DFS rank variant differs from the exact one on skipped
+            // codes only, and a single genome expands none)
+            constexpr uint32_t need_dfs = AL::mask();
             int Lv[16], Uv[16];
-            rank_rows += rank16<true>(table, carr, LEN, eL - 1, 1, need_dfs,
-                                      Lv);
-            rank_rows += rank16<true>(table, carr, LEN, eU, 0, need_dfs, Uv);
+            rank_rows += rank16<MULTI>(table, carr, LEN, eL - 1, 1, need_dfs,
+                                       Lv);
+            rank_rows += rank16<MULTI>(table, carr, LEN, eU, 0, need_dfs, Uv);
 
             const int D2n = Dr[dclip(ei - 2) * 2];
             const int D1w = Dr[dclip(ei - 1) * 2 + 1];
@@ -443,12 +514,12 @@ __global__ void ring_search_kernel(
             c = c < 0 ? 0 : (c > 4 ? 4 : c);
             const bool is_I = est == STATE_I, is_M = est == STATE_M;
             const bool ind_ok = allow_diff && allow_indels;
-            if (eplen + 1 >= P.PATHCAP) { S.overflow = 1; break; }
+            if (eplen + 1 >= P.PATHCAP) { S.overflow |= OV_PATH; break; }
             const int nplen = eplen + 1;
 
             // sequential LIFO push of slots 0..NSLOT-1 into the score
             // buckets (inexact_match.c:510-610)
-            int32_t* frow = A + (size_t)myf * RS_ROWW;
+            int32_t* frow = A + (size_t)myf * ROWW;
             int total = 0;
             auto push = [&](int s, int L, int U, uint32_t cm1, int snp) {
                 int sc = ((cm1 >> 8) & 0x1F) * P.p_mm
@@ -476,24 +547,23 @@ __global__ void ring_search_kernel(
                 const uint32_t dm1 = pack1(ei, emm, ego + (is_M ? 1 : 0),
                                            ege + (is_M ? 0 : 1), STATE_D,
                                            nplen);
-                int t = 0;
-#pragma unroll
-                for (int q = 1; q < 16; q++) {
-                    if (is_skipped(q)) continue;
+                static_for(std::make_integer_sequence<int, NC>{},
+                           [&](auto tc) {
+                    constexpr int t = decltype(tc)::value;
+                    constexpr int q = AL::code(t);
                     if (del_any && Lv[q] <= Uv[q])
                         push(1 + t, Lv[q], Uv[q], dm1, esnp);
-                    t++;
-                }
+                });
             }
             // slots NC+1..2NC: match / mismatch (or the exact-only
             // continuation when mismatches are suppressed)
             {
                 const bool mm_branch = allow_diff && allow_mm;
                 const int bm = c <= 3 ? base_mask(c) : 0;
-                int t = 0;
-#pragma unroll
-                for (int q = 1; q < 16; q++) {
-                    if (is_skipped(q)) continue;
+                static_for(std::make_integer_sequence<int, NC>{},
+                           [&](auto tc) {
+                    constexpr int t = decltype(tc)::value;
+                    constexpr int q = AL::code(t);
                     const bool nonempty = Lv[q] <= Uv[q];
                     const bool is_match = (c <= 3) && !is_order_n(q)
                                           && ((gray_val(q) & bm) != 0);
@@ -502,15 +572,14 @@ __global__ void ring_search_kernel(
                                        && nonempty;
                     if (ok_mm || ok_ex) {
                         int mmn = emm + ((ok_mm && !is_match) ? 1 : 0);
-                        push(1 + RS_NC + t, Lv[q], Uv[q],
+                        push(1 + NC + t, Lv[q], Uv[q],
                              pack1(ei - 1, mmn, ego, ege, STATE_M, nplen),
                              (esnp + (is_snp(q) ? 1 : 0)) & 0xFF);
                     }
-                    t++;
-                }
+                });
             }
             if (total > 0) {
-                frow[RS_PARENT] = node;
+                frow[AL::PARENT] = node;
                 frame_wr++;
                 n_open += total;
             }
@@ -527,12 +596,12 @@ __global__ void ring_search_kernel(
                 uint32_t acc = 0;
                 while (t < P.PATHCAP && cur >= RS_NROOT) {
                     int nn = cur - RS_NROOT;
-                    int f = nn / RS_NSLOT, s = nn - f * RS_NSLOT;
+                    int f = nn / NSLOT, s = nn - f * NSLOT;
                     int st = s == 0 ? STATE_I
-                                    : (s <= RS_NC ? STATE_D : STATE_M);
+                                    : (s <= NC ? STATE_D : STATE_M);
                     acc |= (uint32_t)st << (2 * (t & 3));
                     if ((t & 3) == 3) { pp[t >> 2] = (uint8_t)acc; acc = 0; }
-                    cur = A[(size_t)f * RS_ROWW + RS_PARENT];
+                    cur = A[(size_t)f * ROWW + AL::PARENT];
                     frame_rd++;
                     t++;
                 }
@@ -550,25 +619,48 @@ extern "C" int ring_search_num_params() {
     return (int)(sizeof(RSParams) / sizeof(int));
 }
 
-// Launches on `stream`; returns cudaGetLastError() (0 on success), or -1
-// when the parameter block does not match RSParams or the bucket heads do
-// not fit a block's shared memory.
-extern "C" int ring_search_launch(
-        const int* hp, int nhp, const void* table, const void* carr,
-        const void* rc, const void* lens, const void* D, const void* Ds,
-        void* arena, void* xlist, void* counter, void* q_alns, void* q_meta,
-        void* q_paths, void* stream) {
-    if (nhp != (int)(sizeof(RSParams) / sizeof(int))) return -1;
-    RSParams P;
-    memcpy(&P, hp, sizeof(P));
-    const size_t smem = (size_t)RS_BLOCK_LANES * P.NB * sizeof(int);
-    if (P.NB < 1 || smem > 48 * 1024) return -1;
+template <bool MULTI, bool FIXED>
+static int launch(const RSParams& P, size_t smem, const void* table,
+                  const void* carr, const void* rc, const void* lens,
+                  const void* D, const void* Ds, void* arena, void* xlist,
+                  void* counter, void* q_alns, void* q_meta, void* q_paths,
+                  void* stream) {
     const int threads = RS_BLOCK_LANES * RS_WARP;
     const int blocks = (P.lanes + RS_BLOCK_LANES - 1) / RS_BLOCK_LANES;
-    ring_search_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
+    ring_search_kernel<MULTI, FIXED>
+        <<<blocks, threads, smem, (cudaStream_t)stream>>>(
         P, (const int32_t*)table, (const int32_t*)carr, (const int8_t*)rc,
         (const int32_t*)lens, (const int32_t*)D, (const int32_t*)Ds,
         (int32_t*)arena, (int32_t*)xlist, (int32_t*)counter,
         (int32_t*)q_alns, (int32_t*)q_meta, (uint8_t*)q_paths);
     return (int)cudaGetLastError();
+}
+
+// Frame-row width in int32 words for an alphabet, for the wrapper's arena.
+extern "C" int ring_search_row_words(int multiref) {
+    return multiref ? Alpha<true>::ROWW : Alpha<false>::ROWW;
+}
+
+// Launches on `stream`; returns cudaGetLastError() (0 on success), or -1
+// when the parameter block does not match RSParams, the bucket heads do not
+// fit a block's shared memory, or a fixed launch has not one lane per read.
+// `multiref` picks the alphabet, `fixed` the launch mode (`counter` is not
+// read then).
+extern "C" int ring_search_launch(
+        const int* hp, int nhp, int multiref, int fixed, const void* table,
+        const void* carr, const void* rc, const void* lens, const void* D,
+        const void* Ds, void* arena, void* xlist, void* counter,
+        void* q_alns, void* q_meta, void* q_paths, void* stream) {
+    if (nhp != (int)(sizeof(RSParams) / sizeof(int))) return -1;
+    RSParams P;
+    memcpy(&P, hp, sizeof(P));
+    const size_t smem = (size_t)RS_BLOCK_LANES * P.NB * sizeof(int);
+    if (P.NB < 1 || smem > 48 * 1024) return -1;
+    if (fixed && P.lanes != P.Q) return -1;
+#define RS_LAUNCH(M, F) launch<M, F>(P, smem, table, carr, rc, lens, D, Ds, \
+                                     arena, xlist, counter, q_alns, q_meta, \
+                                     q_paths, stream)
+    if (multiref) return fixed ? RS_LAUNCH(true, true) : RS_LAUNCH(true, false);
+    return fixed ? RS_LAUNCH(false, true) : RS_LAUNCH(false, false);
+#undef RS_LAUNCH
 }

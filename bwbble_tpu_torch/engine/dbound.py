@@ -1,20 +1,23 @@
 """Lockstep lower-bound (D) computation.
 
-Counterpart of bwbble_tpu/engine/dbound.py (multi-genome mode): the device
-equivalent of calculate_d (inexact_match.c:171-254), a forward-direction
-exact scan of the read that counts how many times the match set empties
-(z) and the surviving SA width per position.  Output D[b, t] = (num_diff,
-sa_intv_width) for t in [0, read_len], indexed from the read's end like
-the reference.  The single-genome variant (calc_d_1to1) is not ported yet.
+Counterpart of bwbble_tpu/engine/dbound.py: the device equivalent of
+calculate_d (inexact_match.c:171-254), a forward-direction exact scan of
+the read that counts how many times the match set empties (z) and the
+surviving SA width per position.  Multi-genome mode runs over interval
+lists (engine.intervals); single-genome mode is a one-interval walk.
+Output D[b, t] = (num_diff, sa_intv_width) for t in [0, read_len], indexed
+from the read's end like the reference.
 """
 
 from __future__ import annotations
 
 import torch
 
+from bwbble_tpu_torch import constants as C
 from bwbble_tpu_torch.engine import index_device
 from bwbble_tpu_torch.engine.device_index import DeviceIndex
 from bwbble_tpu_torch.engine.intervals import expand_step
+from bwbble_tpu_torch.engine.rank import rank1_pair
 
 
 def calc_d(didx: DeviceIndex, seq, lengths, K: int = 32,
@@ -68,3 +71,45 @@ def calc_d(didx: DeviceIndex, seq, lengths, K: int = 32,
     tail = torch.stack([z + 1, torch.zeros_like(z)], dim=1)
     D[torch.arange(B, device=dev), lengths.clamp(0, max_len).long()] = tail
     return D, over
+
+
+def calc_d_1to1(didx: DeviceIndex, seq, lengths, max_len: int | None = None,
+                device=None):
+    """Single-genome D bounds (inexact_match.c:176-205).  Same returns as
+    calc_d; the overflow flags are all false (one interval never
+    overflows)."""
+    dev = index_device(didx, device)
+    seq = torch.as_tensor(seq).to(dev).to(torch.int32)
+    lengths = torch.as_tensor(lengths).to(dev).to(torch.int32)
+    B, Lmax = seq.shape
+    max_len = Lmax if max_len is None else max_len
+    gray = torch.tensor(C.NT4_GRAY, dtype=torch.int32, device=dev)
+    last = didx.length - 1
+
+    D = torch.zeros((B, max_len + 1, 2), dtype=torch.int32, device=dev)
+    L = torch.zeros((B,), dtype=torch.int32, device=dev)
+    U = torch.full((B,), last, dtype=torch.int32, device=dev)
+    z = torch.zeros((B,), dtype=torch.int32, device=dev)
+    for s in range(min(Lmax, max_len)):
+        r = lengths - 1 - s
+        active = r >= 0
+        cr = seq.gather(1, r.clamp(min=0).long()[:, None])[:, 0]
+        c = gray[cr.clamp(0, 4).long()]
+        is_n = c == C.ORDER_N
+        occL, occU = rank1_pair(didx, c, L - 1, U)
+        Cc = didx.Carr[c.long()]
+        nL = Cc + occL + 1
+        nU = Cc + occU
+        miss = is_n | (nL > nU)
+        nz = z + miss.to(torch.int32)
+        nL = torch.where(miss, torch.zeros_like(nL), nL)
+        nU = torch.where(miss, torch.full_like(nU, last), nU)
+        row = torch.where(active[:, None],
+                          torch.stack([nz, nU - nL + 1], dim=1), D[:, s, :])
+        D[:, s, :] = row
+        L = torch.where(active, nL, L)
+        U = torch.where(active, nU, U)
+        z = torch.where(active, nz, z)
+    tail = torch.stack([z + 1, torch.zeros_like(z)], dim=1)
+    D[torch.arange(B, device=dev), lengths.clamp(0, max_len).long()] = tail
+    return D, torch.zeros((B,), dtype=torch.bool, device=dev)

@@ -1,13 +1,15 @@
-"""Ring-queue inexact search: the plain PyTorch version and the public
-`inexact_search_queued` entry point.
+"""Inexact search: the plain PyTorch version and the public entry points
+`inexact_search` (fixed batch: one lane per read) and
+`inexact_search_queued` (ring queue: lanes stream reads).
 
-Counterpart of bwbble_tpu/engine/inexact.py (queue mode).  The search is the
-reference's score-bucketed best-first DFS (inexact_match.c:256-506):
+Counterpart of bwbble_tpu/engine/inexact.py.  The search is the reference's
+score-bucketed best-first DFS (inexact_match.c:256-506):
 
 - **Dense frames.**  Every pop reserves one frame of NSLOT candidate rows in
   the lane's arena; slot s of the frame holds expansion candidate s (slot 0
   the insertion, 1..NC the deletions, NC+1..2NC the match/mismatch pushes
-  over the NC = 11 non-skipped IUPAC codes).  Node ids are
+  over the alphabet: the NC = 11 non-skipped IUPAC codes of a multi-genome,
+  or the NC = 4 pure bases of a single genome, `-S`).  Node ids are
   NROOT + frame * NSLOT + slot, so a node's appended path state is a static
   function of its slot and only the parent id is stored per frame.
 - **Score-bucket stacks.**  The reference heap (score buckets, LIFO within a
@@ -15,19 +17,26 @@ reference's score-bucketed best-first DFS (inexact_match.c:256-506):
   per-node `prev` link.  Exploration order is bit-identical.
 - **Packed node words.**  A node is 4 int32s: L, U, meta1
   (i|mm|go|ge|state|plen), meta2 (snps | prev+1 << 8).
-- **Per-read ring budget.**  A read may make NFRAME = (cap - NROOT) // NSLOT
-  - 1 pops of its own; one that is not finished right after its NFRAME-th
-  pop is flagged overflow.  Exact-completion characters and emissions cost
-  no budget, so results do not depend on which lane serves a read or when.
+- **Per-read frame budget.**  A read may make NFRAME = (cap - NROOT) //
+  NSLOT - 1 pops of its own.  Exact-completion characters and emissions
+  cost no budget, so results do not depend on which lane serves a read,
+  when, or what else is in the batch.  The two launch modes differ in when
+  the budget binds.  *Ring*: a read that is not finished right after its
+  NFRAME-th pop is flagged overflow, before it looks whether its heap is
+  empty and before an exact completion that the pop started.  *Fixed*: a
+  read is flagged when it attempts one more pop (its heap is not empty and
+  the popped node is not past the stop score) after NFRAME pops, so a read
+  whose NFRAME-th pop finishes it is a finished read.
 - **Exact completion** (inexact_match.c:345-375) runs over interval lists of
   capacity `xcap` (or `kx` when xcap == 0) with add_sa_interval merging; a
-  list that would exceed the capacity flags overflow.
+  list that would exceed the capacity flags overflow.  A single genome
+  keeps one interval (exact_match_1to1_bounded).
 
-Any capacity overflow (ring budget, interval list, ACAP, path length,
+Any capacity overflow (frame budget, interval list, ACAP, path length,
 max_iters work units) ends the read at once with its flag set: callers
 discard and retry such reads, so their other outputs are reported as zero.
 
-On CUDA tensors `inexact_search_queued` launches the hand-written kernel
+On CUDA tensors both entry points launch the hand-written kernel
 (engine/kernel.py, csrc/ring_search.cu); the plain version here serves CPU
 tensors, the tests, and the on-card comparison against the kernel.
 """
@@ -44,24 +53,41 @@ from bwbble_tpu_torch.align.params import AlnParams
 from bwbble_tpu_torch.engine import index_device
 from bwbble_tpu_torch.engine.device_index import DeviceIndex
 from bwbble_tpu_torch.engine.intervals import expand_step
-from bwbble_tpu_torch.engine.rank import rank_all_dfs_pair
+from bwbble_tpu_torch.engine.rank import (rank1_pair, rank_actg_dfs_pair,
+                                          rank_all_dfs_pair)
 
 MODE_DFS, MODE_EXACT, MODE_DONE = 0, 1, 2
 
 _MATCH = np.asarray(C.MATCH_MATRIX, dtype=np.int32)       # [5, 16]
 _IS_SNP = np.asarray(C.IS_SNP, dtype=np.int32)
+_GRAY4 = np.asarray(C.NT4_GRAY, dtype=np.int32)
 
 # meta1 bit layout: i(8) | mm(5) | go(3) | ge(4) | st(2) | plen(9)
 _SH_MM, _SH_GO, _SH_GE, _SH_ST, _SH_PLEN = 8, 13, 16, 20, 22
 
 NROOT = 1
-CHARS = tuple(j for j in range(1, 16) if j not in C.SKIPPED_ORDERS)
-NC = len(CHARS)
-NSLOT = 1 + 2 * NC
 NB_MAX = 1024         # score buckets of the device engine's domain
-# q_meta columns
+# q_meta columns; META_OVER holds the reason bits below (0 = no overflow)
 (META_NALN, META_OVER, META_LANE, META_WORK, META_RANK, META_FRD, META_FWR,
  META_POPS) = range(8)
+# overflow reasons: interval list, ACAP, path length, frame budget, max_iters
+OV_LIST, OV_ACAP, OV_PATH, OV_FRAMES, OV_WORK = 1, 2, 4, 8, 16
+
+
+def alphabet(multiref: bool) -> tuple[int, ...]:
+    """The codes a node expands over, in slot order: the 11 non-skipped
+    IUPAC codes of a multi-genome, or the Gray codes of the four pure bases
+    A, G, C, T of a single genome."""
+    if multiref:
+        return tuple(j for j in range(1, 16) if j not in C.SKIPPED_ORDERS)
+    return tuple(int(j) for j in C.NT4_GRAY[:4])
+
+
+def row_words(multiref: bool) -> int:
+    """int32 words of a frame row: NSLOT * 4 + 1 (the parent id), padded to
+    a multiple of 4 words so slots stay 16-byte aligned: 128 words (512
+    bytes) for NSLOT = 23, 40 words (160 bytes) for NSLOT = 9."""
+    return 128 if multiref else 40
 
 
 def _pack1(i, mm, go, ge, st, plen):
@@ -76,10 +102,25 @@ def _unpack1(m):
 
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
+    """Capacities of one search launch.
+
+    `max_iters` bounds ONE READ's work units (its pops plus its exact-
+    completion characters), in both launch modes: a read that would start
+    one more unit after `max_iters` of its own is flagged overflow.  The JAX
+    package's field of the same name bounds the lockstep waves of a whole
+    launch and flags every lane still alive at the end; the port's lanes do
+    not wait for each other, so the per-read rule is the only one it has.
+    A read the JAX launch finishes within `max_iters` waves has made at
+    most that many work units, so the port finishes it too.
+
+    The JAX class also has `flush`, `xsteps`, `exit_alive` and `backend`.
+    All four steer the lockstep schedule of that package's launches and
+    change no per-read result; the port has no such schedule and no such
+    fields."""
     cap: int = 32768          # arena rows per lane (bounds a read's pops)
     acap: int = 24            # reported alignments per read
     kx: int = 4               # exact-completion list capacity when xcap == 0
-    max_iters: int = 200_000  # safety bound on one read's work units
+    max_iters: int = 200_000  # bound on one read's work units
     pathcap: int = 0          # reported path length bound (0 => Lmax + 32)
     xcap: int = 0             # exact-completion interval-list capacity
 
@@ -88,6 +129,11 @@ class EngineConfig:
 class RingStatics:
     """Sizes derived from (params, cfg, shapes), shared by the kernel
     wrapper and the plain version."""
+    multiref: bool
+    fixed: bool               # fixed-batch frame-budget rule (else ring)
+    NC: int
+    NSLOT: int
+    ROWW: int
     NB: int
     NFRAME: int
     ACAP: int
@@ -100,11 +146,11 @@ class RingStatics:
 
 
 def ring_statics(params: AlnParams, cfg: EngineConfig, Lmax: int,
-                 DS: int) -> RingStatics:
-    if not params.is_multiref:
-        raise NotImplementedError(
-            "single-genome (-S) search is not ported yet")
+                 DS: int, fixed: bool = False) -> RingStatics:
     p = params
+    multiref = bool(p.is_multiref)
+    NC = len(alphabet(multiref))
+    NSLOT = 1 + 2 * NC
     if not (p.max_diff + 1 <= 31 and p.max_gapo + 1 <= 7
             and p.max_gape + 1 <= 15):
         raise ValueError("alignment parameters exceed the packed node word")
@@ -125,13 +171,15 @@ def ring_statics(params: AlnParams, cfg: EngineConfig, Lmax: int,
     if not 0 < nb <= NB_MAX:
         raise ValueError(f"{nb} score buckets: the search holds 1..{NB_MAX}")
     xc = int(cfg.xcap) if int(cfg.xcap) > 0 else int(cfg.kx)
-    return RingStatics(NB=int(nb), NFRAME=nframe, ACAP=int(cfg.acap), XC=xc,
+    return RingStatics(multiref=multiref, fixed=bool(fixed), NC=NC,
+                       NSLOT=NSLOT, ROWW=row_words(multiref), NB=int(nb),
+                       NFRAME=nframe, ACAP=int(cfg.acap), XC=xc,
                        PATHCAP=pathcap, PW=(pathcap + 3) // 4,
                        max_iters=int(cfg.max_iters), Lmax=int(Lmax),
                        DS=int(DS))
 
 
-def slot_states(nc: int = NC) -> np.ndarray:
+def slot_states(nc: int) -> np.ndarray:
     """State appended by each candidate slot: [I, D*nc, M*nc]."""
     return np.array([C.STATE_I] + [C.STATE_D] * nc + [C.STATE_M] * nc,
                     dtype=np.int8)
@@ -177,7 +225,8 @@ def result_dict(q_alns, q_meta, q_paths):
     """The per-read result dict of inexact_search_queued.  Outputs of
     overflowed reads are zeroed (only their flag and counters mean
     anything)."""
-    over = q_meta[:, META_OVER] > 0
+    ovwhy = q_meta[:, META_OVER]
+    over = ovwhy > 0
     keep = (~over).to(torch.int32)
     qa = q_alns * keep[:, None, None]
     m1o = qa[:, 5]
@@ -190,7 +239,7 @@ def result_dict(q_alns, q_meta, q_paths):
         o_ge=(m1o >> _SH_GE) & 0xF,
         o_snp=qa[:, 6],
         o_plen=(m1o >> _SH_PLEN) & 0x1FF,
-        overflow=over,
+        overflow=over, ovwhy=ovwhy,
         paths=q_paths * keep.to(torch.uint8)[:, None, None],
         # per-read counters: work units (pops + exact chars), index-table
         # rank rows read, frame rows read (pops + path walk) and written
@@ -207,7 +256,10 @@ def result_dict(q_alns, q_meta, q_paths):
 def _plain_chunk(didx: DeviceIndex, rc, lengths, D, Ds, params: AlnParams,
                  S: RingStatics, q_alns, q_meta, q_paths):
     """Run one chunk of reads, one lane per read, in lockstep to completion;
-    fills the chunk's rows of the result slabs."""
+    fills the chunk's rows of the result slabs and returns the chunk's arena
+    [B, NFRAME, ROWW] (frame rows: NSLOT slots of 4 words, then the parent
+    id).  Serves both launch modes (S.fixed) and both alphabets
+    (S.multiref)."""
     dev = rc.device
     B, Lmax = rc.shape
     LEN = int(didx.length)
@@ -219,8 +271,9 @@ def _plain_chunk(didx: DeviceIndex, rc, lengths, D, Ds, params: AlnParams,
     p_maxdiffseed, p_maxbest = int(p.max_diff_seed), int(p.max_best)
     p_noindel, p_maxentries = int(p.no_indel_length), int(p.max_entries)
     NB, NFRAME, ACAP, XC, PATHCAP = S.NB, S.NFRAME, S.ACAP, S.XC, S.PATHCAP
-    ROWP = NSLOT * 4 + 1               # frame row: slots + parent id
-    PAR = NSLOT * 4
+    NC, NSLOT, ROWW = S.NC, S.NSLOT, S.ROWW
+    PAR = NSLOT * 4                    # frame-row word holding the parent id
+    chars = alphabet(S.multiref)
 
     def zi():
         return torch.zeros((B,), dtype=I32, device=dev)
@@ -229,7 +282,7 @@ def _plain_chunk(didx: DeviceIndex, rc, lengths, D, Ds, params: AlnParams,
     lengths = lengths.to(I32)
     D = D.to(I32)
     Ds = Ds.to(I32)
-    arena = torch.zeros((B, NFRAME * ROWP), dtype=I32, device=dev)
+    arena = torch.zeros((B, NFRAME * ROWW), dtype=I32, device=dev)
     head = torch.full((B, NB), -1, dtype=I32, device=dev)
     head[:, 0] = 0                     # the root node
     n_open = torch.ones((B,), dtype=I32, device=dev)
@@ -237,7 +290,7 @@ def _plain_chunk(didx: DeviceIndex, rc, lengths, D, Ds, params: AlnParams,
     maxd = torch.full((B,), p_maxdiff, dtype=I32, device=dev)
     num_best, n_alns, pf, work = zi(), zi(), zi(), zi()
     rank_rows, frame_rd, frame_wr = zi(), zi(), zi()
-    overflow = torch.zeros((B,), dtype=torch.bool, device=dev)
+    ovwhy = zi()                       # overflow reason bits
     oA = torch.zeros((B, 7, ACAP), dtype=I32, device=dev)
     xL = torch.zeros((B, XC), dtype=I32, device=dev)
     xU = torch.full((B, XC), -1, dtype=I32, device=dev)
@@ -251,7 +304,21 @@ def _plain_chunk(didx: DeviceIndex, rc, lengths, D, Ds, params: AlnParams,
     col_a = torch.arange(ACAP, dtype=I32, device=dev)[None, :]
     ar4 = torch.arange(4, dtype=torch.int64, device=dev)[None, :]
     match_t = torch.from_numpy(_MATCH).to(dev)
-    states_t = torch.from_numpy(slot_states().astype(np.int32)).to(dev)
+    states_t = torch.from_numpy(slot_states(NC).astype(np.int32)).to(dev)
+    gray4_t = torch.from_numpy(_GRAY4).to(dev)
+    chars_t = torch.tensor(chars, dtype=torch.int64, device=dev)
+    # rank-vector column of each code: the code itself, or 1 + its position
+    rank_slot_t = chars_t if S.multiref else torch.arange(
+        1, NC + 1, dtype=torch.int64, device=dev)
+    code_pos_t = torch.arange(NC, dtype=I32, device=dev)
+    not_n_t = chars_t != C.ORDER_N
+    is_snp_t = torch.from_numpy(_IS_SNP).to(dev)[chars_t]
+    slot_t = torch.arange(NSLOT, dtype=I32, device=dev)
+    earlier_t = slot_t[None, :] < slot_t[:, None]      # [slot, earlier slot]
+
+    def flag(ix, mask, why):
+        """Set overflow reason `why` on the lanes of `ix` under `mask`."""
+        ovwhy[ix] = ovwhy[ix] | (mask.to(I32) * why)
 
     def score_of(mm, go, ge):
         return mm * p_mm + go * p_go + ge * p_ge
@@ -301,7 +368,7 @@ def _plain_chunk(didx: DeviceIndex, rc, lengths, D, Ds, params: AlnParams,
             na = na + ok.to(I32)
         oA[ix] = oa
         n_alns[ix] = na
-        overflow[ix] = overflow[ix] | ovl
+        flag(ix, ovl, OV_ACAP)
         return fin
 
     def exact_step(ix):
@@ -313,11 +380,24 @@ def _plain_chunk(didx: DeviceIndex, rc, lengths, D, Ds, params: AlnParams,
                  < cnt[:, None]) & (c < 4)[:, None]).to(I32)
         rank_rows[ix] += ((in_table(Ls - 1) + in_table(Us)) * live
                           ).sum(dim=1).to(I32)
-        nL, nU, ncnt, _w, ov = expand_step(didx, Ls, Us, cnt, c)
+        if S.multiref:
+            nL, nU, ncnt, _w, ov = expand_step(didx, Ls, Us, cnt, c)
+        else:
+            # single-interval 1-to-1 scan (exact_match_1to1_bounded)
+            gc = gray4_t[c.clamp(0, 4).long()]
+            occL, occU = rank1_pair(didx, gc, Ls[:, 0] - 1, Us[:, 0])
+            Cc = didx.Carr[gc.long()]
+            L1, U1 = Cc + occL + 1, Cc + occU
+            dead = (c > 3) | (L1 > U1)
+            nL, nU = Ls.clone(), Us.clone()
+            nL[:, 0] = torch.where(dead, 0, L1).to(I32)
+            nU[:, 0] = torch.where(dead, -1, U1).to(I32)
+            ncnt = (~dead).to(I32)
+            ov = torch.zeros_like(dead)
         work[ix] += 1
         nj = j - 1
         xL[ix], xU[ix], x_cnt[ix], x_j[ix] = nL, nU, ncnt, nj
-        overflow[ix] = overflow[ix] | ov
+        flag(ix, ov, OV_LIST)
         finished = ~ov & ((ncnt == 0) | (nj < 0))
         matched = finished & (ncnt > 0)
         new_mode = torch.where(ov, MODE_DONE,
@@ -340,6 +420,12 @@ def _plain_chunk(didx: DeviceIndex, rc, lengths, D, Ds, params: AlnParams,
         gone = (no == 0) | (no > p_maxentries)
         mode[ix[gone]] = MODE_DONE
         ix = ix[~gone]
+        if S.fixed:
+            # fixed rule: the work bound binds at an attempted pop
+            late = work[ix] >= S.max_iters
+            flag(ix, late, OV_WORK)
+            mode[ix[late]] = MODE_DONE
+            ix = ix[~late]
         if not ix.numel():
             return
         # ---- pop: lowest occupied bucket, most recent push (heap_pop)
@@ -350,7 +436,7 @@ def _plain_chunk(didx: DeviceIndex, rc, lengths, D, Ds, params: AlnParams,
         nn = (node - NROOT).clamp(min=0)
         f = torch.div(nn, NSLOT, rounding_mode="floor")
         s = nn - f * NSLOT
-        words = arena[ix[:, None], (f * ROWP + 4 * s).long()[:, None] + ar4]
+        words = arena[ix[:, None], (f * ROWW + 4 * s).long()[:, None] + ar4]
         eL = torch.where(isroot, 0, words[:, 0]).to(I32)
         eU = torch.where(isroot, LEN - 1, words[:, 1]).to(I32)
         m1 = torch.where(isroot, _pack1(lengths[ix], 0, 0, 0, C.STATE_M, 0),
@@ -366,6 +452,14 @@ def _plain_chunk(didx: DeviceIndex, rc, lengths, D, Ds, params: AlnParams,
         keep = ~stop
         ix, node, eL, eU, m1, m2 = (v[keep] for v in
                                     (ix, node, eL, eU, m1, m2))
+        if S.fixed:
+            # fixed rule: a pop past the stop check after NFRAME pops
+            spent = pf[ix] >= NFRAME
+            flag(ix, spent, OV_FRAMES)
+            mode[ix[spent]] = MODE_DONE
+            keep = ~spent
+            ix, node, eL, eU, m1, m2 = (v[keep] for v in
+                                        (ix, node, eL, eU, m1, m2))
         if not ix.numel():
             return
         # this pop owns frame `pf` whether or not it pushes anything
@@ -421,9 +515,8 @@ def _plain_chunk(didx: DeviceIndex, rc, lengths, D, Ds, params: AlnParams,
 
         # ---- expansion (inexact_match.c:377-504)
         path_over = live & (eplen + 1 >= PATHCAP)
-        po = ix[path_over]
-        overflow[po] = True
-        mode[po] = MODE_DONE
+        flag(ix, path_over, OV_PATH)
+        mode[ix[path_over]] = MODE_DONE
         live = live & ~path_over
         (ix, node, eL, eU, ei, emm, ego, ege, est, eplen, esnp, diff_left,
          D1n, dls, seed_index, S1n, Dx, Dsx, lenx, myf, base) = (
@@ -433,7 +526,10 @@ def _plain_chunk(didx: DeviceIndex, rc, lengths, D, Ds, params: AlnParams,
         n = ix.numel()
         if not n:
             return
-        Lv, Uv = rank_all_dfs_pair(didx, eL - 1, eU)
+        if S.multiref:
+            Lv, Uv = rank_all_dfs_pair(didx, eL - 1, eU)
+        else:
+            Lv, Uv = rank_actg_dfs_pair(didx, eL - 1, eU)
         rank_rows[ix] += in_table(eL - 1) + in_table(eU)
 
         D2n = Dp(Dx, ei - 2, 0)
@@ -463,68 +559,75 @@ def _plain_chunk(didx: DeviceIndex, rc, lengths, D, Ds, params: AlnParams,
         ind_ok = allow_diff & allow_indels
         nplen = eplen + 1
 
-        candL = torch.zeros((n, NSLOT), dtype=I32, device=dev)
-        candU = torch.zeros((n, NSLOT), dtype=I32, device=dev)
-        candM1 = torch.zeros((n, NSLOT), dtype=I32, device=dev)
-        candSc = torch.zeros((n, NSLOT), dtype=I32, device=dev)
-        candSnp = esnp[:, None].repeat(1, NSLOT)
-        valid = torch.zeros((n, NSLOT), dtype=torch.bool, device=dev)
+        def per_code(v):
+            """A per-lane value repeated over the NC codes."""
+            return v[:, None].expand(n, NC)
 
         # slot 0: insertion (extend if state == I else open if state == M)
-        valid[:, 0] = ind_ok & ((is_I & allow_extend) | (is_M & allow_open))
-        candL[:, 0], candU[:, 0] = eL, eU
+        valid0 = ind_ok & ((is_I & allow_extend) | (is_M & allow_open))
         go0 = ego + is_M.to(I32)
         ge0 = ege + is_I.to(I32)
-        candM1[:, 0] = _pack1(ei - 1, emm, go0, ge0, C.STATE_I, nplen)
-        candSc[:, 0] = score_of(emm, go0, ge0)
+        m1_0 = _pack1(ei - 1, emm, go0, ge0, C.STATE_I, nplen)
+        sc_0 = score_of(emm, go0, ge0)
 
-        match_row = match_t[c.long()]                     # [n, 16]
+        # the NC codes at once, in slot order (column t is code chars[t])
+        Lc, Uc = Lv[:, rank_slot_t], Uv[:, rank_slot_t]       # [n, NC]
+        nonempty = Lc <= Uc
         mm_branch = allow_diff & allow_mm
+        # slots 1..NC: deletion, consumes a reference char and keeps i
         god = ego + is_M.to(I32)
         ged = ege + (~is_M).to(I32)
-        for t, j in enumerate(CHARS):
-            Lj, Uj = Lv[:, j], Uv[:, j]
-            nonempty = Lj <= Uj
-            # deletion: consumes a reference char, keeps i
-            sd = 1 + t
-            valid[:, sd] = (ind_ok & ~is_I & nonempty
-                            & ((is_M & allow_open) | (~is_M & allow_extend)))
-            candL[:, sd], candU[:, sd] = Lj, Uj
-            candM1[:, sd] = _pack1(ei, emm, god, ged, C.STATE_D, nplen)
-            candSc[:, sd] = score_of(emm, god, ged)
-            # match/mismatch (or exact-only continuation when mismatches
-            # are suppressed)
-            is_match = ((c <= 3) & (match_row[:, j] > 0)
-                        & torch.tensor(j != C.ORDER_N, device=dev))
-            ok_mm = mm_branch & nonempty
-            ok_ex = ~mm_branch & (c < 4) & is_match & nonempty
-            sm = 1 + NC + t
-            valid[:, sm] = ok_mm | ok_ex
-            candL[:, sm], candU[:, sm] = Lj, Uj
-            mmn = emm + (ok_mm & ~is_match).to(I32)
-            candM1[:, sm] = _pack1(ei - 1, mmn, ego, ege, C.STATE_M, nplen)
-            candSc[:, sm] = score_of(mmn, ego, ege)
-            candSnp[:, sm] = (esnp + int(_IS_SNP[j])) & 0xFF
+        validD = per_code(ind_ok & ~is_I & ((is_M & allow_open)
+                                        | (~is_M & allow_extend))) & nonempty
+        m1_D = per_code(_pack1(ei, emm, god, ged, C.STATE_D, nplen))
+        sc_D = per_code(score_of(emm, god, ged))
+        # slots NC+1..2NC: match/mismatch (or exact-only continuation when
+        # mismatches are suppressed)
+        if S.multiref:
+            is_match = (per_code(c <= 3) & not_n_t[None, :]
+                        & (match_t[c.long()][:, chars_t] > 0))
+            snp_M = (per_code(esnp) + is_snp_t[None, :]) & 0xFF
+        else:
+            is_match = per_code(c) == code_pos_t[None, :]
+            snp_M = per_code(esnp)
+        ok_mm = per_code(mm_branch) & nonempty
+        ok_ex = per_code(~mm_branch & (c < 4)) & is_match & nonempty
+        mmn = per_code(emm) + (ok_mm & ~is_match).to(I32)
+        m1_M = _pack1(per_code(ei - 1), mmn, per_code(ego), per_code(ege),
+                      C.STATE_M, per_code(nplen))
+        sc_M = score_of(mmn, per_code(ego), per_code(ege))
+
+        valid = torch.cat([valid0[:, None], validD, ok_mm | ok_ex], dim=1)
+        candL = torch.cat([eL[:, None], Lc, Lc], dim=1).to(I32)
+        candU = torch.cat([eU[:, None], Uc, Uc], dim=1).to(I32)
+        candM1 = torch.cat([m1_0[:, None], m1_D, m1_M], dim=1).to(I32)
+        candSc = torch.cat([sc_0[:, None], sc_D, sc_M], dim=1).to(I32)
+        candSnp = torch.cat([esnp[:, None], per_code(esnp), snp_M], dim=1
+                            ).to(I32)
 
         # sequential LIFO push of slots 0..NSLOT-1 into the score buckets
-        # (inexact_match.c:510-610)
+        # (inexact_match.c:510-610), all slots at once: a slot links to the
+        # last valid earlier slot of its bucket, else to the bucket's head;
+        # the last valid slot of a bucket becomes its head
         hsub = head[ix]
-        candM2 = torch.zeros((n, NSLOT), dtype=I32, device=dev)
-        for sl in range(NSLOT):
-            v = valid[:, sl]
-            b = candSc[:, sl].clamp(0, NB - 1).long()[:, None]
-            prev_s = hsub.gather(1, b)[:, 0]
-            candM2[:, sl] = candSnp[:, sl] | _wrap32(
-                (prev_s.long() + 1) << 8)
-            hsub.scatter_(1, b, torch.where(v, base + sl, prev_s)[:, None])
+        b = candSc.clamp(0, NB - 1).long()
+        same = (b[:, :, None] == b[:, None, :]) & valid[:, None, :]
+        before = torch.where(same & earlier_t[None], slot_t[None, None, :],
+                             -1).max(dim=2).values            # [n, NSLOT]
+        prev_s = torch.where(before >= 0, base[:, None] + before,
+                             hsub.gather(1, b)).to(I32)
+        candM2 = candSnp | _wrap32((prev_s.long() + 1) << 8)
+        last = valid & ~(same & earlier_t.T[None]).any(dim=2)
+        rows, sl = last.nonzero(as_tuple=True)
+        hsub[rows, b[rows, sl]] = (base[rows] + sl).to(I32)
         head[ix] = hsub
         total = valid.sum(dim=1).to(I32)
         # invalid slots still occupy the row; they are simply never linked
         frow = torch.cat(
             [torch.stack([candL, candU, candM1, candM2], dim=2
                          ).reshape(n, NSLOT * 4), node[:, None]], dim=1)
-        cols = (myf * ROWP).long()[:, None] + torch.arange(
-            ROWP, dtype=torch.int64, device=dev)[None, :]
+        cols = (myf * ROWW).long()[:, None] + torch.arange(
+            PAR + 1, dtype=torch.int64, device=dev)[None, :]
         arena[ix[:, None], cols] = frow
         frame_wr[ix] += (total > 0).to(I32)
         n_open[ix] += total
@@ -534,10 +637,16 @@ def _plain_chunk(didx: DeviceIndex, rc, lengths, D, Ds, params: AlnParams,
         act = mode != MODE_DONE
         if not bool(act.any()):
             break
-        # ring budget (NFRAME of the read's own pops) and work bound
-        ov = act & ((pf >= NFRAME) | (work >= S.max_iters))
-        overflow |= ov
-        mode = torch.where(ov, MODE_DONE, mode).to(I32)
+        if S.fixed:
+            # only a scan in flight is checked here; pops check themselves
+            late = (mode == MODE_EXACT) & (work >= S.max_iters)
+            spent = torch.zeros_like(late)
+        else:
+            # ring budget (NFRAME of the read's own pops) and work bound
+            spent = act & (pf >= NFRAME)
+            late = act & ~spent & (work >= S.max_iters)
+        ovwhy |= spent.to(I32) * OV_FRAMES + late.to(I32) * OV_WORK
+        mode = torch.where(spent | late, MODE_DONE, mode).to(I32)
         ex = (mode == MODE_EXACT).nonzero()[:, 0]
         df = (mode == MODE_DFS).nonzero()[:, 0]
         if ex.numel():
@@ -548,7 +657,7 @@ def _plain_chunk(didx: DeviceIndex, rc, lengths, D, Ds, params: AlnParams,
     # ---- walk the parent chains of the reported alignments: entry t is
     # the state of the t-th ancestor (node first, root excluded)
     paths = torch.zeros((B, ACAP, PATHCAP), dtype=torch.int8, device=dev)
-    cur = torch.where((col_a < n_alns[:, None]) & ~overflow[:, None],
+    cur = torch.where((col_a < n_alns[:, None]) & (ovwhy == 0)[:, None],
                       oA[:, 4, :], -1).to(I32)
     lane_col = torch.arange(B, device=dev)[:, None]
     for t in range(PATHCAP):
@@ -558,7 +667,7 @@ def _plain_chunk(didx: DeviceIndex, rc, lengths, D, Ds, params: AlnParams,
         nn = (cur - NROOT).clamp(min=0)
         f = torch.div(nn, NSLOT, rounding_mode="floor")
         s = nn - f * NSLOT
-        par = arena[lane_col, (f * ROWP + PAR).long()]
+        par = arena[lane_col, (f * ROWW + PAR).long()]
         paths[:, :, t] = torch.where(alive, states_t[s.long()], 0
                                      ).to(torch.int8)
         frame_rd += alive.sum(dim=1).to(I32)
@@ -567,13 +676,14 @@ def _plain_chunk(didx: DeviceIndex, rc, lengths, D, Ds, params: AlnParams,
     q_alns.copy_(oA)
     q_paths.copy_(pack_paths(paths))
     q_meta[:, META_NALN] = n_alns
-    q_meta[:, META_OVER] = overflow.to(I32)
+    q_meta[:, META_OVER] = ovwhy
     q_meta[:, META_LANE] = torch.arange(B, dtype=I32, device=dev)
     q_meta[:, META_WORK] = work
     q_meta[:, META_RANK] = rank_rows
     q_meta[:, META_FRD] = frame_rd
     q_meta[:, META_FWR] = frame_wr
     q_meta[:, META_POPS] = pf
+    return arena.view(B, NFRAME, ROWW)
 
 
 def ring_search_plain(didx: DeviceIndex, rc_all, lengths_all, D_all, Ds_all,
@@ -598,36 +708,100 @@ def ring_search_plain(didx: DeviceIndex, rc_all, lengths_all, D_all, Ds_all,
     return result_dict(q_alns, q_meta, q_paths)
 
 
+def fixed_search_plain(didx: DeviceIndex, rc, lengths, D, Ds,
+                       params: AlnParams, cfg: EngineConfig):
+    """The plain PyTorch version of the fixed-batch search: one lane per
+    read, the fixed frame-budget rule, the arena returned beside the result
+    dict as `arena` [B, NFRAME, ROWW]."""
+    B, Lmax = rc.shape
+    S = ring_statics(params, cfg, Lmax, Ds.shape[1], fixed=True)
+    q_alns, q_meta, q_paths = alloc_outputs(B, S, rc.device)
+    arena = _plain_chunk(didx, rc, lengths, D, Ds, params, S, q_alns,
+                         q_meta, q_paths)
+    return dict(result_dict(q_alns, q_meta, q_paths), arena=arena)
+
+
+def _search_inputs(didx, rc, lengths, D, Ds, seeds, device):
+    if any(s is not None for s in seeds):
+        raise NotImplementedError(
+            "seeded (-P, NROOT > 1) search is not ported yet")
+    dev = index_device(didx, device)
+    return (dev,
+            torch.as_tensor(rc).to(dev).to(torch.int8).contiguous(),
+            torch.as_tensor(lengths).to(dev).to(torch.int32).contiguous(),
+            torch.as_tensor(D).to(dev).to(torch.int32).contiguous(),
+            torch.as_tensor(Ds).to(dev).to(torch.int32).contiguous())
+
+
+def inexact_search(didx: DeviceIndex, rc, lengths, D, D_seed,
+                   params: AlnParams, cfg: EngineConfig, seed_L=None,
+                   seed_U=None, seed_cnt=None, device=None):
+    """Fixed-batch search: one lane per read; outputs are per-read [B, ...]
+    tensors on the device, in read order, plus `paths` (2-bit packed
+    reverse-order state walks) and `arena`, the launch's frame rows
+    [B, NFRAME, ROWW], over which `walk_paths` reproduces `paths`.
+
+    Args:
+      rc:        int8/int32 [B, Lmax] nt4 reverse-complement reads (the
+                 search operates on the RC, inexact_match.c:59-65).
+      lengths:   int32 [B].
+      D, D_seed: int32 [B, *, 2] lower bounds from engine.dbound.
+      device:    None means CUDA (raises without one); the tensors and the
+                 index must live there.  On a CUDA device the hand-written
+                 kernel is launched; the plain version runs only for CPU
+                 tensors.
+    """
+    dev, rc, lengths, D, D_seed = _search_inputs(
+        didx, rc, lengths, D, D_seed, (seed_L, seed_U, seed_cnt), device)
+    if dev.type == "cpu":
+        return fixed_search_plain(didx, rc, lengths, D, D_seed, params, cfg)
+    from bwbble_tpu_torch.engine import kernel
+    return kernel.fixed_search(didx, rc, lengths, D, D_seed, params, cfg)
+
+
 def inexact_search_queued(didx: DeviceIndex, rc_all, lengths_all, D_all,
                           Ds_all, params: AlnParams, cfg: EngineConfig,
                           lanes: int, seed_L=None, seed_U=None,
                           seed_cnt=None, device=None):
     """Continuous-batching search: `lanes` lanes stream through all NR reads
     (global work queue, queue order = the order given); outputs are per-read
-    [NR, ...] tensors on the device.
-
-    Args:
-      rc_all:      int8/int32 [NR, Lmax] nt4 reverse-complement reads (the
-                   search operates on the RC, inexact_match.c:59-65).
-      lengths_all: int32 [NR].
-      D_all/Ds_all: int32 [NR, *, 2] lower bounds from engine.dbound.
-      device:      None means CUDA (raises without one); the tensors and the
-                   index must live there.  On a CUDA device the hand-written
-                   kernel is launched; the plain version runs only for CPU
-                   tensors.
-    """
-    if seed_L is not None or seed_U is not None or seed_cnt is not None:
-        raise NotImplementedError(
-            "seeded (-P, NROOT > 1) search is not ported yet")
-    dev = index_device(didx, device)
-    rc_all = torch.as_tensor(rc_all).to(dev).to(torch.int8).contiguous()
-    lengths_all = torch.as_tensor(lengths_all).to(dev).to(
-        torch.int32).contiguous()
-    D_all = torch.as_tensor(D_all).to(dev).to(torch.int32).contiguous()
-    Ds_all = torch.as_tensor(Ds_all).to(dev).to(torch.int32).contiguous()
+    [NR, ...] tensors on the device.  Arguments as for `inexact_search`."""
+    dev, rc_all, lengths_all, D_all, Ds_all = _search_inputs(
+        didx, rc_all, lengths_all, D_all, Ds_all,
+        (seed_L, seed_U, seed_cnt), device)
     if dev.type == "cpu":
         return ring_search_plain(didx, rc_all, lengths_all, D_all, Ds_all,
                                  params, cfg, lanes)
     from bwbble_tpu_torch.engine import kernel
     return kernel.ring_search(didx, rc_all, lengths_all, D_all, Ds_all,
                               params, cfg, lanes)
+
+
+def walk_paths(arena: torch.Tensor, lanes: torch.Tensor, nodes: torch.Tensor,
+               nroot: int, nslot: int, nc: int, pathcap: int) -> torch.Tensor:
+    """Reverse-order state paths for a flat list of (lane, node) alignments.
+
+    A node's appended state is a static function of its frame slot
+    ((node - nroot) % nslot), so only the parent id — word nslot*4 of the
+    node's frame row in `arena` [B, F, ROWW] — is gathered per step.
+    Returns int8 [W, pathcap]; entry t is the state of the t-th ancestor
+    (the node itself first; roots contribute nothing)."""
+    dev = arena.device
+    F = arena.shape[1]
+    states = torch.from_numpy(slot_states(nc).astype(np.int32)).to(dev)
+    lanes = lanes.to(dev).long()
+    cur = nodes.to(dev).to(torch.int32)
+    paths = torch.zeros((cur.shape[0], pathcap), dtype=torch.int8, device=dev)
+    for t in range(pathcap):
+        nn = (cur - nroot).clamp(min=0)
+        f = torch.div(nn, nslot, rounding_mode="floor").clamp(0, F - 1)
+        par = torch.where(cur >= nroot, arena[lanes, f.long(), nslot * 4],
+                          -1).to(torch.int32)
+        alive = (cur >= 0) & (par >= 0)
+        if not bool(alive.any()):
+            break
+        slot = torch.where(cur >= nroot, nn % nslot, 0)
+        paths[:, t] = torch.where(alive, states[slot.long()], 0
+                                  ).to(torch.int8)
+        cur = torch.where(alive, par, -1).to(torch.int32)
+    return paths

@@ -1,9 +1,12 @@
 """Build, bind and launch the hand-written CUDA kernels of the port.
 
 Counterpart of bwbble_tpu/engine/kernel.py: `ring_search` takes the place of
-`run_loop_resident_queued` driving `_resident_kernel` in ring mode.  The
-kernel source is csrc/ring_search.cu; its plain PyTorch version is
-engine/inexact.py:ring_search_plain.
+`run_loop_resident_queued` driving `_resident_kernel` in ring mode, and
+`fixed_search` that of `run_loop_resident` driving it in fixed-batch mode,
+each for the multi-genome and the single-genome (`-S`) alphabet.  The kernel
+source is csrc/ring_search.cu (one template, four instantiations); the plain
+PyTorch versions are engine/inexact.py:ring_search_plain and
+fixed_search_plain.
 
 Build: at first use, `nvcc` compiles the source for sm_90a into a shared
 library with a plain C interface under `build/` at the repository root,
@@ -31,11 +34,10 @@ from bwbble_tpu_torch.engine.inexact import (EngineConfig, alloc_outputs,
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(os.path.dirname(_HERE), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "build")
-ROWW = 128                 # int32 words per frame row (RS_ROWW in the .cu)
 
-# launches per kernel, incremented where a kernel is launched and nowhere
-# else (a run can show that its path went through the kernels)
-LAUNCHES = {"ring_search": 0}
+# launches per kernel entry, incremented where a kernel is launched and
+# nowhere else (a run can show that its path went through the kernels)
+LAUNCHES = {"ring_search": 0, "fixed_search": 0}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -60,8 +62,8 @@ def build(name: str = "ring_search") -> str:
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
     cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-           "-o", tmp, src]
+           "-O3", "--expt-relaxed-constexpr", "-shared", "-Xcompiler",
+           "-fPIC", "-Xptxas", "-v", "-o", tmp, src]
     r = subprocess.run(cmd, capture_output=True, text=True)
     if r.returncode != 0:
         raise RuntimeError(f"nvcc failed for {src}:\n{r.stdout}\n{r.stderr}")
@@ -77,8 +79,11 @@ def _load(name: str = "ring_search") -> ctypes.CDLL:
         if lib is None:
             lib = ctypes.CDLL(build(name))
             vp = ctypes.c_void_p
-            lib.ring_search_launch.argtypes = [vp, ctypes.c_int] + [vp] * 13
+            lib.ring_search_launch.argtypes = (
+                [vp, ctypes.c_int, ctypes.c_int, ctypes.c_int] + [vp] * 13)
             lib.ring_search_launch.restype = ctypes.c_int
+            lib.ring_search_row_words.argtypes = [ctypes.c_int]
+            lib.ring_search_row_words.restype = ctypes.c_int
             lib.ring_search_num_params.argtypes = []
             lib.ring_search_num_params.restype = ctypes.c_int
             _libs[name] = lib
@@ -89,23 +94,24 @@ def _check(t: torch.Tensor, name: str, dtype, ndim: int, dev) -> None:
     if not (t.is_cuda and t.device == dev and t.dtype == dtype
             and t.dim() == ndim and t.is_contiguous()):
         raise ValueError(
-            f"ring_search: `{name}` must be a contiguous {ndim}-d {dtype} "
+            f"search kernel: `{name}` must be a contiguous {ndim}-d {dtype} "
             f"CUDA tensor on {dev}; got {t.dtype} {tuple(t.shape)} on "
             f"{t.device}")
 
 
-def ring_search(didx: DeviceIndex, rc_all: torch.Tensor,
-                lengths_all: torch.Tensor, D_all: torch.Tensor,
-                Ds_all: torch.Tensor, params: AlnParams, cfg: EngineConfig,
-                lanes: int) -> dict:
-    """Launch the ring-search kernel on CUDA tensors; returns the per-read
-    result dict (engine/inexact.py:result_dict) of device tensors.  Does not
-    synchronise.  Raises for anything the kernel does not take — there is
-    no fallback to the plain version."""
+def _launch(entry: str, didx: DeviceIndex, rc_all: torch.Tensor,
+            lengths_all: torch.Tensor, D_all: torch.Tensor,
+            Ds_all: torch.Tensor, params: AlnParams, cfg: EngineConfig,
+            lanes: int | None):
+    """Check the arguments, allocate outputs and scratch, launch one
+    instantiation of the kernel (`lanes` None: fixed mode, one lane per
+    read) and count the launch.  Returns (q_alns, q_meta, q_paths, arena).
+    Does not synchronise."""
+    fixed = lanes is None
     dev = didx.table.device
     if dev.type != "cuda":
-        raise ValueError("ring_search launches a CUDA kernel: the index "
-                         f"lives on {dev}")
+        raise ValueError(f"{entry} launches a CUDA kernel: the index lives "
+                         f"on {dev}")
     _check(didx.table, "table", torch.int32, 2, dev)
     _check(didx.Carr, "Carr", torch.int32, 1, dev)
     _check(rc_all, "rc", torch.int8, 2, dev)
@@ -117,11 +123,11 @@ def ring_search(didx: DeviceIndex, rc_all: torch.Tensor,
             or lengths_all.shape[0] != Q
             or tuple(D_all.shape) != (Q, Lmax + 1, 2)
             or D_all.shape[0] != Ds_all.shape[0] or Ds_all.shape[2] != 2):
-        raise ValueError("ring_search: inconsistent input shapes")
+        raise ValueError(f"{entry}: inconsistent input shapes")
     if int(didx.length) < 2 or Q < 1:
-        raise ValueError("ring_search: empty index or read set")
-    S = ring_statics(params, cfg, Lmax, Ds_all.shape[1])
-    lanes = max(1, min(int(lanes), Q))
+        raise ValueError(f"{entry}: empty index or read set")
+    S = ring_statics(params, cfg, Lmax, Ds_all.shape[1], fixed=fixed)
+    lanes = Q if fixed else max(1, min(int(lanes), Q))
     lib = _load()
     p = params
     hp = np.array(
@@ -131,27 +137,59 @@ def ring_search(didx: DeviceIndex, rc_all: torch.Tensor,
          S.NB, S.NFRAME, S.ACAP, S.XC, S.PATHCAP, S.max_iters,
          Q, Lmax, S.DS, int(didx.length), lanes, S.PW],
         dtype=np.int32)
-    if hp.size != lib.ring_search_num_params():
-        raise RuntimeError("ring_search: parameter block out of date")
+    if (hp.size != lib.ring_search_num_params()
+            or S.ROWW != lib.ring_search_row_words(int(S.multiref))):
+        raise RuntimeError(f"{entry}: parameter block or frame-row width "
+                           "out of date")
 
     with torch.cuda.device(dev):
         q_alns, q_meta, q_paths = alloc_outputs(Q, S, dev)
-        arena = torch.empty((lanes, S.NFRAME, ROWW), dtype=torch.int32,
+        arena = torch.empty((lanes, S.NFRAME, S.ROWW), dtype=torch.int32,
                             device=dev)
         xlist = torch.empty((lanes, 2, S.XC, 2), dtype=torch.int32,
                             device=dev)
         counter = torch.zeros((1,), dtype=torch.int32, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.ring_search_launch(
-            hp.ctypes.data, hp.size, didx.table.data_ptr(),
-            didx.Carr.data_ptr(), rc_all.data_ptr(), lengths_all.data_ptr(),
-            D_all.data_ptr(), Ds_all.data_ptr(), arena.data_ptr(),
-            xlist.data_ptr(), counter.data_ptr(), q_alns.data_ptr(),
-            q_meta.data_ptr(), q_paths.data_ptr(), stream)
+            hp.ctypes.data, hp.size, int(S.multiref), int(fixed),
+            didx.table.data_ptr(), didx.Carr.data_ptr(), rc_all.data_ptr(),
+            lengths_all.data_ptr(), D_all.data_ptr(), Ds_all.data_ptr(),
+            arena.data_ptr(), xlist.data_ptr(), counter.data_ptr(),
+            q_alns.data_ptr(), q_meta.data_ptr(), q_paths.data_ptr(), stream)
     if rc != 0:
-        raise RuntimeError(f"ring_search: launch failed with CUDA error {rc}")
-    LAUNCHES["ring_search"] += 1
+        raise RuntimeError(f"{entry}: launch failed with CUDA error {rc}")
+    LAUNCHES[entry] += 1
     # the scratch tensors stay referenced by the caching allocator's stream
     # ordering: later allocations on this stream cannot reuse them before
     # the kernel has finished
+    return q_alns, q_meta, q_paths, arena
+
+
+def ring_search(didx: DeviceIndex, rc_all: torch.Tensor,
+                lengths_all: torch.Tensor, D_all: torch.Tensor,
+                Ds_all: torch.Tensor, params: AlnParams, cfg: EngineConfig,
+                lanes: int) -> dict:
+    """Launch the ring-queue search on CUDA tensors: `lanes` lanes (at most
+    one per read) stream through the reads.  Returns the per-read result
+    dict (engine/inexact.py:result_dict) of device tensors.  Does not
+    synchronise.  Raises for anything the kernel does not take — there is
+    no fallback to the plain version."""
+    q_alns, q_meta, q_paths, _arena = _launch(
+        "ring_search", didx, rc_all, lengths_all, D_all, Ds_all, params,
+        cfg, lanes)
     return result_dict(q_alns, q_meta, q_paths)
+
+
+def fixed_search(didx: DeviceIndex, rc: torch.Tensor, lengths: torch.Tensor,
+                 D: torch.Tensor, Ds: torch.Tensor, params: AlnParams,
+                 cfg: EngineConfig) -> dict:
+    """Launch the fixed-batch search on CUDA tensors: lane b runs read b
+    and nothing else, so there is a lane, and an arena column, for exactly
+    the reads given.  Returns the per-read result dict in read order plus
+    `arena`, the launch's frame rows [B, NFRAME, ROWW] (its scratch, valid
+    once the launch has finished).  Does not synchronise.  Raises for
+    anything the kernel does not take — there is no fallback to the plain
+    version."""
+    q_alns, q_meta, q_paths, arena = _launch(
+        "fixed_search", didx, rc, lengths, D, Ds, params, cfg, None)
+    return dict(result_dict(q_alns, q_meta, q_paths), arena=arena)

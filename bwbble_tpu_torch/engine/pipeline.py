@@ -1,15 +1,30 @@
-"""Device alignment pipeline (queued path): streams reads through the ring
-search on the device and falls back to the host gold engine per read on any
-capacity overflow, so output is byte-identical to the reference at every
-capacity setting.
+"""Device alignment pipeline: batches reads onto the device search and falls
+back to the host gold engine per read on any capacity overflow, so output is
+byte-identical to the reference at every capacity setting.
 
 Counterpart of bwbble_tpu/engine/pipeline.py.  Ported: the D-bound passes
-(device `calc_d`, the native unbounded-list scanner and the probe that
-chooses between them), difficulty ordering, the queued branch of
-`align_reads_device` with its single deep rung, and the overlapped host gold
-pool.  Not ported yet (raise NotImplementedError): fixed-batch tiers
-(`run_tier`), `-S` single-genome mode, `-P` seeding, the int64 layout and
-device meshes.
+(device `calc_d` / `calc_d_1to1`, the native unbounded-list scanner and the
+probe that chooses between them), difficulty ordering and pre-routing, the
+fixed-batch tiers (`run_tier`: the default path of `align`, with its
+streamed scan-and-launch branch and escalation ladder),
+the queued branch with its single deep rung, single-genome `-S` mode in
+both, and the overlapped host gold pool.  Not ported yet (raise
+NotImplementedError): `-P` seeding, the int64 layout and device meshes.
+
+Where the JAX package chooses a branch by asking whether it runs on its
+accelerator, the port takes the accelerator's branch, on the card and on
+the CPU alike, because its kernel and its plain version are one function:
+the search covers every int32, unseeded, unsharded run at any lane count,
+so exact completion runs over lists of 128 intervals in multi-genome mode
+(one interval in `-S`), 2.5 % of each D chunk is pre-routed to the gold
+pool, the ladder is one deep tier of 256 lanes, and the deep tier is on
+whenever the gold pool is up.
+
+A fixed batch is never padded: a launch gets exactly the reads of its
+batch, so no lane and no arena row exists for a read that is not there.
+Outside the streamed branch a launch is collected right after its dispatch:
+the JAX package's `window` of batches in flight and its `seed_slots` have no
+counterpart here.
 
 The gold pool runs on threads, not forked processes: the index is already
 on the CUDA device when the pool is made, and a forked child of a process
@@ -32,12 +47,12 @@ from bwbble_tpu_torch import constants as CN
 from bwbble_tpu_torch.align.params import AlnParams
 from bwbble_tpu_torch.align.pipeline import align_read_gold
 from bwbble_tpu_torch.engine import index_device
-from bwbble_tpu_torch.engine.dbound import calc_d
+from bwbble_tpu_torch.engine.dbound import calc_d, calc_d_1to1
 from bwbble_tpu_torch.engine.device_index import DeviceIndex
-from bwbble_tpu_torch.engine.inexact import (NB_MAX, NROOT, NSLOT,
-                                             EngineConfig,
+from bwbble_tpu_torch.engine.inexact import (NB_MAX, OV_LIST, EngineConfig,
+                                             inexact_search,
                                              inexact_search_queued,
-                                             unpack_paths)
+                                             ring_statics, unpack_paths)
 from bwbble_tpu_torch.formats.fastq import Reads
 from bwbble_tpu_torch.gold.engine import Aln
 from bwbble_tpu_torch.index.fmindex import FMIndex
@@ -57,27 +72,24 @@ def _reconstruct_path(rev_row: np.ndarray, plen: int, out_len: int,
     return path[:out_len]
 
 
-def _require_multiref(params: AlnParams) -> None:
-    if not params.is_multiref:
-        raise NotImplementedError(
-            "single-genome (-S) mode (calc_d_1to1, the 4-letter search) is "
-            "not ported yet")
-
-
 def _calc_d_chunk(didx, seq, lengths, lengths_np, params, K):
     """D and D_seed for one padded chunk at interval capacity K; returns
     (D, Ds, overflow) device tensors.  lengths_np mirrors `lengths` for
     host-side masking."""
-    _require_multiref(params)
     dev = didx.device
     seed_len = int(params.seed_length)
     seq = torch.as_tensor(seq).to(dev)
     lengths = torch.as_tensor(lengths).to(dev)
-    D, dov1 = calc_d(didx, seq, lengths, K=K, device=dev)
     use_seed = (lengths_np > seed_len) & (seed_len > 0)
     sl = torch.from_numpy(np.where(use_seed, seed_len, 0).astype(np.int32))
-    Ds, dov2 = calc_d(didx, seq, sl.to(dev), K=K, max_len=max(seed_len, 1),
-                      device=dev)
+    if params.is_multiref:
+        D, dov1 = calc_d(didx, seq, lengths, K=K, device=dev)
+        Ds, dov2 = calc_d(didx, seq, sl.to(dev), K=K,
+                          max_len=max(seed_len, 1), device=dev)
+    else:
+        D, dov1 = calc_d_1to1(didx, seq, lengths, device=dev)
+        Ds, dov2 = calc_d_1to1(didx, seq, sl.to(dev),
+                               max_len=max(seed_len, 1), device=dev)
     # reads not using a seed keep an all-zero D_seed (calloc semantics,
     # inexact_match.c:36,62-64)
     use_seed_d = torch.from_numpy(use_seed).to(dev)
@@ -105,11 +117,10 @@ def probe_native_d(didx: DeviceIndex, reads: Reads, params: AlnParams,
     default width if it overflows.  When even d_cap overflows on >90% of
     the probe chunk, the whole K=d_cap device pass would be discarded
     wholesale for the native scanner, so skip it up front."""
-    _require_multiref(params)
     NR = reads.count
     Lmax = max(reads.max_len, 1)
-    K1 = min(k_fast, d_cap)
-    if not (NR > 0 and d_cap > K1):
+    K1 = min(k_fast, d_cap) if params.is_multiref else d_cap
+    if not (params.is_multiref and NR > 0 and d_cap > K1):
         return K1, False
     nat_ok = _native_d_ok(didx, host_idx)
     sq = np.zeros((min(256, max(NR, 1)), Lmax), dtype=np.int8)
@@ -142,12 +153,16 @@ def _native_d_read(nat, host_idx, planes, fused, nb_tab, seq, ln_r,
 
 def calc_d_all(didx: DeviceIndex, reads: Reads, params: AlnParams,
                batch: int, d_cap: int = 16, k_fast: int = 2,
-               host_idx: FMIndex | None = None):
+               host_idx: FMIndex | None = None, on_chunk=None):
     """D/D_seed bounds for every read: one cheap K=k_fast pass (exact unless
     a read's interval list overflows k_fast slots), then a K=d_cap re-run
     for just the overflowing reads, then the native unbounded-list scanner
     for what still overflows.  Returns (D_all, Ds_all device tensors,
     overflow np.bool_[NR] — reads still overflowing).
+
+    `on_chunk(global_idx, z)`: called after each chunk of the first pass
+    with the chunk's read indices and difficulty scores, so the caller can
+    start routing work (the overlapped gold pool) while later chunks run.
 
     The reference recomputes these per read with unbounded linked lists
     (calculate_d, inexact_match.c:171-254)."""
@@ -156,7 +171,8 @@ def calc_d_all(didx: DeviceIndex, reads: Reads, params: AlnParams,
     dev = didx.device
     K1, skip = probe_native_d(didx, reads, params, d_cap, k_fast, host_idx)
     if skip:
-        return _calc_d_native_all(didx, host_idx, reads, params, batch)
+        return _calc_d_native_all(didx, host_idx, reads, params, batch,
+                                  on_chunk)
     D_parts, Ds_parts, dov_parts = [], [], []
     for s in range(0, NR, batch):
         e = min(s + batch, reads.count)
@@ -169,6 +185,9 @@ def calc_d_all(didx: DeviceIndex, reads: Reads, params: AlnParams,
         D_parts.append(D[:nb])
         Ds_parts.append(Ds[:nb])
         dov_parts.append(dov.cpu().numpy()[:nb])
+        if on_chunk is not None:
+            on_chunk(np.arange(s, e, dtype=np.int64),
+                     _difficulty(D[:nb].cpu().numpy()))
     D_all = torch.cat(D_parts)
     Ds_all = torch.cat(Ds_parts)
     dov_all = np.concatenate(dov_parts)
@@ -194,7 +213,7 @@ def calc_d_all(didx: DeviceIndex, reads: Reads, params: AlnParams,
     # get exact D bounds from the native unbounded-list scanner, so D
     # overflow never forces whole-read gold fallback
     still = np.flatnonzero(dov_all)
-    if still.size and _native_d_ok(didx, host_idx):
+    if still.size and params.is_multiref and _native_d_ok(didx, host_idx):
         nat = get_native()
         nb_tab = np.ascontiguousarray(CN.NUCL_BASES, dtype=np.uint8)
         planes = host_idx.bit_planes()
@@ -257,17 +276,20 @@ def native_scan_chunks(host_idx: FMIndex, reads: Reads, params: AlnParams,
 
 
 def _calc_d_native_all(didx: DeviceIndex, host_idx: FMIndex, reads: Reads,
-                       params: AlnParams, batch: int):
-    """Materialized native_scan_chunks: exact D bounds for every read."""
+                       params: AlnParams, batch: int, on_chunk=None):
+    """Materialized native_scan_chunks: exact D bounds for every read, with
+    `on_chunk` routing as each chunk lands."""
     NR = reads.count
     Lmax = max(reads.max_len, 1)
     seed_len = int(params.seed_length)
     D_np = np.zeros((NR, Lmax + 1, 2), dtype=np.int32)
     Ds_np = np.zeros((NR, max(seed_len, 1) + 1, 2), dtype=np.int32)
-    for gi, Dch, Dsch, _zc in native_scan_chunks(host_idx, reads, params,
-                                                 batch):
+    for gi, Dch, Dsch, zc in native_scan_chunks(host_idx, reads, params,
+                                                batch):
         D_np[gi[0]:gi[-1] + 1] = Dch
         Ds_np[gi[0]:gi[-1] + 1] = Dsch
+        if on_chunk is not None:
+            on_chunk(gi, zc)
     dev = didx.device
     return (torch.from_numpy(D_np).to(dev), torch.from_numpy(Ds_np).to(dev),
             np.zeros(NR, dtype=bool))
@@ -306,30 +328,121 @@ def device_params_ok(params: AlnParams, max_len: int) -> bool:
             and 0 < nb <= NB_MAX)
 
 
+_COUNTER_KEYS = (("n_work", "work_units"), ("pops", "pops"),
+                 ("rank_rows", "rank_rows"), ("frame_rd", "frame_rd_rows"),
+                 ("frame_wr", "frame_wr_rows"))
+
+
+def _count_launch(counters: dict, host: dict) -> None:
+    """Add one collected launch's per-read counters to the run's totals."""
+    for ks, kd in _COUNTER_KEYS:
+        counters[kd] = counters.get(kd, 0) + int(
+            host[ks].sum(dtype=np.int64))
+    counters["launches"] = counters.get("launches", 0) + 1
+
+
+def _assemble(host: dict, pathcap: int) -> list:
+    """Per-read `Aln` lists of one collected launch (host arrays of a
+    search result dict); None for a read that overflowed.  Bulk .tolist()
+    first: Python-int indexing is far cheaper than per-element numpy
+    scalar fetches."""
+    n_alns = host["n_alns"].tolist()
+    oL, oU = host["o_L"].tolist(), host["o_U"].tolist()
+    oSc, oLen = host["o_score"].tolist(), host["o_len"].tolist()
+    oMM, oGO = host["o_mm"].tolist(), host["o_go"].tolist()
+    oGE, oSnp = host["o_ge"].tolist(), host["o_snp"].tolist()
+    oPl = host["o_plen"].tolist()
+    paths_all = unpack_paths(host["paths"], pathcap)
+    out = []
+    for r, over in enumerate(host["overflow"].tolist()):
+        if over:
+            out.append(None)
+            continue
+        alns = []
+        for k in range(n_alns[r]):
+            out_len = oLen[r][k]
+            path = _reconstruct_path(paths_all[r, k], oPl[r][k], out_len, 0)
+            alns.append(Aln(
+                score=oSc[r][k], L=oL[r][k], U=oU[r][k],
+                num_mm=oMM[r][k], num_gapo=oGO[r][k],
+                num_gape=oGE[r][k], num_snps=oSnp[r][k] & 0xFF,
+                aln_length=out_len, path=path))
+        out.append(alns)
+    return out
+
+
+class _LaunchTimer:
+    """Device time of one launch: CUDA events around it on a CUDA device
+    (recording does not synchronise), the host clock on the CPU."""
+
+    def __init__(self, dev):
+        self._t0 = _tm.time()
+        self._ev = None
+        if dev.type == "cuda":
+            self._ev = (torch.cuda.Event(enable_timing=True),
+                        torch.cuda.Event(enable_timing=True))
+            self._ev[0].record()
+
+    def stop(self) -> None:
+        if self._ev is not None:
+            self._ev[1].record()
+        else:
+            self._sec = _tm.time() - self._t0
+
+    def seconds(self) -> float:
+        """Blocks until the launch has finished."""
+        if self._ev is not None:
+            self._ev[1].synchronize()
+            return self._ev[0].elapsed_time(self._ev[1]) / 1e3
+        return self._sec
+
+
+def deep_tier_cfg(base: EngineConfig, B: int, deep_B: int,
+                  deep_kx: int) -> EngineConfig:
+    """The deep tier's capacities after a first tier of `B` lanes: the
+    per-read frame budget rises as the lane count shrinks at constant arena
+    rows (cap * lanes)."""
+    cell = max(int(base.cap) * B, 1 << 25)
+    deep_cap = min(cell // deep_B, 4 << 20)
+    return dataclasses.replace(
+        base, cap=deep_cap, acap=max(base.acap, 64),
+        kx=max(base.kx, deep_kx),
+        max_iters=max(base.max_iters, deep_cap // 23 + 1024))
+
+
+LADDER = ((256, 2),)      # (lanes, kx) of each deep tier
+
+
 def align_reads_device(idx: FMIndex, didx: DeviceIndex, reads: Reads,
                        params: AlnParams, cfg: EngineConfig | None = None,
                        d_cap: int = 32, stats: dict | None = None,
-                       precalc=None, seed_slots: int = 32,
-                       sort_reads: bool = True, queued: bool = False,
-                       qchunk: int = 2, mesh=None,
+                       precalc=None, sort_reads: bool = True,
+                       queued: bool = False, qchunk: int = 2, mesh=None,
+                       deep_tiers: bool | None = None,
+                       gold_overlap: bool | None = None,
                        device=None) -> list[list[Aln]]:
     """Align all reads on the device; returns per-read alignment lists in
     the reference's discovery order (byte-parity with align_reads_inexact).
 
-    `queued`: continuous batching (lanes stream reads from a global queue),
-    the one search path ported so far; it is taken when the read set spans
-    more than one batch, as in the JAX package.  `device`: None means CUDA
-    (raises without one); the index must live there.
+    `queued`: continuous batching (lanes stream reads from a global
+    queue), taken when the read set spans more than one batch;
+    bit-identical results.
+    `deep_tiers`: force the narrow-lane escalation ladder on/off (None =>
+    on when the gold pool is up, else on only without the native gold
+    engine).  `gold_overlap`: run the host gold fallback concurrently with
+    the device tiers (None => on when the native gold engine is available,
+    the run is multi-genome and the read set spans several batches).
+    `device`: None means CUDA (raises without one); the index must live
+    there.
     """
     cfg = cfg or EngineConfig()
-    index_device(didx, device)
+    dev = index_device(didx, device)
     if mesh is not None:
         raise NotImplementedError("device meshes (parallel/) are not "
                                   "ported yet")
     if precalc is not None or params.use_precalc:
         raise NotImplementedError("-P seeded search (align/precalc.py, "
                                   "NROOT > 1) is not ported yet")
-    _require_multiref(params)
     if not device_params_ok(params, max(reads.max_len, 1)):
         counters = {"fallback_reads": reads.count, "retried_reads": 0,
                     "t_dbounds": 0.0, "gold_routed": True}
@@ -344,10 +457,295 @@ def align_reads_device(idx: FMIndex, didx: DeviceIndex, reads: Reads,
     if queued and reads.count > int(params.batch_size):
         return _align_queued(idx, didx, reads, params, cfg, d_cap, stats,
                              sort_reads, qchunk=qchunk)
-    raise NotImplementedError(
-        "fixed-batch search (run_tier / inexact_search) is not ported yet: "
-        "pass queued=True (CLI: --queued) with more reads than "
-        "params.batch_size")
+    t_start = _tm.time()
+    B = int(params.batch_size)
+    Lmax = max(reads.max_len, 1)
+    counters = {"fallback_reads": 0, "retried_reads": 0}
+    results: list = [None] * reads.count
+    fail_why: dict[int, int] = {}   # overflow reason bits per failed read
+    work_seen: dict[int, int] = {}  # per-read n_work at failure (tier cap)
+    t_launch = [0.0]                # device time of the search launches
+
+    def run_tier(sel_all: np.ndarray | None, tier_cfg: EngineConfig,
+                 tier_B: int, on_failed=None, sel_gen=None) -> list[int]:
+        """Process reads[sel_all] with tier_cfg in batches of tier_B; fill
+        `results` for resolved reads, return the original indices that
+        overflowed.  `on_failed` (streaming gold overlap): called with each
+        launch's overflow list as soon as it is known, while later launches
+        still run.  `sel_gen` (scan+launch overlap): an iterator of launch
+        index arrays pulled BETWEEN a launch's dispatch, which does not
+        wait for the device, and its blocking collect, so host work inside
+        the iterator (the native D scan) runs while the device searches."""
+        failed: list[int] = []
+        pathcap = tier_cfg.pathcap or (Lmax + 32)
+
+        def dispatch(sel: np.ndarray) -> dict:
+            """Launch one batch.  Nothing here waits for the device."""
+            rc = np.zeros((sel.shape[0], Lmax), dtype=np.int8)
+            rc[:, :reads.rc.shape[1]] = reads.rc[sel]
+            lengths = reads.lengths[sel].astype(np.int32)
+            if isinstance(D_all, np.ndarray):
+                Dsel = torch.from_numpy(D_all[sel]).to(dev)
+                Dssel = torch.from_numpy(Ds_all[sel]).to(dev)
+            else:
+                selj = torch.from_numpy(sel.astype(np.int64)).to(dev)
+                Dsel = D_all.index_select(0, selj)
+                Dssel = Ds_all.index_select(0, selj)
+            timer = _LaunchTimer(dev)
+            res = inexact_search(didx, rc, lengths, Dsel, Dssel, params,
+                                 tier_cfg, device=dev)
+            timer.stop()
+            # the pipeline reads the packed paths; the arena goes back to
+            # the allocator here, and the next launch on this stream may
+            # take the same memory once this one has finished
+            del res["arena"]
+            return dict(sel=sel, res=res, timer=timer)
+
+        def collect(h: dict) -> None:
+            t_launch[0] += h["timer"].seconds()
+            host = {k: v.cpu().numpy() for k, v in h["res"].items()}
+            _count_launch(counters, host)
+            sel = h["sel"]
+            launch_failed: list[int] = []
+            for b, alns in enumerate(_assemble(host, pathcap)):
+                orig = int(sel[b])
+                if alns is None:
+                    launch_failed.append(orig)
+                    fail_why[orig] = int(host["ovwhy"][b])
+                    work_seen[orig] = int(host["n_work"][b])
+                else:
+                    results[orig] = alns
+            failed.extend(launch_failed)
+            if on_failed is not None and launch_failed:
+                on_failed(launch_failed)
+
+        if sel_gen is not None:
+            # one launch in flight: dispatch launch k, pull the next batch
+            # from the iterator (host-side scan), then block on k
+            it = iter(sel_gen)
+            nxt = next(it, None)
+            while nxt is not None:
+                h = dispatch(nxt)
+                nxt = next(it, None)
+                collect(h)
+            return failed
+        for start in range(0, sel_all.shape[0], tier_B):
+            collect(dispatch(sel_all[start:start + tier_B]))
+        return failed
+
+    # Overlapped gold fallback: a host worker pool gold-aligns overflowing
+    # reads WHILE the device runs.  It is made BEFORE the D pass so that
+    # pre-routed reads (below) keep it busy during the D phase;
+    # hardest-first tier order then surfaces the remaining overflow early.
+    pool: _GoldPool | None = None
+    if gold_overlap is None:
+        nat0 = get_native()
+        gold_overlap = (params.is_multiref and nat0 is not None
+                        and getattr(nat0, "_has_gold", False)
+                        and reads.count > B)
+    if gold_overlap:
+        pool = _GoldPool(idx, reads, params,
+                         n_workers=max(1, int(params.n_threads)))
+
+    # Exact completion over lists of up to 128 intervals covers the
+    # IUPAC-dense reads a handful of kx slots would ship to the host; a
+    # single genome keeps one interval, so kx slots are the fit there.
+    cfg = dataclasses.replace(cfg, xcap=128 if params.is_multiref else 0)
+
+    # Pre-route the per-chunk hardest quantile straight to gold as each D
+    # chunk lands (keeps the host pool busy during the D phase).
+    routed = np.zeros(reads.count, dtype=bool)
+    route_frac = 0.025 if (pool is not None and sort_reads) else 0.0
+
+    def _route_chunk(gi: np.ndarray, zc: np.ndarray) -> None:
+        k = int(gi.size * route_frac)
+        if k <= 0 or gi.size < 64:
+            return
+        thr = np.partition(zc, -k)[-k]
+        sel = gi[zc >= thr]
+        routed[sel] = True
+        pool.submit(sel)
+
+    try:
+        # Streamed scan+launch overlap: when the d_cap probe shows the
+        # device D pass would be discarded for the native scanner anyway
+        # (IUPAC-dense multi-genomes) and the gold pool is up, the scan
+        # runs on the CPU BETWEEN each launch's dispatch and its blocking
+        # collect, so the device starts searching after ONE scanned chunk
+        # instead of after the full D phase.  Each launch takes the hardest
+        # B pending reads (failures surface early).
+        if (pool is not None and sort_reads
+                and probe_native_d(didx, reads, params, d_cap,
+                                   host_idx=idx)[1]):
+            seed_len = int(params.seed_length)
+            D_all = np.zeros((reads.count, Lmax + 1, 2), dtype=np.int32)
+            Ds_all = np.zeros((reads.count, max(seed_len, 1) + 1, 2),
+                              dtype=np.int32)
+            z_all = np.zeros(reads.count, dtype=np.int64)
+            t_scan = [0.0]
+
+            def _stream_batches():
+                pend_i = np.empty(0, dtype=np.int64)
+                pend_z = np.empty(0, dtype=np.int64)
+                ts = _tm.monotonic()
+                for gi, Dch, Dsch, zc in native_scan_chunks(
+                        idx, reads, params, B):
+                    D_all[gi[0]:gi[-1] + 1] = Dch
+                    Ds_all[gi[0]:gi[-1] + 1] = Dsch
+                    z_all[gi[0]:gi[-1] + 1] = zc
+                    _route_chunk(gi, zc)
+                    keep = ~routed[gi]
+                    pend_i = np.concatenate([pend_i, gi[keep]])
+                    pend_z = np.concatenate([pend_z, zc[keep]])
+                    while pend_i.size >= B:
+                        topk = np.argpartition(pend_z, -B)[-B:]
+                        sel = pend_i[topk]
+                        m = np.ones(pend_i.size, dtype=bool)
+                        m[topk] = False
+                        pend_i, pend_z = pend_i[m], pend_z[m]
+                        t_scan[0] += _tm.monotonic() - ts
+                        yield np.sort(sel)
+                        ts = _tm.monotonic()
+                rorder = np.argsort(-pend_z, kind="stable")
+                pend_i = pend_i[rorder]
+                t_scan[0] += _tm.monotonic() - ts
+                for s0 in range(0, pend_i.size, B):
+                    yield pend_i[s0:s0 + B]
+
+            t0s = _tm.time()
+            # primary-tier failures retry on the device's deep tier
+            # instead of streaming to the host pool
+            failed = run_tier(None, cfg, B, sel_gen=_stream_batches())
+            counters["prerouted"] = int(routed.sum())
+            counters["streamed"] = True
+            counters["t_dbounds"] = round(t_scan[0], 3)
+            counters["tiers"] = [dict(
+                B=B, cap=int(cfg.cap), reads=int(reads.count - routed.sum()),
+                failed=len(set(failed)), sec=round(_tm.time() - t0s, 2))]
+            if failed:
+                # interval-list overflows go to gold (a deeper arena does
+                # not widen the list); everything else retries on the deep
+                # tier
+                kx_bound = [r for r in set(failed)
+                            if fail_why.get(r, 0) & OV_LIST]
+                if kx_bound:
+                    pool.submit(sorted(kx_bound))
+                failed = [r for r in set(failed)
+                          if not (fail_why.get(r, 0) & OV_LIST)]
+                # the measured-hardest slice (n_work at the tier cap is a
+                # lower bound on remaining work) goes to the host pool,
+                # which chews it while the deep tier runs; stay inside the
+                # 5% fallback budget overall
+                budget = max(int(0.045 * reads.count) - pool.submitted, 0)
+                hardest = sorted(
+                    failed, key=lambda r: (-z_all[r], -work_seen.get(r, 0)))
+                to_gold = hardest[:min(budget, len(failed) // 4)]
+                if to_gold:
+                    pool.submit(to_gold)
+                failed = hardest[len(to_gold):]
+                for deep_B, deep_kx in LADDER:
+                    if not failed:
+                        break
+                    sel_d = np.array(failed, dtype=np.int64)
+                    deep_cfg = deep_tier_cfg(cfg, B, deep_B, deep_kx)
+                    td0 = _tm.time()
+                    counters["retried_reads"] += int(sel_d.size)
+                    failed = run_tier(sel_d, deep_cfg, deep_B)
+                    counters["tiers"].append(dict(
+                        B=deep_B, cap=int(deep_cfg.cap),
+                        reads=int(sel_d.size), failed=len(set(failed)),
+                        sec=round(_tm.time() - td0, 2)))
+                if failed:
+                    pool.submit(sorted(set(failed)))
+        else:
+            D_all, Ds_all, dov_all = calc_d_all(
+                didx, reads, params,
+                batch=max(1, min(B, reads.count)), d_cap=d_cap,
+                host_idx=idx,
+                on_chunk=_route_chunk if route_frac > 0 else None)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            counters["t_dbounds"] = round(_tm.time() - t_start, 3)
+            counters["prerouted"] = int(routed.sum())
+            order = np.flatnonzero(~dov_all & ~routed).astype(np.int64)
+            if sort_reads and reads.count > B and order.size:
+                z = difficulty_scores(D_all)
+                order = order[np.argsort(z[order], kind="stable")]
+            if pool is not None:
+                if deep_tiers is None:
+                    deep_tiers = True
+                if sort_reads:
+                    order = order[::-1]
+                dov_sel = np.flatnonzero(dov_all & ~routed)
+                if dov_sel.size:
+                    pool.submit(dov_sel)
+            if deep_tiers is None:
+                # with the native gold engine and no pool (a read set of
+                # one batch) hard reads go straight to gold; without it
+                # the deep tier beats the Python gold engine by far
+                nat = get_native()
+                deep_tiers = not (params.is_multiref and nat is not None
+                                  and getattr(nat, "_has_gold", False))
+
+            # Escalation ladder: a read's frame budget is NFRAME ~= cap /
+            # NSLOT pops, so its on-device budget rises as the lane count
+            # shrinks at constant arena memory.  Hard reads (repeat regions
+            # can need 10^4-10^5 pops; the reference allows max_entries =
+            # 3e6, inexact_match.c:299) ladder down to a narrow deep tier
+            # instead of storming the host gold engine.
+            tiers: list[tuple[int, EngineConfig]] = [(B, cfg)]
+            for deep_B, deep_kx in (LADDER if deep_tiers else ()):
+                if deep_B < B:
+                    tiers.append((deep_B,
+                                  deep_tier_cfg(cfg, B, deep_B, deep_kx)))
+
+            tier_log: list[dict] = []
+            sel = order
+            for t, (tier_B_max, tier_cfg) in enumerate(tiers):
+                if sel.shape[0] == 0:
+                    break
+                if t > 0:
+                    counters["retried_reads"] += sel.shape[0]
+                t0 = _tm.time()
+                stream = (pool.submit if pool is not None
+                          and t == len(tiers) - 1 else None)
+                tier_B = min(tier_B_max, sel.shape[0])
+                failed = run_tier(sel, tier_cfg, tier_B, on_failed=stream)
+                tier_log.append(dict(
+                    B=int(tier_B), cap=int(tier_cfg.cap),
+                    reads=int(sel.shape[0]), failed=len(set(failed)),
+                    sec=round(_tm.time() - t0, 2)))
+                sel = np.array(sorted(set(failed)), dtype=np.int64)
+            counters["tiers"] = tier_log
+            if pool is None:
+                sel = np.concatenate(
+                    [sel, np.flatnonzero(dov_all).astype(np.int64)])
+                if sel.size:
+                    counters["fallback_reads"] += int(sel.size)
+                    for orig, alns in gold_fallback_many(
+                            idx, reads, [int(i) for i in sel], params,
+                            int(params.n_threads)).items():
+                        results[orig] = alns
+
+        if pool is not None:
+            # overflowing reads were submitted as they surfaced; just wait
+            # for the workers
+            counters["fallback_reads"] += pool.submitted
+            for orig, alns in pool.drain().items():
+                results[orig] = alns
+            pool = None
+    finally:
+        if pool is not None:
+            pool.terminate()
+    counters["t_search"] = round(t_launch[0], 3)
+    # in the streamed branch the D scan and the launches overlap, so the
+    # parts can add up to more than the wall time
+    counters["t_host"] = round(max(_tm.time() - t_start
+                                   - counters["t_dbounds"] - t_launch[0],
+                                   0.0), 3)
+    if stats is not None:
+        stats.update(counters)
+    return results
 
 
 class _GoldPool:
@@ -400,10 +798,6 @@ def _fb_single(idx, reads, i, params):
                            int(reads.lengths[i]), params)
 
 
-def _pow2_at_least(n: int, lo: int = 256) -> int:
-    return max(lo, 1 << (int(n) - 1).bit_length())
-
-
 def _align_queued(idx, didx, reads: Reads, params: AlnParams,
                   cfg: EngineConfig, d_cap: int, stats, sort_reads: bool,
                   qchunk: int = 16) -> list:
@@ -420,23 +814,26 @@ def _align_queued(idx, didx, reads: Reads, params: AlnParams,
     t_start = _tm.time()
     NR = reads.count
     dev = didx.device
-    lanes = min(int(params.batch_size), _pow2_at_least(NR, lo=256))
+    lanes = int(params.batch_size)      # the caller sends NR > batch_size
     # exact completion over lists of up to 128 intervals: covers the
-    # IUPAC-dense reads a handful of kx slots would ship to the host
-    cfg = dataclasses.replace(cfg, xcap=128)
+    # IUPAC-dense reads a handful of kx slots would ship to the host (a
+    # single genome keeps one interval: the caller's xcap stays)
+    if params.is_multiref:
+        cfg = dataclasses.replace(cfg, xcap=128)
 
     # overlapped host-gold pool, made before the D pass so pre-routed
     # reads keep the host busy while the device searches
     pool: _GoldPool | None = None
     nat = get_native()
-    if nat is not None and getattr(nat, "_has_gold", False) and NR > lanes:
+    if (params.is_multiref and nat is not None
+            and getattr(nat, "_has_gold", False) and NR > lanes):
         pool = _GoldPool(idx, reads, params,
                          n_workers=max(1, int(params.n_threads)))
 
     try:
         # one forward D pass: search bounds + difficulty ordering
         Dr_all, Dsr_all, dov_raw = calc_d_all(
-            didx, reads, params, batch=min(lanes, _pow2_at_least(NR)),
+            didx, reads, params, batch=lanes,
             d_cap=d_cap, host_idx=idx)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
@@ -465,8 +862,8 @@ def _align_queued(idx, didx, reads: Reads, params: AlnParams,
         Lmax = max(reads.max_len, 1)
         pathcap = cfg.pathcap or (Lmax + 32)
         out: list = [None] * NR
-        counters = {"work_units": 0, "pops": 0, "rank_rows": 0,
-                    "frame_rd_rows": 0, "frame_wr_rows": 0, "launches": 0}
+        counters = {kd: 0 for _ks, kd in _COUNTER_KEYS}
+        counters["launches"] = 0
         t_search = 0.0
         pass_log: list[dict] = []
         pending_assembly: list[dict] = []
@@ -486,7 +883,7 @@ def _align_queued(idx, didx, reads: Reads, params: AlnParams,
             subj = torch.from_numpy(sub.astype(np.int64)).to(dev)
             D_s = Dr_all.index_select(0, subj)
             Ds_s = Dsr_all.index_select(0, subj)
-            nframe = max((int(cfg_p.cap) - NROOT) // NSLOT - 1, 2)
+            nframe = ring_statics(params, cfg_p, Lmax, 2).NFRAME
             Q = max(1, int(qchunk_p)) * lanes_p
             # a read's work bound must not bind before its ring budget
             need = (int(qchunk_p) + 2) * nframe + 4096
@@ -498,19 +895,12 @@ def _align_queued(idx, didx, reads: Reads, params: AlnParams,
 
             def dispatch(cs: int) -> dict:
                 ce = min(cs + Q, NQ)
-                ev = None
-                t0 = _tm.time()
-                if dev.type == "cuda":
-                    ev = (torch.cuda.Event(enable_timing=True),
-                          torch.cuda.Event(enable_timing=True))
-                    ev[0].record()
+                timer = _LaunchTimer(dev)
                 res = inexact_search_queued(
                     didx, rc_d[cs:ce], len_d[cs:ce], D_s[cs:ce],
                     Ds_s[cs:ce], params, cfg_r, lanes=lanes_p, device=dev)
-                if ev is not None:
-                    ev[1].record()
-                return dict(cs=cs, nb=ce - cs, res=res, ev=ev,
-                            sec=_tm.time() - t0)
+                timer.stop()
+                return dict(cs=cs, nb=ce - cs, res=res, timer=timer)
 
             def collect_h(h: dict) -> None:
                 """Block on the launch and extract the cheap outputs
@@ -518,23 +908,13 @@ def _align_queued(idx, didx, reads: Reads, params: AlnParams,
                 deferred so it can run while the next launch computes."""
                 nonlocal t_search
                 cs, nb, res = h["cs"], h["nb"], h["res"]
-                if h["ev"] is not None:
-                    h["ev"][1].synchronize()
-                    t_search += h["ev"][0].elapsed_time(h["ev"][1]) / 1e3
-                else:
-                    t_search += h["sec"]
+                t_search += h["timer"].seconds()
                 host = {k: v.cpu().numpy() for k, v in res.items()}
-                for ks, kd in (("n_work", "work_units"), ("pops", "pops"),
-                               ("rank_rows", "rank_rows"),
-                               ("frame_rd", "frame_rd_rows"),
-                               ("frame_wr", "frame_wr_rows")):
-                    counters[kd] += int(host[ks].sum(dtype=np.int64))
-                counters["launches"] += 1
-                overflow = host["overflow"]
-                for r in np.flatnonzero(overflow):
+                _count_launch(counters, host)
+                for r in np.flatnonzero(host["overflow"]):
                     failed_p.append(int(sub[cs + r]))
                 pending_assembly.append(dict(sub=sub, cs=cs, nb=nb,
-                                             res=host, overflow=overflow))
+                                             res=host))
 
             # one-launch lookahead: dispatch k+1 before collecting k, so
             # per-launch host work overlaps the next launch's device time
@@ -558,31 +938,10 @@ def _align_queued(idx, didx, reads: Reads, params: AlnParams,
             runs while a later launch occupies the device)."""
             while pending_assembly:
                 h = pending_assembly.pop(0)
-                sub_h, cs, nb = h["sub"], h["cs"], h["nb"]
-                res, overflow = h["res"], h["overflow"]
-                n_alns = res["n_alns"].tolist()
-                oL, oU = res["o_L"].tolist(), res["o_U"].tolist()
-                oSc, oLen = res["o_score"].tolist(), res["o_len"].tolist()
-                oMM, oGO = res["o_mm"].tolist(), res["o_go"].tolist()
-                oGE, oSnp = res["o_ge"].tolist(), res["o_snp"].tolist()
-                oPl = res["o_plen"].tolist()
-                paths_all = unpack_paths(res["paths"], pathcap)
-                sub_l = sub_h[cs:cs + nb].tolist()
-                ov_l = overflow.tolist()
-                for r in range(nb):
-                    if ov_l[r]:
-                        continue
-                    alns = []
-                    for k in range(n_alns[r]):
-                        out_len = oLen[r][k]
-                        path = _reconstruct_path(paths_all[r, k], oPl[r][k],
-                                                 out_len, 0)
-                        alns.append(Aln(
-                            score=oSc[r][k], L=oL[r][k], U=oU[r][k],
-                            num_mm=oMM[r][k], num_gapo=oGO[r][k],
-                            num_gape=oGE[r][k], num_snps=oSnp[r][k] & 0xFF,
-                            aln_length=out_len, path=path))
-                    out[sub_l[r]] = alns
+                sub_l = h["sub"][h["cs"]:h["cs"] + h["nb"]].tolist()
+                for r, alns in enumerate(_assemble(h["res"], pathcap)):
+                    if alns is not None:
+                        out[sub_l[r]] = alns
 
         n_retry = 0
         # Escalation ladder, all rungs continuous-batching: the primary

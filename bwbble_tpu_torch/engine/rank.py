@@ -127,6 +127,23 @@ def rank_all_dfs(didx: DeviceIndex, i: torch.Tensor, inc) -> torch.Tensor:
     return _rank_all(didx, i, inc, dfs=True)
 
 
+def _project_actg(full: torch.Tensor) -> torch.Tensor:
+    """[B, 16] exact bounds -> [B, 5]: slots 1..4 = A, G, C, T."""
+    gray = torch.tensor(C.NT4_GRAY[:4], dtype=torch.int64,
+                        device=full.device)
+    out = torch.zeros((full.shape[0], 5), dtype=full.dtype,
+                      device=full.device)
+    out[:, 1:5] = full.index_select(1, gray)
+    return out
+
+
+def rank_actg_dfs(didx: DeviceIndex, i: torch.Tensor, inc) -> torch.Tensor:
+    """[B] -> [B, 5]; slots 1..4 = A,G,C,T bounds for single-genome mode
+    (O_actg_alphabet, bwt.c:440-463).  The in-block scan is exact for the
+    four pure-base symbols, so this is a projection of rank_all_exact."""
+    return _project_actg(_rank_all(didx, i, inc, dfs=False))
+
+
 def rank1(didx: DeviceIndex, c: torch.Tensor, i: torch.Tensor
           ) -> torch.Tensor:
     """Single-char rank O(c, i) per lane (bwt.c:348-372), including the
@@ -167,6 +184,13 @@ def rank_all_exact_pair(didx: DeviceIndex, iL: torch.Tensor,
     return _pair(didx, iL, iU, False)
 
 
+def rank_actg_dfs_pair(didx: DeviceIndex, iL: torch.Tensor,
+                       iU: torch.Tensor):
+    """Fused single-genome pair: [B, 5] bounds at L-1 (+1) and at U (+0)."""
+    full_L, full_U = _pair(didx, iL, iU, False)
+    return _project_actg(full_L), _project_actg(full_U)
+
+
 def rank1_pair(didx: DeviceIndex, c: torch.Tensor, iL: torch.Tensor,
                iU: torch.Tensor):
     """Fused single-char rank at two positions per lane."""
@@ -195,3 +219,22 @@ def inv_psi(didx: DeviceIndex, i: torch.Tensor) -> torch.Tensor:
     c = bwt_char(didx, i)
     step = didx.Carr[c.long()] + rank1(didx, c, i)
     return torch.where(i == didx.sa0, torch.zeros_like(step), step)
+
+
+def sa_resolve(didx: DeviceIndex, rows: torch.Tensor) -> torch.Tensor:
+    """Batched SA lookup: walk invPsi to a sampled row (SA, bwt.c:320-329).
+
+    Samples are stored at rows = 0 (mod SA_INTERVAL), so the lockstep walk
+    length is geometric with mean SA_INTERVAL; all lanes run until every one
+    has parked on a sampled row (one host check per step)."""
+    i = rows.to(didx.table.device).to(torch.int32)
+    j = torch.zeros_like(i)
+    while True:
+        moving = (i % C.SA_INTERVAL) != 0
+        if not bool(moving.any()):
+            break
+        i = torch.where(moving, inv_psi(didx, i), i)
+        j = j + moving.to(torch.int32)
+    vals = didx.sa_samples[torch.div(i, C.SA_INTERVAL,
+                                     rounding_mode="floor").long()]
+    return (vals + j) % didx.length

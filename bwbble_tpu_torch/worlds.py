@@ -1,6 +1,7 @@
-"""Synthetic worlds, made from seeds: the two small worlds the tests and the
-on-card kernel comparison share, and the chr21-scale multi-genome world of
-the main path.
+"""Synthetic worlds, made from seeds: the three small worlds the tests and
+the on-card kernel comparison share, the chr21-scale multi-genome world of
+the main path, and the easy pure-ACGT world of the fixed-batch and
+single-genome paths.
 
 Everything is generated; nothing is downloaded.
 """
@@ -42,6 +43,35 @@ def mixed_world(seed: int = 177, n_reads: int = 48, read_len: int = 32):
         s = int(rng.integers(0, 3300 - read_len))
         frag = [chars[int(C.NT4_TABLE[C.IUPAC_CHAR[x]])]
                 if C.IUPAC_CHAR[x] in b"ACGT" else "A"
+                for x in seq[s:s + read_len]]
+        for _ in range(int(rng.integers(0, 3))):
+            frag[int(rng.integers(0, read_len))] = chars[
+                int(rng.integers(0, 4))]
+        if r % 11 == 5:
+            p = int(rng.integers(2, read_len - 4))
+            del frag[p]                      # 1 bp deletion: exercises gaps
+            frag.append(chars[int(rng.integers(0, 4))])
+        reads.append("".join(frag))
+    return idx, _fastq(reads)
+
+
+def single_genome_world(seed: int = 377, n_reads: int = 48,
+                        read_len: int = 32):
+    """Single-genome (`-S`) world: 4 kbp of pure bases with one N, fwd +
+    reverse complement, and reads with 0-2 substitutions, one in eleven
+    with a 1 bp deletion.  Returns (FMIndex, Reads)."""
+    rng = np.random.default_rng(seed)
+    acgt = np.asarray(C.NT4_GRAY[:4], dtype=np.uint8)
+    seq = acgt[rng.integers(0, 4, size=4000)].astype(np.uint8)
+    seq[1600] = 0
+    seq = np.concatenate([seq, C.IUPAC_COMPL[seq[::-1]]])
+    idx = FMIndex.build(seq)
+    gray_to_base = {int(g): b for b, g in enumerate(C.NT4_GRAY[:4])}
+    reads = []
+    chars = "AGCT"
+    for r in range(n_reads):
+        s = int(rng.integers(0, 3900 - read_len))
+        frag = [chars[gray_to_base.get(int(x), 0)]
                 for x in seq[s:s + read_len]]
         for _ in range(int(rng.integers(0, 3))):
             frag[int(rng.integers(0, read_len))] = chars[
@@ -136,6 +166,25 @@ def chr21_world(workdir: str, genome_bp: int = 46_700_000,
                              seed=13)
         log("reads written")
     return mgb, fq
+
+
+def easy_world(workdir: str, genome_bp: int = 5_000_000,
+               num_reads: int = 16_384, read_len: int = 100):
+    """The easy world, cached under `workdir`: a uniform random pure-ACGT
+    genome (seed 11) and `num_reads` simulated reads with 2 mismatches
+    each (seed 13).  Returns the paths (fasta, fastq); the caller indexes
+    and aligns them."""
+    from bwbble_tpu_torch.testutil import (random_genome_fasta,
+                                           simulate_reads_fastq)
+    os.makedirs(workdir, exist_ok=True)
+    fa = os.path.join(workdir, "bench.fa")
+    fq = os.path.join(workdir, f"reads_{num_reads}.fq")
+    if not os.path.exists(fa):
+        random_genome_fasta(fa, {"chr1": genome_bp}, seed=11)
+    if not os.path.exists(fq):
+        simulate_reads_fastq(fa, fq, num_reads, read_len=read_len, num_mm=2,
+                             seed=13)
+    return fa, fq
 
 
 def mgref_binary() -> str:

@@ -3,25 +3,35 @@
 
     python3 chip_smoke.py [--genome-bp N] [--workdir DIR]
 
-Drives the port's main path — `index`, then `align -n 4 --queued` on the
-chr21-scale multi-genome world — through the entry points a user calls, and
-holds every hand-written kernel against its plain PyTorch version on the
+Drives the port's paths through the entry points a user calls, and holds
+every hand-written kernel entry against its plain PyTorch version on the
 card.  Each phase prints one JSON line as it finishes; any failed phase makes
 the exit code non-zero.  Without a CUDA device the script fails at once: it
 has no CPU mode.  The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": "<card>", "count": N}}.
 
-Phases: device, build (native C++ library and CUDA kernels, from the sources
-in this checkout), kernels (kernel == plain version, exact equality, on the
-two small test worlds and on reads of the main world, more reads than lanes,
-at the settings of both of the main path's launches), main_path (CLI index +
-align, then the timed in-process run; `.aln` byte-compared with the gold
-engine's), then the `{"kernels": [...]}` line and the last line.
+Phases: device; build (native C++ library and CUDA kernels, from the sources
+in this checkout); kernels (kernel == plain version, exact equality of every
+output, path, flag and counter: the ring search and the fixed-batch search,
+each in multi-genome and in single-genome mode, on the small test worlds);
+main_path (`index` + `align -n 4 --queued` on the chr21-scale multi-genome
+world: CLI, then the timed in-process run, `.aln` byte-compared with the
+gold engine's); fixed_path (`align -n 4` as the quick start types it, no
+`--queued`, on the same world and reads); more kernel comparisons on reads
+of the main world at the settings of the main path's two launches and of
+the fixed path's two tiers; easy_path (the easy 5 Mbp world, fixed batches
+of 8 192); single_path (the same world as a plain 4-letter reference, `-S`);
+kernel comparisons on the easy world at the lane counts, arenas and
+alphabets these two paths launch; sam (`aln2sam` with SA rows resolved on
+the card); then the `{"kernels": [...]}` line and the last line.  Before
+each path the launch counts are set to 0 and after it they are read: a path
+that did not launch its kernel fails.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import filecmp
 import json
 import os
@@ -72,12 +82,20 @@ def main() -> int:
     from bwbble_tpu_torch.align.params import AlnParams
     from bwbble_tpu_torch.engine import kernel
     from bwbble_tpu_torch.engine.device_index import from_fmindex
+    from bwbble_tpu_torch.align.pipeline import (align_reads_gold,
+                                                 alns_to_sam)
     from bwbble_tpu_torch.engine.inexact import (EngineConfig,
-                                                 ring_search_plain)
-    from bwbble_tpu_torch.engine.pipeline import (align_reads_device,
+                                                 fixed_search_plain,
+                                                 ring_search_plain,
+                                                 ring_statics, unpack_paths,
+                                                 walk_paths)
+    from bwbble_tpu_torch.engine.pipeline import (LADDER, _calc_d_chunk,
+                                                  align_reads_device,
+                                                  deep_tier_cfg,
                                                   gold_fallback_many,
                                                   native_scan_chunks)
-    from bwbble_tpu_torch.formats.aln import write_aln_file
+    from bwbble_tpu_torch.formats.aln import read_aln_file, write_aln_file
+    from bwbble_tpu_torch.formats.fasta import read_ann
     from bwbble_tpu_torch.formats.fastq import read_fastq
     from bwbble_tpu_torch.gold.engine import calculate_d
     from bwbble_tpu_torch.index.fmindex import FMIndex
@@ -111,7 +129,9 @@ def main() -> int:
         fail("build", "native library did not load")
     kernel._load()
     with open(k_out.strip() + ".log") as f:
-        ptxas = [ln.strip() for ln in f if "registers" in ln
+        # one entry per instantiation: <multiref, fixed> of the template
+        ptxas = [ln.strip().replace("ptxas info    : ", "") for ln in f
+                 if "Compiling entry" in ln or "registers" in ln
                  or "stack frame" in ln]
     emit("build", ok=True, seconds=round(time.time() - t, 1),
          kernel_lib=os.path.relpath(k_out.strip(), ROOT), ptxas=ptxas)
@@ -129,38 +149,77 @@ def main() -> int:
                 Ds[r] = calculate_d(idx, rd.seq[r], sl, params)
         return D, Ds
 
+    cmps: list[dict] = []       # every comparison, for the `kernels` line
+
+    def device_d(didx, rd, params, K):
+        """D bounds of all of `rd` from one device pass at list width K."""
+        ln = rd.lengths.astype(np.int32)
+        D, Ds, dov = _calc_d_chunk(didx, np.asarray(rd.seq, dtype=np.int8),
+                                   ln, ln, params, K)
+        if bool(dov.any()):
+            fail("kernels", f"device D pass overflowed its lists at K={K}")
+        return D.cpu().numpy(), Ds.cpu().numpy()
+
     def compare(name, didx, rc, lengths, D, Ds, params, cfg, lanes):
-        """Kernel and plain version on the same device tensors: every
-        per-read output, path, overflow flag and counter must be equal
-        (integers: tolerance zero).  Returns times, counters and the
-        per-read overflow flags."""
+        """One kernel entry and its plain version on the same device
+        tensors (`lanes` None: the fixed-batch search, else the ring search
+        at that many lanes): every per-read output, path, overflow flag,
+        reason and counter must be equal (integers: tolerance zero), and for
+        a fixed batch `walk_paths` over the returned arena must give the
+        in-kernel walk.  Returns times, counters and the per-read overflow
+        flags."""
         a = [torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in
              (np.asarray(rc, dtype=np.int8), lengths.astype(np.int32),
               D, Ds)]
         n = a[0].shape[0]
-        kernel.ring_search(didx, *a, params, cfg, lanes)      # warm-up
+        entry = "fixed_search" if lanes is None else "ring_search"
+        if lanes is None:
+            def run():
+                return kernel.fixed_search(didx, *a, params, cfg)
+        else:
+            def run():
+                return kernel.ring_search(didx, *a, params, cfg, lanes)
+        run()                                                 # warm-up
         torch.cuda.synchronize()
         ev0 = torch.cuda.Event(enable_timing=True)
         ev1 = torch.cuda.Event(enable_timing=True)
         ev0.record()
-        got = kernel.ring_search(didx, *a, params, cfg, lanes)
+        got = run()
         ev1.record()
         torch.cuda.synchronize()
         ms = ev0.elapsed_time(ev1)
         # per-read results do not depend on the lane that serves a read,
         # so the plain version runs all reads as one lockstep chunk
         t0 = time.time()
-        ref = ring_search_plain(didx, *a, params, cfg, n)
+        if lanes is None:
+            ref = fixed_search_plain(didx, *a, params, cfg)
+        else:
+            ref = ring_search_plain(didx, *a, params, cfg, n)
         torch.cuda.synchronize()
         plain_ms = (time.time() - t0) * 1e3
         bad, err = [], 0
         for k in ref:
-            if k == "o_lane":            # which lane served a read: free
-                continue
+            if k in ("o_lane", "arena"):  # which lane served a read: free;
+                continue                  # unlinked arena slots: unwritten
             d = (ref[k].to(torch.int64) - got[k].to(torch.int64)).abs()
             if int(d.max()) != 0:
                 bad.append(k)
                 err = max(err, int(d.max()))
+        walked = None
+        if lanes is None:
+            S = ring_statics(params, cfg, a[0].shape[1], a[3].shape[1],
+                             fixed=True)
+            live = (torch.arange(S.ACAP, device=dev)[None, :]
+                    < got["n_alns"][:, None])
+            ln_i, sl_i = live.nonzero(as_tuple=True)
+            w = walk_paths(got["arena"], ln_i, got["o_node"][ln_i, sl_i],
+                           nroot=1, nslot=S.NSLOT, nc=S.NC,
+                           pathcap=S.PATHCAP).cpu().numpy()
+            inker = unpack_paths(got["paths"].cpu().numpy(), S.PATHCAP)
+            walked = bool((w == inker[ln_i.cpu().numpy(),
+                                      sl_i.cpu().numpy()]).all())
+            if not walked:
+                bad.append("walk_paths(arena)")
         tot = {k: int(got[k].sum(dtype=torch.int64)) for k in
                ("n_work", "pops", "rank_rows", "frame_rd", "frame_wr",
                 "n_alns", "overflow")}
@@ -168,14 +227,25 @@ def main() -> int:
             got[k].numel() * got[k].element_size()
             for k in ("o_L", "o_U", "o_score", "o_len", "o_node", "o_snp",
                       "o_plen", "paths", "n_alns", "overflow"))
-        emit("kernels.compare", world=name, reads=n,
-             lanes_used=min(lanes, n), refills=max(0, n - lanes),
-             cap=cfg.cap, acap=cfg.acap, equal_to_plain=not bad,
-             mismatched=bad, kernel_ms=ms, plain_ms=plain_ms, **tot)
+        out = dict(ms=ms, plain_ms=plain_ms, err=err, io_bytes=io_bytes,
+                   reads=n, equal=not bad, **tot)
+        b_ms, b_by = bound_ms(out)
+        line = dict(
+            world=name, entry=entry,
+            alphabet=16 if params.is_multiref else 4, reads=n,
+            lanes_used=n if lanes is None else min(lanes, n),
+            refills=0 if lanes is None else max(0, n - lanes),
+            cap=cfg.cap, acap=cfg.acap, xc=cfg.xcap or cfg.kx,
+            equal_to_plain=not bad,
+            finished_share=1.0 - tot["overflow"] / n, kernel_ms=ms,
+            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+        cmps.append(line)
+        emit("kernels.compare", mismatched=bad, walk_paths_equal=walked,
+             **line, **tot)
         if bad:
-            fail("kernels", f"ring_search != plain version on {name}: {bad}")
-        return dict(ms=ms, plain_ms=plain_ms, err=err, io_bytes=io_bytes,
-                    reads=n, over=got["overflow"].cpu().numpy(), **tot)
+            fail("kernels", f"{entry} != plain version on {name}: {bad}")
+        out["over"] = got["overflow"].cpu().numpy()
+        return out
 
     def bound_ms(c):
         """Least time the card could take for the work these inputs need:
@@ -197,6 +267,7 @@ def main() -> int:
     didx_s = from_fmindex(idx_s, device=dev)
     cfg_s = EngineConfig(cap=4096, acap=24, kx=2, max_iters=20_000, xcap=128)
     compare("mixed", didx_s, rd_s.rc, rd_s.lengths, D, Ds, p3, cfg_s, 64)
+    compare("mixed", didx_s, rd_s.rc, rd_s.lengths, D, Ds, p3, cfg_s, None)
     # scores that need 340 buckets (the domain goes to 1024), 16 lanes for
     # the 48 reads so that lanes refill
     pw = AlnParams(max_diff=3, batch_size=128, mm_score=30, gapo_score=40,
@@ -207,9 +278,25 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as td:
         idx_s, rd_s = worlds.iupac_dense_world(td)
     D, Ds = exact_d(idx_s, rd_s, p3)
-    compare("iupac_dense", from_fmindex(idx_s, device=dev), rd_s.rc,
-            rd_s.lengths, D, Ds, p3, EngineConfig(cap=8192, acap=24, kx=2, max_iters=60_000,
-                         xcap=128), 32)
+    didx_s = from_fmindex(idx_s, device=dev)
+    cfg_d = EngineConfig(cap=8192, acap=24, kx=2, max_iters=60_000, xcap=128)
+    compare("iupac_dense", didx_s, rd_s.rc, rd_s.lengths, D, Ds, p3, cfg_d, 32)
+    compare("iupac_dense", didx_s, rd_s.rc, rd_s.lengths, D, Ds, p3, cfg_d,
+            None)
+    # the 4-letter instantiations: ring (16 lanes for 48 reads, so lanes
+    # refill) and fixed, D bounds from the device pass
+    ps = AlnParams(max_diff=3, batch_size=128, is_multiref=False)
+    idx_s, rd_s = worlds.single_genome_world()
+    didx_s = from_fmindex(idx_s, device=dev)
+    ln_s = rd_s.lengths.astype(np.int32)
+    D, Ds = device_d(didx_s, rd_s, ps, 16)
+    cfg_4 = EngineConfig(cap=4096, acap=24, kx=4, max_iters=20_000)
+    c4r = compare("single_genome", didx_s, rd_s.rc, ln_s, D, Ds, ps, cfg_4, 16)
+    c4f = compare("single_genome", didx_s, rd_s.rc, ln_s, D, Ds, ps, cfg_4,
+                  None)
+    if c4r["n_alns"] == 0 or c4r["n_alns"] != c4f["n_alns"]:
+        fail("kernels", "the 4-letter searches reported no or unequal "
+                        "alignments")
 
     # ------------------------------------------------------------- main path
     reduced = {} if args.genome_bp == GENOME_BP else \
@@ -298,14 +385,84 @@ def main() -> int:
     if main_launches == 0 or stats.get("launches") != main_launches:
         fail("main_path", "the main path did not launch ring_search")
 
+    def path_line(n_reads, dt, stats, launches, **extra):
+        """The common numbers of one driven path."""
+        return dict(
+            reads=n_reads, seconds=dt, reads_per_sec=n_reads / dt,
+            t_dbounds=stats.get("t_dbounds"), t_search=stats.get("t_search"),
+            t_host=stats.get("t_host"),
+            search_kernel_idle_share=1.0 - (stats.get("t_search") or 0.0) / dt,
+            streamed=bool(stats.get("streamed")), tiers=stats.get("tiers"),
+            fallback_reads=stats.get("fallback_reads"),
+            retried_reads=stats.get("retried_reads"),
+            prerouted=stats.get("prerouted"), launches=launches,
+            n_work=stats.get("work_units"), pops=stats.get("pops"),
+            rank_rows=stats.get("rank_rows"),
+            frame_rd_rows=stats.get("frame_rd_rows"),
+            frame_wr_rows=stats.get("frame_wr_rows"), card=card, **extra)
+
+    def zero_launches():
+        for k in kernel.LAUNCHES:
+            kernel.LAUNCHES[k] = 0
+
+    def timed_align(idx_, didx_, reads_, params_, cfg_, **kw):
+        """One in-process align_reads_device call: (alns, seconds, stats,
+        launches by entry, peak device GB)."""
+        st: dict = {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches()
+        t0 = time.time()
+        out = align_reads_device(idx_, didx_, reads_, params_, cfg_,
+                                 stats=st, device=dev, **kw)
+        torch.cuda.synchronize()
+        return (out, time.time() - t0, st, dict(kernel.LAUNCHES),
+                torch.cuda.max_memory_allocated() / 1e9)
+
+    # ------------------------------------------------------------ fixed path
+    # what the quick start types: no --queued, default --batch 2048 and
+    # --arena 32768, on the world and reads of the main path
+    fixed_cli_aln = os.path.join(wdir, "fixed_cli.aln")
+    zero_launches()
+    t = time.time()
+    rc = cli.main(["align", "-n", "4", "-t", str(threads), fa, fq,
+                   fixed_cli_aln])
+    torch.cuda.synchronize()
+    t_cli = time.time() - t
+    cli_launches = dict(kernel.LAUNCHES)
+    if rc != 0 or cli_launches["fixed_search"] == 0:
+        fail("fixed_path", f"CLI align rc={rc} launches={cli_launches}")
+    if not filecmp.cmp(fixed_cli_aln, gold_aln, shallow=False):
+        fail("fixed_path", "the CLI's `.aln` differs from the gold engine's")
+    p_fixed = AlnParams(max_diff=4, n_threads=threads)
+    cfg_fixed = EngineConfig(cap=int(p_fixed.arena_cap))
+    f_alns, f_dt, f_stats, f_launches, f_peak = timed_align(
+        idx, didx, reads, p_fixed, cfg_fixed)
+    fixed_aln = os.path.join(wdir, "fixed.aln")
+    write_aln_file(fixed_aln, f_alns)
+    f_parity = filecmp.cmp(fixed_aln, gold_aln, shallow=False)
+    f_ok = bool(f_parity and f_launches["fixed_search"] > 0
+                and f_stats.get("launches") == f_launches["fixed_search"])
+    emit("fixed_path", ok=f_ok, parity=f_parity, cli_seconds=round(t_cli, 1),
+         cli_launches=cli_launches["fixed_search"],
+         batch=int(p_fixed.batch_size), cap=int(cfg_fixed.cap),
+         peak_device_gb=f_peak,
+         parity_against="whole file, native gold engine",
+         **path_line(reads.count, f_dt, f_stats,
+                     f_launches["fixed_search"]))
+    if not f_ok:
+        fail("fixed_path", "`.aln` differs from the gold engine's, or the "
+                           "path did not launch fixed_search")
+
     # kernel vs plain version on reads of the main world, at the main
     # path's read length and index with reduced arenas (the plain version
     # takes one lockstep iteration per pop of the longest read), twice:
     # at the first launch's settings (512 lanes, acap 24), and at the deep
     # rung's (128 lanes, acap 64, a larger arena) on the reads the first
     # left over their budget, topped up with the reads that follow.  Both
-    # have more reads than lanes, so lanes refill from the queue.
-    n_cmp, n_deep = 1024, 384
+    # have more reads than lanes, so lanes refill from the queue.  Each
+    # line prints the share of its reads that finish inside the arena.
+    n_cmp, n_deep = 768, 256
     rd_c = worlds.head_reads(reads, n_cmp + n_deep)
     Dc = np.zeros((rd_c.count, rd_c.max_len + 1, 2), dtype=np.int32)
     Dsc = np.zeros((rd_c.count, int(params.seed_length) + 1, 2),
@@ -319,32 +476,219 @@ def main() -> int:
                              xcap=128), 512)
     sel = np.concatenate([np.flatnonzero(c["over"]),
                           np.arange(n_cmp, n_cmp + n_deep)])[:n_deep]
-    cd = compare("main_world_deep", didx, rc_c[sel], rd_c.lengths[sel],
+    compare("main_world_deep", didx, rc_c[sel], rd_c.lengths[sel],
                  Dc[sel], Dsc[sel], params,
                  EngineConfig(cap=131072, acap=64, kx=2, max_iters=500_000,
                               xcap=128), 128)
 
+    # the fixed-batch search at the fixed path's settings, un-cut: the
+    # first tier's (one lane per read, the CLI's default arena, lists of
+    # 128 intervals), then the deep tier's (256 lanes, the arena and work
+    # bound the pipeline derives for it, acap 64) on the reads the first
+    # left over their budget, topped up with the reads that follow
+    cfg_tier1 = dataclasses.replace(cfg_fixed, xcap=128)
+    cf = compare("main_world_fixed", didx, rc_c[:n_cmp],
+                 rd_c.lengths[:n_cmp], Dc[:n_cmp], Dsc[:n_cmp], params,
+                 cfg_tier1, None)
+    deep_B, deep_kx = LADDER[0]
+    sel = np.concatenate([np.flatnonzero(cf["over"]),
+                          np.arange(n_cmp, n_cmp + n_deep)])[:deep_B]
+    compare("main_world_fixed_deep", didx, rc_c[sel], rd_c.lengths[sel],
+            Dc[sel], Dsc[sel], params,
+            deep_tier_cfg(cfg_tier1, int(p_fixed.batch_size), deep_B,
+                          deep_kx), None)
+
+    # ------------------------------------------------------------- easy path
+    # the easy world in fixed batches of 8 192: pure-ACGT genome, 16 384
+    # reads of 100 bp with 2 mismatches, multi-genome mode
+    edir = os.path.join(args.workdir, "easy")
+    efa, efq = worlds.easy_world(edir, num_reads=NUM_READS)
+    t = time.time()
+    if cli.main(["index", efa]) != 0:
+        fail("easy_path", "index failed")
+    t_eindex = time.time() - t
+    eidx = FMIndex.load(efa + ".bwt", load_sa=False)
+    ereads = read_fastq(efq)
+    edidx = from_fmindex(eidx, device=dev)
+    p_easy = AlnParams(max_diff=4, batch_size=8192, n_threads=threads)
+    cfg_easy = EngineConfig(cap=32768, acap=24, kx=2, max_iters=500_000)
+    timed_align(eidx, edidx, worlds.head_reads(ereads, 256), p_easy,
+                cfg_easy, d_cap=16)                           # warm-up
+    e_alns, e_dt, e_stats, e_launches, e_peak = timed_align(
+        eidx, edidx, ereads, p_easy, cfg_easy, d_cap=16, queued=False)
+    easy_aln = os.path.join(edir, "easy.aln")
+    write_aln_file(easy_aln, e_alns)
+    t = time.time()
+    egold = gold_fallback_many(eidx, ereads, list(range(ereads.count)),
+                               p_easy, threads)
+    easy_gold_aln = os.path.join(edir, "gold.aln")
+    write_aln_file(easy_gold_aln, [egold[i] for i in range(ereads.count)])
+    t_egold = time.time() - t
+    e_parity = filecmp.cmp(easy_aln, easy_gold_aln, shallow=False)
+    e_ok = bool(e_parity and e_launches["fixed_search"] > 0)
+    emit("easy_path", ok=e_ok, parity=e_parity,
+         index_seconds=round(t_eindex, 1), index_len=int(eidx.length),
+         aligned=sum(1 for a in e_alns if a), peak_device_gb=e_peak,
+         gold_seconds=round(t_egold, 1),
+         parity_against="whole file, native gold engine",
+         **path_line(ereads.count, e_dt, e_stats,
+                     e_launches["fixed_search"]))
+    if not e_ok:
+        fail("easy_path", "`.aln` differs from the gold engine's, or the "
+                          "path did not launch fixed_search")
+
+    # ----------------------------------------------------------- single path
+    # the same world as a plain 4-letter reference (-S): through the CLI,
+    # then in-process and timed; the gold engine of -S is Python, so a
+    # fixed sample is held against it and the whole file against a second
+    # search path (the ring queue at 512 lanes)
+    single_cli_aln = os.path.join(edir, "single_cli.aln")
+    zero_launches()
+    t = time.time()
+    rc = cli.main(["align", "-n", "4", "-S", "-t", str(threads), "--batch",
+                   "8192", efa, efq, single_cli_aln])
+    torch.cuda.synchronize()
+    t_scli = time.time() - t
+    s_cli_launches = dict(kernel.LAUNCHES)
+    if rc != 0 or s_cli_launches["fixed_search"] == 0:
+        fail("single_path", f"CLI align rc={rc} launches={s_cli_launches}")
+    p_single = dataclasses.replace(p_easy, is_multiref=False)
+    s_alns, s_dt, s_stats, s_launches, s_peak = timed_align(
+        eidx, edidx, ereads, p_single, cfg_easy, d_cap=16, queued=False)
+    single_aln = os.path.join(edir, "single.aln")
+    write_aln_file(single_aln, s_alns)
+    q_alns, q_dt, q_stats, q_launches, _ = timed_align(
+        eidx, edidx, ereads, dataclasses.replace(p_single, batch_size=512),
+        cfg_easy, d_cap=16, queued=True)
+    single_q_aln = os.path.join(edir, "single_queued.aln")
+    write_aln_file(single_q_aln, q_alns)
+    n_gold = 128
+    t = time.time()
+    sgold = align_reads_gold(eidx, worlds.head_reads(ereads, n_gold),
+                             p_single)
+    t_sgold = time.time() - t
+    s_gold_ok = all(sgold[i] == s_alns[i] for i in range(n_gold))
+    s_parity = bool(
+        s_gold_ok
+        and filecmp.cmp(single_aln, single_q_aln, shallow=False)
+        and filecmp.cmp(single_aln, single_cli_aln, shallow=False))
+    s_ok = bool(s_parity and s_launches["fixed_search"] > 0
+                and q_launches["ring_search"] > 0)
+    emit("single_path", ok=s_ok, parity=s_parity,
+         aligned=sum(1 for a in s_alns if a), peak_device_gb=s_peak,
+         cli_seconds=round(t_scli, 1),
+         cli_launches=s_cli_launches["fixed_search"],
+         gold_sample_reads=n_gold, gold_sample_equal=s_gold_ok,
+         gold_sample_seconds=round(t_sgold, 1),
+         parity_against="first 128 reads: Python gold engine; whole file: "
+                        "the queued search at 512 lanes, and the CLI's",
+         queued_seconds=q_dt, queued_reads_per_sec=ereads.count / q_dt,
+         queued_t_search=q_stats.get("t_search"),
+         queued_launches=q_launches["ring_search"],
+         queued_fallback_reads=q_stats.get("fallback_reads"),
+         **path_line(ereads.count, s_dt, s_stats,
+                     s_launches["fixed_search"]))
+    if not s_ok:
+        fail("single_path", "`-S` outputs disagree, or a path did not "
+                            "launch its kernel")
+
+    # kernel vs plain version at what these two paths launch: one fixed
+    # batch of 8 192 lanes in each alphabet, and one queued launch of the
+    # single path's second run (512 lanes, two reads a lane), on the head
+    # of the easy world's reads with the paths' arena and list capacities
+    rd_e = worlds.head_reads(ereads, int(p_easy.batch_size))
+    rc_e = np.asarray(rd_e.rc, dtype=np.int8)
+    ln_e = rd_e.lengths.astype(np.int32)
+    n_q = 2 * 512
+    for tag, prm in (("easy", p_easy), ("easy_single", p_single)):
+        De, Dse = device_d(edidx, rd_e, prm, 16)
+        cfg_c = dataclasses.replace(cfg_easy,
+                                    xcap=128 if prm.is_multiref else 0)
+        compare(tag, edidx, rc_e, ln_e, De, Dse, prm, cfg_c, None)
+        compare(tag, edidx, rc_e[:n_q], ln_e[:n_q], De[:n_q], Dse[:n_q],
+                prm, cfg_c, 512)
+
+    # ------------------------------------------------------------------- sam
+    # stage 3 on the easy world's `.aln`: SA rows resolved on the card
+    # against the host's per-row resolver
+    sam_path = os.path.join(edir, "easy.sam")
+    t = time.time()
+    if cli.main(["aln2sam", "-n", "4", efa, efq, easy_aln, sam_path]) != 0:
+        fail("sam", "aln2sam failed")
+    torch.cuda.synchronize()
+    t_sam = time.time() - t
+    t = time.time()
+    host_sam = alns_to_sam(FMIndex.load(efa + ".bwt", load_sa=True),
+                           read_ann(efa + ".ann"), ereads,
+                           read_aln_file(easy_aln), max_diff=4)
+    t_host_sam = time.time() - t
+    with open(sam_path) as f:
+        sam_parity = f.read() == host_sam
+    emit("sam", ok=sam_parity, parity=sam_parity, reads=ereads.count,
+         records=host_sam.count("\n"), seconds=round(t_sam, 1),
+         host_resolver_seconds=round(t_host_sam, 1), card=card)
+    if not sam_parity:
+        fail("sam", "SAM text differs from the host resolver's")
+
     b_ms, b_by = bound_ms(c)
+
+    def cmps_of(entry):
+        return [x for x in cmps if x["entry"] == entry]
+
     main_c = dict(io_bytes=0, rank_rows=main["rank_rows"],
                   frame_rd=main["frame_rd_rows"],
                   frame_wr=main["frame_wr_rows"], pops=main["pops"])
     mb_ms, _ = bound_ms(main_c)
+    def path_bound(st):
+        return bound_ms(dict(io_bytes=0, rank_rows=st["rank_rows"],
+                             frame_rd=st["frame_rd_rows"],
+                             frame_wr=st["frame_wr_rows"],
+                             pops=st["pops"]))[0]
+
+    fb_ms, fb_by = bound_ms(cf)
+    src = "bwbble_tpu_torch/csrc/ring_search.cu"
     print(card, flush=True)
     print(json.dumps({"kernels": [{
-        "name": "ring_search", "route": "cuda",
-        "source": "bwbble_tpu_torch/csrc/ring_search.cu",
+        "name": "ring_search", "route": "cuda", "source": src,
         "replaces": "bwbble_tpu/engine/kernel.py:1127",
         "replaces_name": "_resident_kernel[ring] with _iter_math",
+        "instantiations": ["<multiref, ring>", "<single, ring>"],
         "launches": main_launches, "max_abs_err": c["err"],
-        "equal_to_plain": True, "reads": c["reads"],
+        "equal_to_plain": all(x["equal_to_plain"]
+                              for x in cmps_of("ring_search")),
+        "reads": c["reads"],
         "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": b_ms,
         "bound_by": b_by, "library_ms": None,
         # the same kernel over the main path's timed run (all launches)
         "main_path_ms": stats.get("t_search", 0.0) * 1e3,
         "main_path_bound_ms": mb_ms,
-        # the comparison at the deep rung's settings
-        "deep_reads": cd["reads"], "deep_ms": cd["ms"],
-        "deep_plain_ms": cd["plain_ms"],
+        # the 4-letter instantiation over the queued run of the single path
+        "single_path_launches": q_launches["ring_search"],
+        "single_path_ms": q_stats.get("t_search", 0.0) * 1e3,
+        "single_path_bound_ms": path_bound(q_stats),
+        "comparisons": cmps_of("ring_search"),
+    }, {
+        "name": "fixed_search", "route": "cuda", "source": src,
+        "replaces": "bwbble_tpu/engine/kernel.py:1127",
+        "replaces_name": "_resident_kernel[fixed] via "
+                         "run_loop_resident:1626",
+        "instantiations": ["<multiref, fixed>", "<single, fixed>"],
+        "launches": f_launches["fixed_search"], "max_abs_err": cf["err"],
+        "equal_to_plain": all(x["equal_to_plain"]
+                              for x in cmps_of("fixed_search")),
+        "reads": cf["reads"],
+        "ms": cf["ms"], "plain_ms": cf["plain_ms"], "bound_ms": fb_ms,
+        "bound_by": fb_by, "library_ms": None,
+        # the same kernel over each path's timed run (all launches)
+        "fixed_path_ms": f_stats.get("t_search", 0.0) * 1e3,
+        "fixed_path_bound_ms": path_bound(f_stats),
+        "easy_path_launches": e_launches["fixed_search"],
+        "easy_path_ms": e_stats.get("t_search", 0.0) * 1e3,
+        "easy_path_bound_ms": path_bound(e_stats),
+        "single_path_launches": s_launches["fixed_search"],
+        "single_path_ms": s_stats.get("t_search", 0.0) * 1e3,
+        "single_path_bound_ms": path_bound(s_stats),
+        "comparisons": cmps_of("fixed_search"),
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

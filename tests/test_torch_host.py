@@ -22,9 +22,10 @@ from bwbble_tpu_torch.formats.aln import read_aln_file
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 COPIED = [
-    "constants.py", "align/params.py", "align/eval.py", "align/pipeline.py",
-    "align/__init__.py", "formats/__init__.py", "formats/fasta.py",
-    "formats/fastq.py", "formats/aln.py", "formats/sam.py", "native.py",
+    "constants.py", "align/params.py", "align/eval.py", "align/evaluate.py",
+    "align/pipeline.py", "align/__init__.py", "formats/__init__.py",
+    "formats/fasta.py", "formats/fastq.py", "formats/aln.py",
+    "formats/sam.py", "native.py",
     "build_native.py", "index/__init__.py", "index/suffix_array.py",
     "index/fmindex.py", "gold/__init__.py", "gold/engine.py", "testutil.py",
     "__main__.py",

@@ -12,6 +12,7 @@ from bwbble_tpu.engine import rank as JR
 
 from bwbble_tpu_torch import constants as C
 from bwbble_tpu_torch import worlds
+from bwbble_tpu_torch.align.params import AlnParams
 from bwbble_tpu_torch.engine import device_index as TDI
 from bwbble_tpu_torch.engine import inexact as TI
 from bwbble_tpu_torch.engine import rank as TR
@@ -22,7 +23,8 @@ from bwbble_tpu_torch.testutil import random_genome_fasta
 torch.set_num_threads(1)
 
 
-@pytest.fixture(scope="module", params=["small", "iupac_dense"])
+@pytest.fixture(scope="module",
+                params=["small", "iupac_dense", "single_genome"])
 def pair(request, tmp_path_factory):
     d = str(tmp_path_factory.mktemp(request.param))
     if request.param == "small":
@@ -31,8 +33,10 @@ def pair(request, tmp_path_factory):
                             iupac_frac=0.002)
         codes, _ = fasta2ref(fa, fa + ".ref", fa + ".ann")
         idx = FMIndex.build(codes)
-    else:
+    elif request.param == "iupac_dense":
         idx, _ = worlds.iupac_dense_world(d)
+    else:
+        idx, _ = worlds.single_genome_world()
     return idx, JDI.from_fmindex(idx), TDI.from_fmindex(idx, device="cpu")
 
 
@@ -117,5 +121,14 @@ def test_kernel_alphabet_formulas_match_constants():
             [int(x) for x in C.NUCL_BASES[c]]
         assert [int(bool(gray[j] & base_mask[c])) for j in range(16)] == \
             [int(x) for x in C.MATCH_MATRIX[c]]
-    assert TI.CHARS == tuple(j for j in range(1, 16) if pop[j] != 3)
-    assert TI.NSLOT == 23 and TI.NROOT == 1
+    assert TI.alphabet(True) == tuple(j for j in range(1, 16)
+                                      if pop[j] != 3)
+    # single genome: the pure bases in nt4 order, 9 slots in a 40-word row
+    assert TI.alphabet(False) == tuple(gray.index(m) for m in base_mask)
+    assert TI.alphabet(False) == tuple(int(x) for x in C.NT4_GRAY[:4])
+    p4 = AlnParams(max_diff=2, is_multiref=False)
+    s16 = TI.ring_statics(AlnParams(max_diff=2), TI.EngineConfig(), 100, 33)
+    s4 = TI.ring_statics(p4, TI.EngineConfig(), 100, 33)
+    assert (s16.NC, s16.NSLOT, s16.ROWW) == (11, 23, 128) and TI.NROOT == 1
+    assert (s4.NC, s4.NSLOT, s4.ROWW) == (4, 9, 40)
+    assert s4.NSLOT * 4 + 1 <= s4.ROWW and s4.ROWW % 4 == 0
