@@ -3,9 +3,11 @@
 Counterpart of bwbble_tpu/cli.py: subcommands `index`, `fasta2ref`, `align`,
 `aln2sam` and `eval` with the reference's single-letter flags and positional
 arguments (mg-aligner/main.c:72-160) and the same derived file names
-(`<fasta>.{ref,ann,bwt}`).  Engine options are long options only (--engine,
---batch, --arena, --queued, --device), so every reference invocation works
-verbatim.  `-P`, `--mesh` and `--dist` are not ported yet.
+(`<fasta>.{ref,ann,bwt,pre}`).  Engine options are long options only
+(--engine, --batch, --arena, --queued, --device), so every reference
+invocation works verbatim.  `-P` reads the seed table `<fasta>.pre`, built
+at first use on the `--device` given (on the host with `--engine gold`).
+`--mesh` and `--dist` are not ported yet.
 
 Run as `python -m bwbble_tpu_torch ...`.
 """
@@ -118,8 +120,7 @@ def cmd_align(argv: list[str]) -> int:
         elif o == "-S":
             kw["is_multiref"] = False
         elif o == "-P":
-            raise NotImplementedError(
-                "-P seeded search (align/precalc.py) is not ported yet")
+            kw["use_precalc"] = True
         elif o == "--engine":
             engine = v
         elif o == "--batch":
@@ -146,9 +147,18 @@ def cmd_align(argv: list[str]) -> int:
     reads = read_fastq(fastq)
     print(f"Total read loading time: {time.time() - t:.2f} sec")
 
+    precalc = None
+    if params.use_precalc:
+        from bwbble_tpu_torch.align.precalc import load_or_build_precalc
+        t = time.time()
+        precalc = load_or_build_precalc(idx, params, fasta + ".pre",
+                                        engine=engine, device=device)
+        print("Total pre-calculated intervals loading time: "
+              f"{time.time() - t:.2f} sec")
+
     t = time.time()
     if engine == "gold":
-        alns = align_reads_gold(idx, reads, params)
+        alns = align_reads_gold(idx, reads, params, precalc=precalc)
     else:
         from bwbble_tpu_torch.engine.device_index import from_fmindex
         from bwbble_tpu_torch.engine.inexact import EngineConfig
@@ -156,7 +166,8 @@ def cmd_align(argv: list[str]) -> int:
         cfg = EngineConfig(cap=arena or int(params.arena_cap))
         didx = from_fmindex(idx, device=device)
         alns = align_reads_device(idx, didx, reads, params, cfg,
-                                  queued=queued, device=device)
+                                  precalc=precalc, queued=queued,
+                                  device=device)
     print(f"Total read alignment time: {time.time() - t:.2f} sec")
     write_aln_file(alnf, alns)
     return 0

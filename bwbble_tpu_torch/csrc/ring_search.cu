@@ -8,10 +8,13 @@
 // run_loop_resident), with its compute core _iter_math (_rank16,
 // _exact_cands, _merge_compact, _merge_groups_tail, _emit) and the path walk
 // the TPU ran outside the kernel (the flush-time walk of
-// bwbble_tpu/engine/inexact.py:switch_step; walk_paths after a fixed batch).
-// Seen from outside it is the same function: per read, the alignments the
-// score-bucketed best-first DFS (inexact_match.c:256-506) reports, in
-// discovery order, with their packed state paths.
+// bwbble_tpu/engine/inexact.py:switch_step; walk_paths after a fixed batch);
+// and bwbble_tpu/engine/kernel.py:_kernel_body, the per-iteration kernel
+// that serves seeded searches (`-P`: NROOT > 1 root rows a read, picked by
+// node id in run_loop), in both launch modes.  Seen from outside it is the
+// same function: per read, the alignments the score-bucketed best-first DFS
+// (inexact_match.c:256-506) reports, in discovery order, with their packed
+// state paths.
 //
 // Design: one thread per lane runs its reads to completion.  In ring mode a
 // lane takes the next read id from a global counter (atomicAdd keeps the
@@ -46,6 +49,15 @@
 // lane's loads are not overlapped with one another.  Warp-wide lanes, coalesced row reads, shared
 // memory and more lanes are left to later work.
 //
+// Seeded roots.  Given seed_L/seed_U [Q, NROOT] and seed_cnt [Q], read r's
+// root s < scnt is (seed_L[r][s], seed_U[r][s]) at i = len - PK with a
+// PK-long all-match path, linked to root s - 1 in bucket 0 (links are stored
+// +1, so root 0 ends the chain): the roots pop last-first, as the
+// reference's heap pops its seed pushes (inexact_match.c:269-282).  A root
+// pop reads its row straight from the seed arrays; scnt == 0 ends the read
+// with no alignment and no overflow.  Without seeds (null pointers, NROOT =
+// 1) the one root is the whole SA range at i = len, formed in registers.
+//
 // Memory notes.  The bucket heads head[NB] are indexed dynamically and their
 // number depends on the scoring parameters, so they live in shared memory,
 // NB words for each of the block's lanes.  The two exact-completion interval
@@ -60,9 +72,9 @@
 #include <string.h>
 #include <utility>
 
-#define RS_NROOT 1
 #define RS_WARP 32           // threads per lane: each lane owns a warp
 #define RS_BLOCK_LANES 4     // lanes (warps) per thread block
+#define RS_NMETA 9           // q_meta columns (engine/inexact.py META_*)
 
 #define STATE_M 0
 #define STATE_I 1
@@ -81,6 +93,7 @@ struct RSParams {
         p_maxdiffseed, p_maxbest, p_noindel, p_maxentries;
     int NB, NFRAME, ACAP, XC, PATHCAP, max_iters;
     int Q, Lmax, DS, LEN, lanes, PW;
+    int NROOT, PK;           // root rows a read; seed length (seeded only)
 };
 
 // ---- alphabet tables, derived from the Gray-code definition (constants.py)
@@ -280,7 +293,9 @@ __global__ void ring_search_kernel(
         RSParams P, const int32_t* __restrict__ table,
         const int32_t* __restrict__ carr_g, const int8_t* __restrict__ rc,
         const int32_t* __restrict__ lens, const int32_t* __restrict__ D,
-        const int32_t* __restrict__ Ds, int32_t* __restrict__ arena,
+        const int32_t* __restrict__ Ds, const int32_t* __restrict__ seed_L,
+        const int32_t* __restrict__ seed_U,
+        const int32_t* __restrict__ seed_cnt, int32_t* __restrict__ arena,
         int32_t* __restrict__ xlist, int32_t* counter,
         int32_t* __restrict__ q_alns, int32_t* __restrict__ q_meta,
         uint8_t* __restrict__ q_paths) {
@@ -299,7 +314,8 @@ __global__ void ring_search_kernel(
     constexpr int ROWW = AL::ROWW, NSLOT = AL::NSLOT, NC = AL::NC;
     int32_t* const A = arena + (size_t)lane * P.NFRAME * ROWW;
     int32_t* const X = xlist + (size_t)lane * 4 * P.XC;   // [2][XC][L,U]
-    const int NB = P.NB, Lmax = P.Lmax, LEN = P.LEN;
+    const int NB = P.NB, Lmax = P.Lmax, LEN = P.LEN, NROOT = P.NROOT;
+    const bool seeded = seed_cnt != nullptr;
 
     for (int rid = FIXED ? lane : atomicAdd(counter, 1); rid < P.Q;
          rid = FIXED ? P.Q : atomicAdd(counter, 1)) {
@@ -312,17 +328,25 @@ __global__ void ring_search_kernel(
         ReadState S;
         S.n_alns = 0; S.overflow = 0; S.best_score = NB;
         S.max_diff = P.p_maxdiff; S.num_best = 0;
-        int work = 0, rank_rows = 0, frame_rd = 0, frame_wr = 0, pf = 0;
+        int work = 0, rank_rows = 0, frame_rd = 0, frame_wr = 0, pf = 0,
+            root_rd = 0;
 
         // up-front N-count discard (inexact_match.c:259-266)
         int n_count = 0;
         for (int p = 0; p < Lmax && p < rlen; p++) n_count += rcr[p] > 3;
         bool alive = n_count <= P.p_maxdiff;
 
+        // the roots: one, or the read's seed rows chained last-first in
+        // bucket 0 (a count above NROOT counts as NROOT)
         int n_open = 1, minb = 0;
+        if (seeded) {
+            int scnt = seed_cnt[rid];
+            n_open = scnt < 0 ? 0 : (scnt > NROOT ? NROOT : scnt);
+            alive = alive && n_open > 0;       // no seed hit
+        }
         if (alive) {
             for (int b = 0; b < NB; b++) head[b] = -1;
-            head[0] = 0;                       // the root node
+            head[0] = n_open - 1;
         }
 
         while (alive) {
@@ -344,12 +368,18 @@ __global__ void ring_search_kernel(
             const int node = head[bucket];
             int eL, eU;
             uint32_t m1, m2;
-            if (node < RS_NROOT) {
+            if (node < NROOT && seeded) {
+                const size_t r = (size_t)rid * NROOT + node;
+                eL = seed_L[r]; eU = seed_U[r];
+                m1 = pack1(rlen - P.PK, 0, 0, 0, STATE_M, P.PK);
+                m2 = (uint32_t)node << 8;      // link to root node - 1
+                root_rd++;
+            } else if (node < NROOT) {
                 eL = 0; eU = LEN - 1;
                 m1 = pack1(rlen, 0, 0, 0, STATE_M, 0);
                 m2 = 0;
             } else {
-                int nn = node - RS_NROOT;
+                int nn = node - NROOT;
                 int f = nn / NSLOT, s = nn - f * NSLOT;
                 int4 v = *reinterpret_cast<const int4*>(
                     A + (size_t)f * ROWW + 4 * s);
@@ -365,7 +395,7 @@ __global__ void ring_search_kernel(
 
             // this pop owns frame `pf` whether or not it pushes anything
             const int myf = pf;
-            const int base = RS_NROOT + pf * NSLOT;
+            const int base = NROOT + pf * NSLOT;
             pf++;
 
             const int ei = m1 & 0xFF, emm = (m1 >> 8) & 0x1F,
@@ -594,8 +624,8 @@ __global__ void ring_search_kernel(
                 int cur = oA[4 * P.ACAP + k];
                 int t = 0;
                 uint32_t acc = 0;
-                while (t < P.PATHCAP && cur >= RS_NROOT) {
-                    int nn = cur - RS_NROOT;
+                while (t < P.PATHCAP && cur >= NROOT) {
+                    int nn = cur - NROOT;
                     int f = nn / NSLOT, s = nn - f * NSLOT;
                     int st = s == 0 ? STATE_I
                                     : (s <= NC ? STATE_D : STATE_M);
@@ -609,9 +639,10 @@ __global__ void ring_search_kernel(
             }
         }
 
-        int32_t* qm = q_meta + (size_t)rid * 8;
+        int32_t* qm = q_meta + (size_t)rid * RS_NMETA;
         qm[0] = S.n_alns; qm[1] = S.overflow; qm[2] = lane; qm[3] = work;
         qm[4] = rank_rows; qm[5] = frame_rd; qm[6] = frame_wr; qm[7] = pf;
+        qm[8] = root_rd;
     }
 }
 
@@ -619,10 +650,13 @@ extern "C" int ring_search_num_params() {
     return (int)(sizeof(RSParams) / sizeof(int));
 }
 
+extern "C" int ring_search_num_meta() { return RS_NMETA; }
+
 template <bool MULTI, bool FIXED>
 static int launch(const RSParams& P, size_t smem, const void* table,
                   const void* carr, const void* rc, const void* lens,
-                  const void* D, const void* Ds, void* arena, void* xlist,
+                  const void* D, const void* Ds, const void* sL,
+                  const void* sU, const void* scnt, void* arena, void* xlist,
                   void* counter, void* q_alns, void* q_meta, void* q_paths,
                   void* stream) {
     const int threads = RS_BLOCK_LANES * RS_WARP;
@@ -631,6 +665,7 @@ static int launch(const RSParams& P, size_t smem, const void* table,
         <<<blocks, threads, smem, (cudaStream_t)stream>>>(
         P, (const int32_t*)table, (const int32_t*)carr, (const int8_t*)rc,
         (const int32_t*)lens, (const int32_t*)D, (const int32_t*)Ds,
+        (const int32_t*)sL, (const int32_t*)sU, (const int32_t*)scnt,
         (int32_t*)arena, (int32_t*)xlist, (int32_t*)counter,
         (int32_t*)q_alns, (int32_t*)q_meta, (uint8_t*)q_paths);
     return (int)cudaGetLastError();
@@ -643,13 +678,16 @@ extern "C" int ring_search_row_words(int multiref) {
 
 // Launches on `stream`; returns cudaGetLastError() (0 on success), or -1
 // when the parameter block does not match RSParams, the bucket heads do not
-// fit a block's shared memory, or a fixed launch has not one lane per read.
-// `multiref` picks the alphabet, `fixed` the launch mode (`counter` is not
-// read then).
+// fit a block's shared memory, a fixed launch has not one lane per read, or
+// the seeds are given in part or with NROOT < 1.  `multiref` picks the
+// alphabet, `fixed` the launch mode (`counter` is not read then); seed_L,
+// seed_U and seed_cnt are all null (one unseeded root, NROOT = 1) or all
+// given ([Q, NROOT], [Q, NROOT], [Q] int32).
 extern "C" int ring_search_launch(
         const int* hp, int nhp, int multiref, int fixed, const void* table,
         const void* carr, const void* rc, const void* lens, const void* D,
-        const void* Ds, void* arena, void* xlist, void* counter,
+        const void* Ds, const void* seed_L, const void* seed_U,
+        const void* seed_cnt, void* arena, void* xlist, void* counter,
         void* q_alns, void* q_meta, void* q_paths, void* stream) {
     if (nhp != (int)(sizeof(RSParams) / sizeof(int))) return -1;
     RSParams P;
@@ -657,9 +695,13 @@ extern "C" int ring_search_launch(
     const size_t smem = (size_t)RS_BLOCK_LANES * P.NB * sizeof(int);
     if (P.NB < 1 || smem > 48 * 1024) return -1;
     if (fixed && P.lanes != P.Q) return -1;
+    const int nseed = (seed_L != nullptr) + (seed_U != nullptr)
+                    + (seed_cnt != nullptr);
+    if (nseed == 1 || nseed == 2 || P.NROOT < 1 || (!nseed && P.NROOT != 1))
+        return -1;
 #define RS_LAUNCH(M, F) launch<M, F>(P, smem, table, carr, rc, lens, D, Ds, \
-                                     arena, xlist, counter, q_alns, q_meta, \
-                                     q_paths, stream)
+                                     seed_L, seed_U, seed_cnt, arena, xlist, \
+                                     counter, q_alns, q_meta, q_paths, stream)
     if (multiref) return fixed ? RS_LAUNCH(true, true) : RS_LAUNCH(true, false);
     return fixed ? RS_LAUNCH(false, true) : RS_LAUNCH(false, false);
 #undef RS_LAUNCH

@@ -17,6 +17,15 @@ score-bucketed best-first DFS (inexact_match.c:256-506):
   per-node `prev` link.  Exploration order is bit-identical.
 - **Packed node words.**  A node is 4 int32s: L, U, meta1
   (i|mm|go|ge|state|plen), meta2 (snps | prev+1 << 8).
+- **Seeded roots (`-P`).**  Without seeds a read has one root, the whole
+  SA range at i = len (NROOT = 1).  With a seed table, a read's root rows
+  are its first S = NROOT interval(s) of the table entry of its last
+  PK = precalc_len bases: root s < scnt is (L_s, U_s) at i = len - PK with
+  a PK-long all-match path, linked to root s - 1 in bucket 0, so the roots
+  pop last-first as the reference's heap pops its pushes
+  (inexact_match.c:269-282).  A read with scnt == 0 (no seed hit) is done
+  with no alignment and no overflow.  Root pops take frames like any other
+  pop.
 - **Per-read frame budget.**  A read may make NFRAME = (cap - NROOT) //
   NSLOT - 1 pops of its own.  Exact-completion characters and emissions
   cost no budget, so results do not depend on which lane serves a read,
@@ -65,11 +74,11 @@ _GRAY4 = np.asarray(C.NT4_GRAY, dtype=np.int32)
 # meta1 bit layout: i(8) | mm(5) | go(3) | ge(4) | st(2) | plen(9)
 _SH_MM, _SH_GO, _SH_GE, _SH_ST, _SH_PLEN = 8, 13, 16, 20, 22
 
-NROOT = 1
 NB_MAX = 1024         # score buckets of the device engine's domain
 # q_meta columns; META_OVER holds the reason bits below (0 = no overflow)
 (META_NALN, META_OVER, META_LANE, META_WORK, META_RANK, META_FRD, META_FWR,
- META_POPS) = range(8)
+ META_POPS, META_ROOT) = range(9)
+NMETA = 9
 # overflow reasons: interval list, ACAP, path length, frame budget, max_iters
 OV_LIST, OV_ACAP, OV_PATH, OV_FRAMES, OV_WORK = 1, 2, 4, 8, 16
 
@@ -143,11 +152,20 @@ class RingStatics:
     max_iters: int
     Lmax: int
     DS: int
+    seeded: bool              # root rows come from seed intervals (-P)
+    NROOT: int                # root rows per read (seed slots, or 1)
+    PK: int                   # seed length: a seeded root's i = len - PK
 
 
 def ring_statics(params: AlnParams, cfg: EngineConfig, Lmax: int,
-                 DS: int, fixed: bool = False) -> RingStatics:
+                 DS: int, fixed: bool = False,
+                 seed_slots: int = 0) -> RingStatics:
+    """`seed_slots` > 0: a seeded search with that many root rows a read
+    (NROOT) and seeds of params.precalc_len bases; 0: one unseeded root."""
     p = params
+    seeded = int(seed_slots) > 0
+    NROOT = int(seed_slots) if seeded else 1
+    PK = int(p.precalc_len) if seeded else 0
     multiref = bool(p.is_multiref)
     NC = len(alphabet(multiref))
     NSLOT = 1 + 2 * NC
@@ -176,7 +194,7 @@ def ring_statics(params: AlnParams, cfg: EngineConfig, Lmax: int,
                        NFRAME=nframe, ACAP=int(cfg.acap), XC=xc,
                        PATHCAP=pathcap, PW=(pathcap + 3) // 4,
                        max_iters=int(cfg.max_iters), Lmax=int(Lmax),
-                       DS=int(DS))
+                       DS=int(DS), seeded=seeded, NROOT=NROOT, PK=PK)
 
 
 def slot_states(nc: int) -> np.ndarray:
@@ -214,10 +232,10 @@ def _wrap32(x: torch.Tensor) -> torch.Tensor:
 
 def alloc_outputs(Q: int, S: RingStatics, device):
     """Zeroed per-read result slabs: q_alns [Q, 7, ACAP] =
-    (L, U, score, len, node, m1, snp); q_meta [Q, 8] (META_* columns);
+    (L, U, score, len, node, m1, snp); q_meta [Q, NMETA] (META_* columns);
     q_paths [Q, ACAP, PW] 2-bit packed reverse-order state walks."""
     return (torch.zeros((Q, 7, S.ACAP), dtype=torch.int32, device=device),
-            torch.zeros((Q, 8), dtype=torch.int32, device=device),
+            torch.zeros((Q, NMETA), dtype=torch.int32, device=device),
             torch.zeros((Q, S.ACAP, S.PW), dtype=torch.uint8, device=device))
 
 
@@ -242,10 +260,11 @@ def result_dict(q_alns, q_meta, q_paths):
         overflow=over, ovwhy=ovwhy,
         paths=q_paths * keep.to(torch.uint8)[:, None, None],
         # per-read counters: work units (pops + exact chars), index-table
-        # rank rows read, frame rows read (pops + path walk) and written
+        # rank rows read, frame rows read (pops + path walk) and written,
+        # seed root rows read (root pops of a seeded search)
         n_work=q_meta[:, META_WORK], rank_rows=q_meta[:, META_RANK],
         frame_rd=q_meta[:, META_FRD], frame_wr=q_meta[:, META_FWR],
-        pops=q_meta[:, META_POPS],
+        pops=q_meta[:, META_POPS], root_rd=q_meta[:, META_ROOT],
     )
 
 
@@ -254,12 +273,12 @@ def result_dict(q_alns, q_meta, q_paths):
 # --------------------------------------------------------------------------
 
 def _plain_chunk(didx: DeviceIndex, rc, lengths, D, Ds, params: AlnParams,
-                 S: RingStatics, q_alns, q_meta, q_paths):
+                 S: RingStatics, q_alns, q_meta, q_paths, seeds=None):
     """Run one chunk of reads, one lane per read, in lockstep to completion;
     fills the chunk's rows of the result slabs and returns the chunk's arena
     [B, NFRAME, ROWW] (frame rows: NSLOT slots of 4 words, then the parent
-    id).  Serves both launch modes (S.fixed) and both alphabets
-    (S.multiref)."""
+    id).  Serves both launch modes (S.fixed), both alphabets (S.multiref)
+    and seeded roots (S.seeded: `seeds` = (seed_L, seed_U, seed_cnt))."""
     dev = rc.device
     B, Lmax = rc.shape
     LEN = int(didx.length)
@@ -272,6 +291,7 @@ def _plain_chunk(didx: DeviceIndex, rc, lengths, D, Ds, params: AlnParams,
     p_noindel, p_maxentries = int(p.no_indel_length), int(p.max_entries)
     NB, NFRAME, ACAP, XC, PATHCAP = S.NB, S.NFRAME, S.ACAP, S.XC, S.PATHCAP
     NC, NSLOT, ROWW = S.NC, S.NSLOT, S.ROWW
+    NROOT, PK = S.NROOT, S.PK
     PAR = NSLOT * 4                    # frame-row word holding the parent id
     chars = alphabet(S.multiref)
 
@@ -284,12 +304,20 @@ def _plain_chunk(didx: DeviceIndex, rc, lengths, D, Ds, params: AlnParams,
     Ds = Ds.to(I32)
     arena = torch.zeros((B, NFRAME * ROWW), dtype=I32, device=dev)
     head = torch.full((B, NB), -1, dtype=I32, device=dev)
-    head[:, 0] = 0                     # the root node
-    n_open = torch.ones((B,), dtype=I32, device=dev)
+    if S.seeded:
+        # root rows s < scnt, chained last-first in bucket 0 (read_init);
+        # a count above NROOT counts as NROOT
+        sL, sU = seeds[0].to(I32), seeds[1].to(I32)
+        scnt = seeds[2].to(I32).clamp(0, NROOT)
+        head[:, 0] = scnt - 1
+        n_open = scnt.clone()
+    else:
+        head[:, 0] = 0                 # the root node
+        n_open = torch.ones((B,), dtype=I32, device=dev)
     best = torch.full((B,), NB, dtype=I32, device=dev)
     maxd = torch.full((B,), p_maxdiff, dtype=I32, device=dev)
     num_best, n_alns, pf, work = zi(), zi(), zi(), zi()
-    rank_rows, frame_rd, frame_wr = zi(), zi(), zi()
+    rank_rows, frame_rd, frame_wr, root_rd = zi(), zi(), zi(), zi()
     ovwhy = zi()                       # overflow reason bits
     oA = torch.zeros((B, 7, ACAP), dtype=I32, device=dev)
     xL = torch.zeros((B, XC), dtype=I32, device=dev)
@@ -299,7 +327,10 @@ def _plain_chunk(didx: DeviceIndex, rc, lengths, D, Ds, params: AlnParams,
     # up-front N-count discard (inexact_match.c:259-266)
     pos = torch.arange(Lmax, dtype=I32, device=dev)[None, :]
     n_count = ((rc > 3) & (pos < lengths[:, None])).sum(dim=1)
-    mode = torch.where(n_count > p_maxdiff, MODE_DONE, MODE_DFS).to(I32)
+    discard = n_count > p_maxdiff
+    if S.seeded:
+        discard = discard | (scnt == 0)     # no seed hit
+    mode = torch.where(discard, MODE_DONE, MODE_DFS).to(I32)
 
     col_a = torch.arange(ACAP, dtype=I32, device=dev)[None, :]
     ar4 = torch.arange(4, dtype=torch.int64, device=dev)[None, :]
@@ -319,6 +350,16 @@ def _plain_chunk(didx: DeviceIndex, rc, lengths, D, Ds, params: AlnParams,
     def flag(ix, mask, why):
         """Set overflow reason `why` on the lanes of `ix` under `mask`."""
         ovwhy[ix] = ovwhy[ix] | (mask.to(I32) * why)
+
+    def retire(ix, mask):
+        """Lanes of `ix` under `mask` are done (no host sync)."""
+        mode[ix] = torch.where(mask, MODE_DONE, mode[ix]).to(I32)
+
+    def rows_where(mask, *vs):
+        """The rows of each of `vs` where `mask` holds, with one host sync
+        for all of them (a boolean index syncs once per tensor)."""
+        keep = mask.nonzero()[:, 0]
+        return tuple(v.index_select(0, keep) for v in vs)
 
     def score_of(mm, go, ge):
         return mm * p_mm + go * p_go + ge * p_ge
@@ -417,15 +458,14 @@ def _plain_chunk(didx: DeviceIndex, rc, lengths, D, Ds, params: AlnParams,
         """One pop (prune / emit / start an exact completion / expand, link
         and write the frame) for lanes `ix`."""
         no = n_open[ix]
-        gone = (no == 0) | (no > p_maxentries)
-        mode[ix[gone]] = MODE_DONE
-        ix = ix[~gone]
+        out = (no == 0) | (no > p_maxentries)
         if S.fixed:
             # fixed rule: the work bound binds at an attempted pop
-            late = work[ix] >= S.max_iters
+            late = ~out & (work[ix] >= S.max_iters)
             flag(ix, late, OV_WORK)
-            mode[ix[late]] = MODE_DONE
-            ix = ix[~late]
+            out = out | late
+        retire(ix, out)
+        ix, = rows_where(~out, ix)
         if not ix.numel():
             return
         # ---- pop: lowest occupied bucket, most recent push (heap_pop)
@@ -437,29 +477,34 @@ def _plain_chunk(didx: DeviceIndex, rc, lengths, D, Ds, params: AlnParams,
         f = torch.div(nn, NSLOT, rounding_mode="floor")
         s = nn - f * NSLOT
         words = arena[ix[:, None], (f * ROWW + 4 * s).long()[:, None] + ar4]
-        eL = torch.where(isroot, 0, words[:, 0]).to(I32)
-        eU = torch.where(isroot, LEN - 1, words[:, 1]).to(I32)
-        m1 = torch.where(isroot, _pack1(lengths[ix], 0, 0, 0, C.STATE_M, 0),
-                         words[:, 2]).to(I32)
-        m2 = torch.where(isroot, 0, words[:, 3]).to(I32)
+        if S.seeded:
+            rn = node.clamp(0, NROOT - 1).long()
+            rL, rU = sL[ix, rn], sU[ix, rn]
+            rm1 = _pack1(lengths[ix] - PK, 0, 0, 0, C.STATE_M, PK)
+            rm2 = node << 8                 # link to root node - 1
+            root_rd[ix] += isroot.to(I32)
+        else:
+            rL, rU = 0, LEN - 1
+            rm1 = _pack1(lengths[ix], 0, 0, 0, C.STATE_M, 0)
+            rm2 = 0
+        eL = torch.where(isroot, rL, words[:, 0]).to(I32)
+        eU = torch.where(isroot, rU, words[:, 1]).to(I32)
+        m1 = torch.where(isroot, rm1, words[:, 2]).to(I32)
+        m2 = torch.where(isroot, rm2, words[:, 3]).to(I32)
         frame_rd[ix] += (~isroot).to(I32)
         head[ix, bucket.long()] = ((m2 >> 8) & 0xFFFFFF) - 1   # 24-bit link
         n_open[ix] -= 1
         work[ix] += 1
 
-        stop = bucket > best[ix] + p_mm
-        mode[ix[stop]] = MODE_DONE
-        keep = ~stop
-        ix, node, eL, eU, m1, m2 = (v[keep] for v in
-                                    (ix, node, eL, eU, m1, m2))
+        out = bucket > best[ix] + p_mm
         if S.fixed:
             # fixed rule: a pop past the stop check after NFRAME pops
-            spent = pf[ix] >= NFRAME
+            spent = ~out & (pf[ix] >= NFRAME)
             flag(ix, spent, OV_FRAMES)
-            mode[ix[spent]] = MODE_DONE
-            keep = ~spent
-            ix, node, eL, eU, m1, m2 = (v[keep] for v in
-                                        (ix, node, eL, eU, m1, m2))
+            out = out | spent
+        retire(ix, out)
+        ix, node, eL, eU, m1, m2 = rows_where(~out, ix, node, eL, eU, m1,
+                                              m2)
         if not ix.numel():
             return
         # this pop owns frame `pf` whether or not it pushes anything
@@ -516,13 +561,12 @@ def _plain_chunk(didx: DeviceIndex, rc, lengths, D, Ds, params: AlnParams,
         # ---- expansion (inexact_match.c:377-504)
         path_over = live & (eplen + 1 >= PATHCAP)
         flag(ix, path_over, OV_PATH)
-        mode[ix[path_over]] = MODE_DONE
+        retire(ix, path_over)
         live = live & ~path_over
         (ix, node, eL, eU, ei, emm, ego, ege, est, eplen, esnp, diff_left,
-         D1n, dls, seed_index, S1n, Dx, Dsx, lenx, myf, base) = (
-            v[live] for v in (ix, node, eL, eU, ei, emm, ego, ege, est,
-                              eplen, esnp, diff_left, D1n, dls, seed_index,
-                              S1n, Dx, Dsx, lenx, myf, base))
+         D1n, dls, seed_index, S1n, Dx, Dsx, lenx, myf, base) = rows_where(
+            live, ix, node, eL, eU, ei, emm, ego, ege, est, eplen, esnp,
+            diff_left, D1n, dls, seed_index, S1n, Dx, Dsx, lenx, myf, base)
         n = ix.numel()
         if not n:
             return
@@ -635,8 +679,6 @@ def _plain_chunk(didx: DeviceIndex, rc, lengths, D, Ds, params: AlnParams,
     # ------------------------------------------------------------ main loop
     while True:
         act = mode != MODE_DONE
-        if not bool(act.any()):
-            break
         if S.fixed:
             # only a scan in flight is checked here; pops check themselves
             late = (mode == MODE_EXACT) & (work >= S.max_iters)
@@ -649,6 +691,8 @@ def _plain_chunk(didx: DeviceIndex, rc, lengths, D, Ds, params: AlnParams,
         mode = torch.where(spent | late, MODE_DONE, mode).to(I32)
         ex = (mode == MODE_EXACT).nonzero()[:, 0]
         df = (mode == MODE_DFS).nonzero()[:, 0]
+        if not (ex.numel() or df.numel()):
+            break
         if ex.numel():
             exact_step(ex)
         if df.numel():
@@ -683,13 +727,21 @@ def _plain_chunk(didx: DeviceIndex, rc, lengths, D, Ds, params: AlnParams,
     q_meta[:, META_FRD] = frame_rd
     q_meta[:, META_FWR] = frame_wr
     q_meta[:, META_POPS] = pf
+    q_meta[:, META_ROOT] = root_rd
     return arena.view(B, NFRAME, ROWW)
 
 
+def _nseed(seeds) -> int:
+    """Root rows a read of a search with `seeds` has (0: unseeded)."""
+    return 0 if seeds is None else int(seeds[0].shape[1])
+
+
 def ring_search_plain(didx: DeviceIndex, rc_all, lengths_all, D_all, Ds_all,
-                      params: AlnParams, cfg: EngineConfig, lanes: int):
+                      params: AlnParams, cfg: EngineConfig, lanes: int,
+                      seeds=None):
     """The plain PyTorch version of the ring search: same inputs, outputs
-    and per-read semantics as the CUDA kernel.
+    and per-read semantics as the CUDA kernel (`seeds`: None, or
+    (seed_L [Q, S], seed_U [Q, S], seed_cnt [Q]) int32).
 
     Per-read results do not depend on which lane serves a read or when, so
     this version gives every read a lane of its own and has no refill:
@@ -697,40 +749,57 @@ def ring_search_plain(didx: DeviceIndex, rc_all, lengths_all, D_all, Ds_all,
     (active lanes are compacted every iteration).  That bounds the arena
     to `lanes` columns, as in the kernel."""
     Q, Lmax = rc_all.shape
-    S = ring_statics(params, cfg, Lmax, Ds_all.shape[1])
+    S = ring_statics(params, cfg, Lmax, Ds_all.shape[1],
+                     seed_slots=_nseed(seeds))
     q_alns, q_meta, q_paths = alloc_outputs(Q, S, rc_all.device)
     lanes = max(1, int(lanes))
     for s in range(0, Q, lanes):
         e = min(s + lanes, Q)
         _plain_chunk(didx, rc_all[s:e], lengths_all[s:e], D_all[s:e],
                      Ds_all[s:e], params, S, q_alns[s:e], q_meta[s:e],
-                     q_paths[s:e])
+                     q_paths[s:e],
+                     None if seeds is None else tuple(x[s:e] for x in seeds))
     return result_dict(q_alns, q_meta, q_paths)
 
 
 def fixed_search_plain(didx: DeviceIndex, rc, lengths, D, Ds,
-                       params: AlnParams, cfg: EngineConfig):
+                       params: AlnParams, cfg: EngineConfig, seeds=None):
     """The plain PyTorch version of the fixed-batch search: one lane per
     read, the fixed frame-budget rule, the arena returned beside the result
-    dict as `arena` [B, NFRAME, ROWW]."""
+    dict as `arena` [B, NFRAME, ROWW]; `seeds` as for ring_search_plain."""
     B, Lmax = rc.shape
-    S = ring_statics(params, cfg, Lmax, Ds.shape[1], fixed=True)
+    S = ring_statics(params, cfg, Lmax, Ds.shape[1], fixed=True,
+                     seed_slots=_nseed(seeds))
     q_alns, q_meta, q_paths = alloc_outputs(B, S, rc.device)
     arena = _plain_chunk(didx, rc, lengths, D, Ds, params, S, q_alns,
-                         q_meta, q_paths)
+                         q_meta, q_paths, seeds)
     return dict(result_dict(q_alns, q_meta, q_paths), arena=arena)
 
 
-def _search_inputs(didx, rc, lengths, D, Ds, seeds, device):
-    if any(s is not None for s in seeds):
-        raise NotImplementedError(
-            "seeded (-P, NROOT > 1) search is not ported yet")
+def _search_inputs(didx, rc, lengths, D, Ds, seed_L, seed_U, seed_cnt,
+                   device):
     dev = index_device(didx, device)
-    return (dev,
-            torch.as_tensor(rc).to(dev).to(torch.int8).contiguous(),
-            torch.as_tensor(lengths).to(dev).to(torch.int32).contiguous(),
-            torch.as_tensor(D).to(dev).to(torch.int32).contiguous(),
-            torch.as_tensor(Ds).to(dev).to(torch.int32).contiguous())
+
+    def on_dev(x, dtype):
+        return torch.as_tensor(x).to(dev).to(dtype).contiguous()
+
+    rc = on_dev(rc, torch.int8)
+    seeds = None
+    given = [x is not None for x in (seed_L, seed_U, seed_cnt)]
+    if any(given):
+        if not all(given):
+            raise ValueError("seed_L, seed_U and seed_cnt go together")
+        seeds = (on_dev(seed_L, torch.int32), on_dev(seed_U, torch.int32),
+                 on_dev(seed_cnt, torch.int32))
+        B = rc.shape[0]
+        if (seeds[0].dim() != 2 or seeds[0].shape[0] != B
+                or seeds[0].shape[1] < 1
+                or seeds[1].shape != seeds[0].shape
+                or tuple(seeds[2].shape) != (B,)):
+            raise ValueError("seeds must be seed_L/seed_U [B, S] (S >= 1) "
+                             "and seed_cnt [B]")
+    return (dev, rc, on_dev(lengths, torch.int32), on_dev(D, torch.int32),
+            on_dev(Ds, torch.int32), seeds)
 
 
 def inexact_search(didx: DeviceIndex, rc, lengths, D, D_seed,
@@ -746,17 +815,24 @@ def inexact_search(didx: DeviceIndex, rc, lengths, D, D_seed,
                  search operates on the RC, inexact_match.c:59-65).
       lengths:   int32 [B].
       D, D_seed: int32 [B, *, 2] lower bounds from engine.dbound.
+      seed_*:    optional seed-table intervals per read (seed_L/seed_U
+                 [B, S], seed_cnt [B]; align.precalc lookup_batch): each
+                 read starts from its first seed_cnt (at most S) of them
+                 with a params.precalc_len-long all-match path
+                 (inexact_match.c:269-282); NROOT = S.
       device:    None means CUDA (raises without one); the tensors and the
                  index must live there.  On a CUDA device the hand-written
                  kernel is launched; the plain version runs only for CPU
                  tensors.
     """
-    dev, rc, lengths, D, D_seed = _search_inputs(
-        didx, rc, lengths, D, D_seed, (seed_L, seed_U, seed_cnt), device)
+    dev, rc, lengths, D, D_seed, seeds = _search_inputs(
+        didx, rc, lengths, D, D_seed, seed_L, seed_U, seed_cnt, device)
     if dev.type == "cpu":
-        return fixed_search_plain(didx, rc, lengths, D, D_seed, params, cfg)
+        return fixed_search_plain(didx, rc, lengths, D, D_seed, params, cfg,
+                                  seeds)
     from bwbble_tpu_torch.engine import kernel
-    return kernel.fixed_search(didx, rc, lengths, D, D_seed, params, cfg)
+    return kernel.fixed_search(didx, rc, lengths, D, D_seed, params, cfg,
+                               seeds)
 
 
 def inexact_search_queued(didx: DeviceIndex, rc_all, lengths_all, D_all,
@@ -766,15 +842,15 @@ def inexact_search_queued(didx: DeviceIndex, rc_all, lengths_all, D_all,
     """Continuous-batching search: `lanes` lanes stream through all NR reads
     (global work queue, queue order = the order given); outputs are per-read
     [NR, ...] tensors on the device.  Arguments as for `inexact_search`."""
-    dev, rc_all, lengths_all, D_all, Ds_all = _search_inputs(
-        didx, rc_all, lengths_all, D_all, Ds_all,
-        (seed_L, seed_U, seed_cnt), device)
+    dev, rc_all, lengths_all, D_all, Ds_all, seeds = _search_inputs(
+        didx, rc_all, lengths_all, D_all, Ds_all, seed_L, seed_U, seed_cnt,
+        device)
     if dev.type == "cpu":
         return ring_search_plain(didx, rc_all, lengths_all, D_all, Ds_all,
-                                 params, cfg, lanes)
+                                 params, cfg, lanes, seeds)
     from bwbble_tpu_torch.engine import kernel
     return kernel.ring_search(didx, rc_all, lengths_all, D_all, Ds_all,
-                              params, cfg, lanes)
+                              params, cfg, lanes, seeds)
 
 
 def walk_paths(arena: torch.Tensor, lanes: torch.Tensor, nodes: torch.Tensor,

@@ -3,9 +3,11 @@
 Counterpart of bwbble_tpu/engine/kernel.py: `ring_search` takes the place of
 `run_loop_resident_queued` driving `_resident_kernel` in ring mode, and
 `fixed_search` that of `run_loop_resident` driving it in fixed-batch mode,
-each for the multi-genome and the single-genome (`-S`) alphabet.  The kernel
-source is csrc/ring_search.cu (one template, four instantiations); the plain
-PyTorch versions are engine/inexact.py:ring_search_plain and
+each for the multi-genome and the single-genome (`-S`) alphabet.  Given
+seeds (`-P`), the same two entries take the place of `run_loop` driving
+`_kernel_body`, the JAX package's kernel for seeded roots (NROOT > 1).  The
+kernel source is csrc/ring_search.cu (one template, four instantiations);
+the plain PyTorch versions are engine/inexact.py:ring_search_plain and
 fixed_search_plain.
 
 Build: at first use, `nvcc` compiles the source for sm_90a into a shared
@@ -28,16 +30,19 @@ import torch
 
 from bwbble_tpu_torch.align.params import AlnParams
 from bwbble_tpu_torch.engine.device_index import DeviceIndex
-from bwbble_tpu_torch.engine.inexact import (EngineConfig, alloc_outputs,
-                                             result_dict, ring_statics)
+from bwbble_tpu_torch.engine.inexact import (NMETA, EngineConfig,
+                                             alloc_outputs, result_dict,
+                                             ring_statics)
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(os.path.dirname(_HERE), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "build")
 
 # launches per kernel entry, incremented where a kernel is launched and
-# nowhere else (a run can show that its path went through the kernels)
-LAUNCHES = {"ring_search": 0, "fixed_search": 0}
+# nowhere else (a run can show that its path went through the kernels); a
+# seeded launch counts under its entry's `_seeded` key only
+LAUNCHES = {"ring_search": 0, "fixed_search": 0, "ring_search_seeded": 0,
+            "fixed_search_seeded": 0}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -80,12 +85,14 @@ def _load(name: str = "ring_search") -> ctypes.CDLL:
             lib = ctypes.CDLL(build(name))
             vp = ctypes.c_void_p
             lib.ring_search_launch.argtypes = (
-                [vp, ctypes.c_int, ctypes.c_int, ctypes.c_int] + [vp] * 13)
+                [vp, ctypes.c_int, ctypes.c_int, ctypes.c_int] + [vp] * 16)
             lib.ring_search_launch.restype = ctypes.c_int
             lib.ring_search_row_words.argtypes = [ctypes.c_int]
             lib.ring_search_row_words.restype = ctypes.c_int
             lib.ring_search_num_params.argtypes = []
             lib.ring_search_num_params.restype = ctypes.c_int
+            lib.ring_search_num_meta.argtypes = []
+            lib.ring_search_num_meta.restype = ctypes.c_int
             _libs[name] = lib
         return lib
 
@@ -102,11 +109,11 @@ def _check(t: torch.Tensor, name: str, dtype, ndim: int, dev) -> None:
 def _launch(entry: str, didx: DeviceIndex, rc_all: torch.Tensor,
             lengths_all: torch.Tensor, D_all: torch.Tensor,
             Ds_all: torch.Tensor, params: AlnParams, cfg: EngineConfig,
-            lanes: int | None):
+            lanes: int | None, seeds):
     """Check the arguments, allocate outputs and scratch, launch one
     instantiation of the kernel (`lanes` None: fixed mode, one lane per
-    read) and count the launch.  Returns (q_alns, q_meta, q_paths, arena).
-    Does not synchronise."""
+    read; `seeds` None or (seed_L, seed_U, seed_cnt)) and count the launch.
+    Returns (q_alns, q_meta, q_paths, arena).  Does not synchronise."""
     fixed = lanes is None
     dev = didx.table.device
     if dev.type != "cuda":
@@ -119,6 +126,17 @@ def _launch(entry: str, didx: DeviceIndex, rc_all: torch.Tensor,
     _check(D_all, "D", torch.int32, 3, dev)
     _check(Ds_all, "Ds", torch.int32, 3, dev)
     Q, Lmax = rc_all.shape
+    nseed = 0
+    if seeds is not None:
+        sL, sU, scnt = seeds
+        _check(sL, "seed_L", torch.int32, 2, dev)
+        _check(sU, "seed_U", torch.int32, 2, dev)
+        _check(scnt, "seed_cnt", torch.int32, 1, dev)
+        nseed = sL.shape[1]
+        if (sL.shape[0] != Q or nseed < 1 or sU.shape != sL.shape
+                or scnt.shape[0] != Q):
+            raise ValueError(f"{entry}: inconsistent seed shapes")
+        entry += "_seeded"
     if (didx.table.shape[1] != 32 or didx.Carr.shape[0] != 17
             or lengths_all.shape[0] != Q
             or tuple(D_all.shape) != (Q, Lmax + 1, 2)
@@ -126,7 +144,8 @@ def _launch(entry: str, didx: DeviceIndex, rc_all: torch.Tensor,
         raise ValueError(f"{entry}: inconsistent input shapes")
     if int(didx.length) < 2 or Q < 1:
         raise ValueError(f"{entry}: empty index or read set")
-    S = ring_statics(params, cfg, Lmax, Ds_all.shape[1], fixed=fixed)
+    S = ring_statics(params, cfg, Lmax, Ds_all.shape[1], fixed=fixed,
+                     seed_slots=nseed)
     lanes = Q if fixed else max(1, min(int(lanes), Q))
     lib = _load()
     p = params
@@ -135,12 +154,14 @@ def _launch(entry: str, didx: DeviceIndex, rc_all: torch.Tensor,
          p.max_gape, p.seed_length, p.max_diff_seed, p.max_best,
          p.no_indel_length, min(int(p.max_entries), 2**31 - 1),
          S.NB, S.NFRAME, S.ACAP, S.XC, S.PATHCAP, S.max_iters,
-         Q, Lmax, S.DS, int(didx.length), lanes, S.PW],
+         Q, Lmax, S.DS, int(didx.length), lanes, S.PW, S.NROOT, S.PK],
         dtype=np.int32)
     if (hp.size != lib.ring_search_num_params()
-            or S.ROWW != lib.ring_search_row_words(int(S.multiref))):
-        raise RuntimeError(f"{entry}: parameter block or frame-row width "
-                           "out of date")
+            or S.ROWW != lib.ring_search_row_words(int(S.multiref))
+            or NMETA != lib.ring_search_num_meta()):
+        raise RuntimeError(f"{entry}: parameter block, frame-row width or "
+                           "result columns out of date")
+    sp = [x.data_ptr() for x in seeds] if seeds is not None else [None] * 3
 
     with torch.cuda.device(dev):
         q_alns, q_meta, q_paths = alloc_outputs(Q, S, dev)
@@ -154,7 +175,7 @@ def _launch(entry: str, didx: DeviceIndex, rc_all: torch.Tensor,
             hp.ctypes.data, hp.size, int(S.multiref), int(fixed),
             didx.table.data_ptr(), didx.Carr.data_ptr(), rc_all.data_ptr(),
             lengths_all.data_ptr(), D_all.data_ptr(), Ds_all.data_ptr(),
-            arena.data_ptr(), xlist.data_ptr(), counter.data_ptr(),
+            *sp, arena.data_ptr(), xlist.data_ptr(), counter.data_ptr(),
             q_alns.data_ptr(), q_meta.data_ptr(), q_paths.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"{entry}: launch failed with CUDA error {rc}")
@@ -168,28 +189,29 @@ def _launch(entry: str, didx: DeviceIndex, rc_all: torch.Tensor,
 def ring_search(didx: DeviceIndex, rc_all: torch.Tensor,
                 lengths_all: torch.Tensor, D_all: torch.Tensor,
                 Ds_all: torch.Tensor, params: AlnParams, cfg: EngineConfig,
-                lanes: int) -> dict:
+                lanes: int, seeds=None) -> dict:
     """Launch the ring-queue search on CUDA tensors: `lanes` lanes (at most
-    one per read) stream through the reads.  Returns the per-read result
-    dict (engine/inexact.py:result_dict) of device tensors.  Does not
-    synchronise.  Raises for anything the kernel does not take — there is
-    no fallback to the plain version."""
+    one per read) stream through the reads; `seeds` None, or (seed_L [Q, S],
+    seed_U [Q, S], seed_cnt [Q]) int32 for a seeded search with NROOT = S.
+    Returns the per-read result dict (engine/inexact.py:result_dict) of
+    device tensors.  Does not synchronise.  Raises for anything the kernel
+    does not take — there is no fallback to the plain version."""
     q_alns, q_meta, q_paths, _arena = _launch(
         "ring_search", didx, rc_all, lengths_all, D_all, Ds_all, params,
-        cfg, lanes)
+        cfg, lanes, seeds)
     return result_dict(q_alns, q_meta, q_paths)
 
 
 def fixed_search(didx: DeviceIndex, rc: torch.Tensor, lengths: torch.Tensor,
                  D: torch.Tensor, Ds: torch.Tensor, params: AlnParams,
-                 cfg: EngineConfig) -> dict:
+                 cfg: EngineConfig, seeds=None) -> dict:
     """Launch the fixed-batch search on CUDA tensors: lane b runs read b
     and nothing else, so there is a lane, and an arena column, for exactly
-    the reads given.  Returns the per-read result dict in read order plus
-    `arena`, the launch's frame rows [B, NFRAME, ROWW] (its scratch, valid
-    once the launch has finished).  Does not synchronise.  Raises for
-    anything the kernel does not take — there is no fallback to the plain
-    version."""
+    the reads given; `seeds` as for `ring_search`.  Returns the per-read
+    result dict in read order plus `arena`, the launch's frame rows
+    [B, NFRAME, ROWW] (its scratch, valid once the launch has finished).
+    Does not synchronise.  Raises for anything the kernel does not take —
+    there is no fallback to the plain version."""
     q_alns, q_meta, q_paths, arena = _launch(
-        "fixed_search", didx, rc, lengths, D, Ds, params, cfg, None)
+        "fixed_search", didx, rc, lengths, D, Ds, params, cfg, None, seeds)
     return dict(result_dict(q_alns, q_meta, q_paths), arena=arena)

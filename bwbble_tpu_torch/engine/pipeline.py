@@ -8,23 +8,33 @@ probe that chooses between them), difficulty ordering and pre-routing, the
 fixed-batch tiers (`run_tier`: the default path of `align`, with its
 streamed scan-and-launch branch and escalation ladder),
 the queued branch with its single deep rung, single-genome `-S` mode in
-both, and the overlapped host gold pool.  Not ported yet (raise
-NotImplementedError): `-P` seeding, the int64 layout and device meshes.
+both, `-P` seeding in both (`precalc`, `seed_slots`), and the overlapped
+host gold pool.  Not ported yet (raise NotImplementedError): the int64
+layout and device meshes.
 
 Where the JAX package chooses a branch by asking whether it runs on its
 accelerator, the port takes the accelerator's branch, on the card and on
 the CPU alike, because its kernel and its plain version are one function:
-the search covers every int32, unseeded, unsharded run at any lane count,
-so exact completion runs over lists of 128 intervals in multi-genome mode
-(one interval in `-S`), 2.5 % of each D chunk is pre-routed to the gold
-pool, the ladder is one deep tier of 256 lanes, and the deep tier is on
-whenever the gold pool is up.
+the search covers every int32, unsharded run at any lane count, seeded or
+not, so exact completion runs over lists of 128 intervals in multi-genome
+mode (one interval in `-S`), 2.5 % of each D chunk is pre-routed to the
+gold pool, the ladder is one deep tier of 256 lanes, and the deep tier is
+on whenever the gold pool is up.  Seeded (`-P`) runs keep these rules too,
+where the JAX package on its accelerator sends them to its per-iteration
+kernel with `kx` slots (no `xcap`) and no deep tier; like the JAX package,
+they never take the streamed scan-and-launch branch.  These rules decide
+only where a read resolves (device tier, deep tier or gold), never what it
+yields, so the `.aln` bytes are the same either way.
+
+With `precalc`, each launch looks its reads' seeds up on the host
+(`read_indices` + `lookup_batch`): a read starts from at most `seed_slots`
+intervals, and a read with more is flagged over and resolved by the gold
+engine, which takes the whole list.
 
 A fixed batch is never padded: a launch gets exactly the reads of its
 batch, so no lane and no arena row exists for a read that is not there.
 Outside the streamed branch a launch is collected right after its dispatch:
-the JAX package's `window` of batches in flight and its `seed_slots` have no
-counterpart here.
+the JAX package's `window` of batches in flight has no counterpart here.
 
 The gold pool runs on threads, not forked processes: the index is already
 on the CUDA device when the pool is made, and a forked child of a process
@@ -46,6 +56,7 @@ import torch
 from bwbble_tpu_torch import constants as CN
 from bwbble_tpu_torch.align.params import AlnParams
 from bwbble_tpu_torch.align.pipeline import align_read_gold
+from bwbble_tpu_torch.align.precalc import read_indices
 from bwbble_tpu_torch.engine import index_device
 from bwbble_tpu_torch.engine.dbound import calc_d, calc_d_1to1
 from bwbble_tpu_torch.engine.device_index import DeviceIndex
@@ -330,7 +341,7 @@ def device_params_ok(params: AlnParams, max_len: int) -> bool:
 
 _COUNTER_KEYS = (("n_work", "work_units"), ("pops", "pops"),
                  ("rank_rows", "rank_rows"), ("frame_rd", "frame_rd_rows"),
-                 ("frame_wr", "frame_wr_rows"))
+                 ("frame_wr", "frame_wr_rows"), ("root_rd", "root_rows"))
 
 
 def _count_launch(counters: dict, host: dict) -> None:
@@ -341,11 +352,12 @@ def _count_launch(counters: dict, host: dict) -> None:
     counters["launches"] = counters.get("launches", 0) + 1
 
 
-def _assemble(host: dict, pathcap: int) -> list:
+def _assemble(host: dict, pathcap: int, root_plen: int) -> list:
     """Per-read `Aln` lists of one collected launch (host arrays of a
-    search result dict); None for a read that overflowed.  Bulk .tolist()
-    first: Python-int indexing is far cheaper than per-element numpy
-    scalar fetches."""
+    search result dict); None for a read that overflowed.  `root_plen`: the
+    all-match path a root carries (precalc_len when seeded, else 0).  Bulk
+    .tolist() first: Python-int indexing is far cheaper than per-element
+    numpy scalar fetches."""
     n_alns = host["n_alns"].tolist()
     oL, oU = host["o_L"].tolist(), host["o_U"].tolist()
     oSc, oLen = host["o_score"].tolist(), host["o_len"].tolist()
@@ -361,7 +373,8 @@ def _assemble(host: dict, pathcap: int) -> list:
         alns = []
         for k in range(n_alns[r]):
             out_len = oLen[r][k]
-            path = _reconstruct_path(paths_all[r, k], oPl[r][k], out_len, 0)
+            path = _reconstruct_path(paths_all[r, k], oPl[r][k], out_len,
+                                     root_plen)
             alns.append(Aln(
                 score=oSc[r][k], L=oL[r][k], U=oU[r][k],
                 num_mm=oMM[r][k], num_gapo=oGO[r][k],
@@ -397,6 +410,27 @@ class _LaunchTimer:
         return self._sec
 
 
+def _lookup_seeds(precalc, rc: np.ndarray, lengths: np.ndarray,
+                  params: AlnParams, seed_slots: int, dev, ids: np.ndarray,
+                  seen: np.ndarray, counters: dict):
+    """Seed intervals of a launch's reads on the host (read_indices +
+    lookup_batch): ((seed_L, seed_U, seed_cnt) int32 tensors on `dev`,
+    seed_over bool [n] — reads with more than `seed_slots` intervals).
+    Copies to the device do not wait for it.  The reads `ids` (absolute)
+    not `seen` before are added to the counters `no_seed_hit_reads` (no
+    interval, or an N among their last precalc_len bases) and
+    `seed_over_reads`: each counts the reads launched, once."""
+    ri = read_indices(rc, lengths, k=int(params.precalc_len))
+    sL, sU, scnt, seed_over = precalc.lookup_batch(ri, int(seed_slots))
+    new = ~seen[ids]
+    seen[ids] = True
+    counters["no_seed_hit_reads"] += int((scnt[new] == 0).sum())
+    counters["seed_over_reads"] += int(seed_over[new].sum())
+    seeds = tuple(torch.from_numpy(np.ascontiguousarray(x, dtype=np.int32))
+                  .to(dev) for x in (sL, sU, scnt))
+    return seeds, seed_over
+
+
 def deep_tier_cfg(base: EngineConfig, B: int, deep_B: int,
                   deep_kx: int) -> EngineConfig:
     """The deep tier's capacities after a first tier of `B` lanes: the
@@ -416,7 +450,8 @@ LADDER = ((256, 2),)      # (lanes, kx) of each deep tier
 def align_reads_device(idx: FMIndex, didx: DeviceIndex, reads: Reads,
                        params: AlnParams, cfg: EngineConfig | None = None,
                        d_cap: int = 32, stats: dict | None = None,
-                       precalc=None, sort_reads: bool = True,
+                       precalc=None, seed_slots: int = 32,
+                       sort_reads: bool = True,
                        queued: bool = False, qchunk: int = 2, mesh=None,
                        deep_tiers: bool | None = None,
                        gold_overlap: bool | None = None,
@@ -424,8 +459,11 @@ def align_reads_device(idx: FMIndex, didx: DeviceIndex, reads: Reads,
     """Align all reads on the device; returns per-read alignment lists in
     the reference's discovery order (byte-parity with align_reads_inexact).
 
-    `queued`: continuous batching (lanes stream reads from a global
-    queue), taken when the read set spans more than one batch;
+    `precalc`: an align.precalc.PrecalcTable for `-P` seeding
+    (inexact_match.c:50-57), given exactly when params.use_precalc is set;
+    reads whose seed list exceeds `seed_slots` fall back to the host gold
+    engine.  `queued`: continuous batching (lanes stream reads from a
+    global queue), taken when the read set spans more than one batch;
     bit-identical results.
     `deep_tiers`: force the narrow-lane escalation ladder on/off (None =>
     on when the gold pool is up, else on only without the native gold
@@ -440,9 +478,9 @@ def align_reads_device(idx: FMIndex, didx: DeviceIndex, reads: Reads,
     if mesh is not None:
         raise NotImplementedError("device meshes (parallel/) are not "
                                   "ported yet")
-    if precalc is not None or params.use_precalc:
-        raise NotImplementedError("-P seeded search (align/precalc.py, "
-                                  "NROOT > 1) is not ported yet")
+    if (precalc is not None) != bool(params.use_precalc):
+        raise ValueError("a seed table (precalc) goes with "
+                         "params.use_precalc, and only with it")
     if not device_params_ok(params, max(reads.max_len, 1)):
         counters = {"fallback_reads": reads.count, "retried_reads": 0,
                     "t_dbounds": 0.0, "gold_routed": True}
@@ -450,17 +488,21 @@ def align_reads_device(idx: FMIndex, didx: DeviceIndex, reads: Reads,
             stats.update(counters)
         out: list = [None] * reads.count
         for orig, alns in gold_fallback_many(
-                idx, reads, list(range(reads.count)), params,
+                idx, reads, list(range(reads.count)), params, precalc,
                 int(params.n_threads)).items():
             out[orig] = alns
         return out
     if queued and reads.count > int(params.batch_size):
         return _align_queued(idx, didx, reads, params, cfg, d_cap, stats,
-                             sort_reads, qchunk=qchunk)
+                             precalc, seed_slots, sort_reads, qchunk=qchunk)
     t_start = _tm.time()
     B = int(params.batch_size)
     Lmax = max(reads.max_len, 1)
+    root_plen = int(params.precalc_len) if precalc is not None else 0
     counters = {"fallback_reads": 0, "retried_reads": 0}
+    seed_seen = np.zeros(reads.count, dtype=bool)
+    if precalc is not None:
+        counters.update(no_seed_hit_reads=0, seed_over_reads=0)
     results: list = [None] * reads.count
     fail_why: dict[int, int] = {}   # overflow reason bits per failed read
     work_seen: dict[int, int] = {}  # per-read n_work at failure (tier cap)
@@ -484,6 +526,11 @@ def align_reads_device(idx: FMIndex, didx: DeviceIndex, reads: Reads,
             rc = np.zeros((sel.shape[0], Lmax), dtype=np.int8)
             rc[:, :reads.rc.shape[1]] = reads.rc[sel]
             lengths = reads.lengths[sel].astype(np.int32)
+            seeds, seed_over = None, np.zeros(sel.shape[0], dtype=bool)
+            if precalc is not None:
+                seeds, seed_over = _lookup_seeds(
+                    precalc, rc, lengths, params, seed_slots, dev, sel,
+                    seed_seen, counters)
             if isinstance(D_all, np.ndarray):
                 Dsel = torch.from_numpy(D_all[sel]).to(dev)
                 Dssel = torch.from_numpy(Ds_all[sel]).to(dev)
@@ -492,22 +539,27 @@ def align_reads_device(idx: FMIndex, didx: DeviceIndex, reads: Reads,
                 Dsel = D_all.index_select(0, selj)
                 Dssel = Ds_all.index_select(0, selj)
             timer = _LaunchTimer(dev)
+            kw = {} if seeds is None else dict(
+                seed_L=seeds[0], seed_U=seeds[1], seed_cnt=seeds[2])
             res = inexact_search(didx, rc, lengths, Dsel, Dssel, params,
-                                 tier_cfg, device=dev)
+                                 tier_cfg, device=dev, **kw)
             timer.stop()
             # the pipeline reads the packed paths; the arena goes back to
             # the allocator here, and the next launch on this stream may
             # take the same memory once this one has finished
             del res["arena"]
-            return dict(sel=sel, res=res, timer=timer)
+            return dict(sel=sel, res=res, timer=timer, seed_over=seed_over)
 
         def collect(h: dict) -> None:
             t_launch[0] += h["timer"].seconds()
             host = {k: v.cpu().numpy() for k, v in h["res"].items()}
             _count_launch(counters, host)
+            # a read with more seeds than slots was searched on a part of
+            # its list: its result stands for nothing
+            host["overflow"] = host["overflow"] | h["seed_over"]
             sel = h["sel"]
             launch_failed: list[int] = []
-            for b, alns in enumerate(_assemble(host, pathcap)):
+            for b, alns in enumerate(_assemble(host, pathcap, root_plen)):
                 orig = int(sel[b])
                 if alns is None:
                     launch_failed.append(orig)
@@ -544,7 +596,7 @@ def align_reads_device(idx: FMIndex, didx: DeviceIndex, reads: Reads,
                         and getattr(nat0, "_has_gold", False)
                         and reads.count > B)
     if gold_overlap:
-        pool = _GoldPool(idx, reads, params,
+        pool = _GoldPool(idx, reads, params, precalc,
                          n_workers=max(1, int(params.n_threads)))
 
     # Exact completion over lists of up to 128 intervals covers the
@@ -574,7 +626,7 @@ def align_reads_device(idx: FMIndex, didx: DeviceIndex, reads: Reads,
         # collect, so the device starts searching after ONE scanned chunk
         # instead of after the full D phase.  Each launch takes the hardest
         # B pending reads (failures surface early).
-        if (pool is not None and sort_reads
+        if (pool is not None and sort_reads and precalc is None
                 and probe_native_d(didx, reads, params, d_cap,
                                    host_idx=idx)[1]):
             seed_len = int(params.seed_length)
@@ -724,7 +776,7 @@ def align_reads_device(idx: FMIndex, didx: DeviceIndex, reads: Reads,
                     counters["fallback_reads"] += int(sel.size)
                     for orig, alns in gold_fallback_many(
                             idx, reads, [int(i) for i in sel], params,
-                            int(params.n_threads)).items():
+                            precalc, int(params.n_threads)).items():
                         results[orig] = alns
 
         if pool is not None:
@@ -751,13 +803,15 @@ def align_reads_device(idx: FMIndex, didx: DeviceIndex, reads: Reads,
 class _GoldPool:
     """Host-gold worker threads that run concurrently with device launches
     (see the module docstring for why threads).  Submissions ship read
-    indices; results are gathered by `drain`."""
+    indices; results are gathered by `drain`.  With a seed table (`-P`) the
+    workers run the Python gold engine, which holds the GIL."""
 
-    def __init__(self, idx, reads: Reads, params: AlnParams,
+    def __init__(self, idx, reads: Reads, params: AlnParams, precalc,
                  n_workers: int = 1):
         idx.bit_planes()              # materialize the shared rank planes
         idx.fused_planes()            # before any worker needs them
         self._idx, self._reads, self._params = idx, reads, params
+        self._precalc = precalc
         self._ex = ThreadPoolExecutor(max(1, int(n_workers)))
         self._futs: list = []
         self.submitted = 0
@@ -766,7 +820,8 @@ class _GoldPool:
         for i in sel:
             i = int(i)
             self._futs.append((i, self._ex.submit(
-                _fb_single, self._idx, self._reads, i, self._params)))
+                _fb_single, self._idx, self._reads, i, self._params,
+                self._precalc)))
             self.submitted += 1
 
     def drain(self) -> dict[int, list]:
@@ -780,12 +835,14 @@ class _GoldPool:
 
 
 def gold_fallback_many(idx, reads: Reads, sel: list[int], params: AlnParams,
-                       n_threads: int) -> dict[int, list]:
-    """Gold-align reads[sel]; with n_threads > 1 worker threads spread the
-    reads so overflow storms degrade gracefully."""
+                       precalc, n_threads: int) -> dict[int, list]:
+    """Gold-align reads[sel] (`precalc`: the `-P` seed table or None); with
+    n_threads > 1 worker threads spread the reads so overflow storms
+    degrade gracefully."""
     if n_threads <= 1 or len(sel) <= 1:
-        return {i: _fb_single(idx, reads, i, params) for i in sel}
-    pool = _GoldPool(idx, reads, params, min(int(n_threads), len(sel)))
+        return {i: _fb_single(idx, reads, i, params, precalc) for i in sel}
+    pool = _GoldPool(idx, reads, params, precalc,
+                     min(int(n_threads), len(sel)))
     try:
         pool.submit(sel)
         return pool.drain()
@@ -793,13 +850,14 @@ def gold_fallback_many(idx, reads: Reads, sel: list[int], params: AlnParams,
         pool.terminate()
 
 
-def _fb_single(idx, reads, i, params):
+def _fb_single(idx, reads, i, params, precalc):
     return align_read_gold(idx, reads.seq[i], reads.rc[i],
-                           int(reads.lengths[i]), params)
+                           int(reads.lengths[i]), params, precalc=precalc)
 
 
 def _align_queued(idx, didx, reads: Reads, params: AlnParams,
-                  cfg: EngineConfig, d_cap: int, stats, sort_reads: bool,
+                  cfg: EngineConfig, d_cap: int, stats, precalc,
+                  seed_slots: int, sort_reads: bool,
                   qchunk: int = 16) -> list:
     """Continuous batching: engine launches stream reads through a fixed
     set of lanes (hardest reads first — LPT scheduling).
@@ -815,6 +873,8 @@ def _align_queued(idx, didx, reads: Reads, params: AlnParams,
     NR = reads.count
     dev = didx.device
     lanes = int(params.batch_size)      # the caller sends NR > batch_size
+    root_plen = int(params.precalc_len) if precalc is not None else 0
+    nseed = int(seed_slots) if precalc is not None else 0
     # exact completion over lists of up to 128 intervals: covers the
     # IUPAC-dense reads a handful of kx slots would ship to the host (a
     # single genome keeps one interval: the caller's xcap stays)
@@ -827,7 +887,7 @@ def _align_queued(idx, didx, reads: Reads, params: AlnParams,
     nat = get_native()
     if (params.is_multiref and nat is not None
             and getattr(nat, "_has_gold", False) and NR > lanes):
-        pool = _GoldPool(idx, reads, params,
+        pool = _GoldPool(idx, reads, params, precalc,
                          n_workers=max(1, int(params.n_threads)))
 
     try:
@@ -864,6 +924,9 @@ def _align_queued(idx, didx, reads: Reads, params: AlnParams,
         out: list = [None] * NR
         counters = {kd: 0 for _ks, kd in _COUNTER_KEYS}
         counters["launches"] = 0
+        seed_seen = np.zeros(NR, dtype=bool)
+        if precalc is not None:
+            counters.update(no_seed_hit_reads=0, seed_over_reads=0)
         t_search = 0.0
         pass_log: list[dict] = []
         pending_assembly: list[dict] = []
@@ -878,12 +941,18 @@ def _align_queued(idx, didx, reads: Reads, params: AlnParams,
             rc_s = np.zeros((NQ, Lmax), dtype=np.int8)
             rc_s[:, :reads.rc.shape[1]] = reads.rc[sub]
             rc_d = torch.from_numpy(rc_s).to(dev)
-            len_d = torch.from_numpy(
-                reads.lengths[sub].astype(np.int32)).to(dev)
+            len_s = reads.lengths[sub].astype(np.int32)
+            len_d = torch.from_numpy(len_s).to(dev)
+            seeds_s, seed_over = None, np.zeros(NQ, dtype=bool)
+            if precalc is not None:
+                seeds_s, seed_over = _lookup_seeds(
+                    precalc, rc_s, len_s, params, seed_slots, dev, sub,
+                    seed_seen, counters)
             subj = torch.from_numpy(sub.astype(np.int64)).to(dev)
             D_s = Dr_all.index_select(0, subj)
             Ds_s = Dsr_all.index_select(0, subj)
-            nframe = ring_statics(params, cfg_p, Lmax, 2).NFRAME
+            nframe = ring_statics(params, cfg_p, Lmax, 2,
+                                  seed_slots=nseed).NFRAME
             Q = max(1, int(qchunk_p)) * lanes_p
             # a read's work bound must not bind before its ring budget
             need = (int(qchunk_p) + 2) * nframe + 4096
@@ -895,10 +964,14 @@ def _align_queued(idx, didx, reads: Reads, params: AlnParams,
 
             def dispatch(cs: int) -> dict:
                 ce = min(cs + Q, NQ)
+                kw = {} if seeds_s is None else dict(
+                    seed_L=seeds_s[0][cs:ce], seed_U=seeds_s[1][cs:ce],
+                    seed_cnt=seeds_s[2][cs:ce])
                 timer = _LaunchTimer(dev)
                 res = inexact_search_queued(
                     didx, rc_d[cs:ce], len_d[cs:ce], D_s[cs:ce],
-                    Ds_s[cs:ce], params, cfg_r, lanes=lanes_p, device=dev)
+                    Ds_s[cs:ce], params, cfg_r, lanes=lanes_p, device=dev,
+                    **kw)
                 timer.stop()
                 return dict(cs=cs, nb=ce - cs, res=res, timer=timer)
 
@@ -911,6 +984,7 @@ def _align_queued(idx, didx, reads: Reads, params: AlnParams,
                 t_search += h["timer"].seconds()
                 host = {k: v.cpu().numpy() for k, v in res.items()}
                 _count_launch(counters, host)
+                host["overflow"] = host["overflow"] | seed_over[cs:cs + nb]
                 for r in np.flatnonzero(host["overflow"]):
                     failed_p.append(int(sub[cs + r]))
                 pending_assembly.append(dict(sub=sub, cs=cs, nb=nb,
@@ -939,7 +1013,8 @@ def _align_queued(idx, didx, reads: Reads, params: AlnParams,
             while pending_assembly:
                 h = pending_assembly.pop(0)
                 sub_l = h["sub"][h["cs"]:h["cs"] + h["nb"]].tolist()
-                for r, alns in enumerate(_assemble(h["res"], pathcap)):
+                for r, alns in enumerate(_assemble(h["res"], pathcap,
+                                                   root_plen)):
                     if alns is not None:
                         out[sub_l[r]] = alns
 
@@ -975,7 +1050,7 @@ def _align_queued(idx, didx, reads: Reads, params: AlnParams,
             n_fallback = len(rest)
             if rest:
                 for orig, alns in gold_fallback_many(
-                        idx, reads, rest, params,
+                        idx, reads, rest, params, precalc,
                         int(params.n_threads)).items():
                     out[orig] = alns
     finally:

@@ -22,10 +22,21 @@ of the main world at the settings of the main path's two launches and of
 the fixed path's two tiers; easy_path (the easy 5 Mbp world, fixed batches
 of 8 192); single_path (the same world as a plain 4-letter reference, `-S`);
 kernel comparisons on the easy world at the lane counts, arenas and
-alphabets these two paths launch; sam (`aln2sam` with SA rows resolved on
-the card); then the `{"kernels": [...]}` line and the last line.  Before
-each path the launch counts are set to 0 and after it they are read: a path
-that did not launch its kernel fails.
+alphabets these two paths launch; precalc (the k = 12 seed table of the
+easy world built on the card, written as `.pre`, read back, and sampled
+against the gold engine); pre_path (`align -n 4 -P` on the easy world,
+fixed batches of 8 192: the seeded launches); seeded comparisons on the
+small worlds, on the easy world at pre_path's settings and on main-world
+reads with a precalc_len-10 table built on the card; sam (`aln2sam` with
+SA rows resolved on the card); then the rest of the plain versions and
+every comparison line; then the `{"kernels": [...]}` line and the last
+line.  Before each path the launch counts are set to 0 and after it they
+are read: a path that did not launch its kernel fails.
+
+The plain versions (one lockstep iteration per pop of a comparison's
+longest read, bound by the host's dispatch of small ops) run one after
+another in this process after the last timed section, so no timed section
+shares the card or the host with them.
 """
 
 from __future__ import annotations
@@ -34,11 +45,13 @@ import argparse
 import dataclasses
 import filecmp
 import json
+import multiprocessing
 import os
 import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ProcessPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GENOME_BP = 46_700_000
@@ -48,6 +61,9 @@ BENCH_READS = 8_192
 # outside the tensor cores taken as the rate of the kernel's integer work
 PEAK_BYTES_S = 3.35e12
 PEAK_OPS_S = 67e12
+# pre_path reads held against the Python gold engine: 1 024 reads took 3.9 s
+# on 8 spawned workers beside an H100, so four times as many fit easily
+PRE_GOLD_READS = 4096
 T0 = time.time()
 
 
@@ -59,6 +75,26 @@ def emit(phase: str, **kw) -> None:
 def fail(phase: str, why: str) -> None:
     emit(phase, ok=False, error=why)
     sys.exit(1)
+
+
+def _gold_job(bwt: str, params, seq, rc, lengths, entries) -> list:
+    """The Python gold engine on a chunk of reads, in a worker process:
+    the index from `bwt`, and the seed lists of the table `entries` these
+    reads look up, each from the gold engine's exact_match (an entry ->
+    intervals mapping serves as the table), so that the reference does not
+    read the table under test."""
+    import numpy as np
+    sys.path.insert(0, ROOT)
+    from bwbble_tpu_torch.align.pipeline import align_read_gold
+    from bwbble_tpu_torch.gold.engine import exact_match
+    from bwbble_tpu_torch.index.fmindex import FMIndex
+    idx = FMIndex.load(bwt, load_sa=False)
+    k = int(params.precalc_len)
+    rows = {e: exact_match(idx, np.array([(e >> (2 * (k - 1 - q))) & 3
+                                          for q in range(k)], dtype=np.int8),
+                           k, params) for e in entries}
+    return [align_read_gold(idx, seq[i], rc[i], int(lengths[i]), params,
+                            precalc=rows) for i in range(len(lengths))]
 
 
 def main() -> int:
@@ -84,6 +120,9 @@ def main() -> int:
     from bwbble_tpu_torch.engine.device_index import from_fmindex
     from bwbble_tpu_torch.align.pipeline import (align_reads_gold,
                                                  alns_to_sam)
+    from bwbble_tpu_torch.align.precalc import (build_precalc_device,
+                                                build_precalc_gold, load_pre,
+                                                read_indices, store_pre)
     from bwbble_tpu_torch.engine.inexact import (EngineConfig,
                                                  fixed_search_plain,
                                                  ring_search_plain,
@@ -97,7 +136,7 @@ def main() -> int:
     from bwbble_tpu_torch.formats.aln import read_aln_file, write_aln_file
     from bwbble_tpu_torch.formats.fasta import read_ann
     from bwbble_tpu_torch.formats.fastq import read_fastq
-    from bwbble_tpu_torch.gold.engine import calculate_d
+    from bwbble_tpu_torch.gold.engine import calculate_d, exact_match
     from bwbble_tpu_torch.index.fmindex import FMIndex
     from bwbble_tpu_torch.native import get_native
 
@@ -150,6 +189,7 @@ def main() -> int:
         return D, Ds
 
     cmps: list[dict] = []       # every comparison, for the `kernels` line
+    os.makedirs(args.workdir, exist_ok=True)
 
     def device_d(didx, rd, params, K):
         """D bounds of all of `rd` from one device pass at list width K."""
@@ -160,25 +200,35 @@ def main() -> int:
             fail("kernels", f"device D pass overflowed its lists at K={K}")
         return D.cpu().numpy(), Ds.cpu().numpy()
 
-    def compare(name, didx, rc, lengths, D, Ds, params, cfg, lanes):
-        """One kernel entry and its plain version on the same device
-        tensors (`lanes` None: the fixed-batch search, else the ring search
-        at that many lanes): every per-read output, path, overflow flag,
-        reason and counter must be equal (integers: tolerance zero), and for
-        a fixed batch `walk_paths` over the returned arena must give the
-        in-kernel walk.  Returns times, counters and the per-read overflow
-        flags."""
-        a = [torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in
-             (np.asarray(rc, dtype=np.int8), lengths.astype(np.int32),
-              D, Ds)]
+    def compare(name, didx, rc, lengths, D, Ds, params, cfg, lanes,
+                seeds=None, seed_over=None):
+        """One kernel entry on the card (`lanes` None: the fixed-batch
+        search, else the ring search at that many lanes; `seeds`: None, or
+        (seed_L, seed_U, seed_cnt) numpy arrays of a seeded search), timed
+        after a warm-up; its plain version runs in `resolve_plain`, after
+        the last timed section.  Every per-read output, path, overflow flag,
+        reason and counter must then be equal (integers: tolerance zero),
+        and for a fixed batch `walk_paths` over the returned arena must give
+        the in-kernel walk.  Returns the comparison's record; `over` (the
+        kernel's per-read overflow flags) is there at once, the plain
+        version's numbers once resolved."""
+        host_in = [np.ascontiguousarray(x) for x in
+                   (np.asarray(rc, dtype=np.int8), lengths.astype(np.int32),
+                    D, Ds)]
+        a = [torch.from_numpy(x).to(dev) for x in host_in]
+        sd_host = None if seeds is None else [
+            np.ascontiguousarray(x, dtype=np.int32) for x in seeds]
+        sd = None if seeds is None else tuple(
+            torch.from_numpy(x).to(dev) for x in sd_host)
         n = a[0].shape[0]
-        entry = "fixed_search" if lanes is None else "ring_search"
+        entry = ("fixed_search" if lanes is None else "ring_search") + (
+            "" if seeds is None else "_seeded")
         if lanes is None:
             def run():
-                return kernel.fixed_search(didx, *a, params, cfg)
+                return kernel.fixed_search(didx, *a, params, cfg, sd)
         else:
             def run():
-                return kernel.ring_search(didx, *a, params, cfg, lanes)
+                return kernel.ring_search(didx, *a, params, cfg, lanes, sd)
         run()                                                 # warm-up
         torch.cuda.synchronize()
         ev0 = torch.cuda.Event(enable_timing=True)
@@ -188,78 +238,144 @@ def main() -> int:
         ev1.record()
         torch.cuda.synchronize()
         ms = ev0.elapsed_time(ev1)
-        # per-read results do not depend on the lane that serves a read,
-        # so the plain version runs all reads as one lockstep chunk
-        t0 = time.time()
-        if lanes is None:
-            ref = fixed_search_plain(didx, *a, params, cfg)
-        else:
-            ref = ring_search_plain(didx, *a, params, cfg, n)
-        torch.cuda.synchronize()
-        plain_ms = (time.time() - t0) * 1e3
-        bad, err = [], 0
-        for k in ref:
-            if k in ("o_lane", "arena"):  # which lane served a read: free;
-                continue                  # unlinked arena slots: unwritten
-            d = (ref[k].to(torch.int64) - got[k].to(torch.int64)).abs()
-            if int(d.max()) != 0:
-                bad.append(k)
-                err = max(err, int(d.max()))
         walked = None
+        S = ring_statics(params, cfg, a[0].shape[1], a[3].shape[1],
+                         fixed=lanes is None,
+                         seed_slots=0 if seeds is None else sd[0].shape[1])
         if lanes is None:
-            S = ring_statics(params, cfg, a[0].shape[1], a[3].shape[1],
-                             fixed=True)
             live = (torch.arange(S.ACAP, device=dev)[None, :]
                     < got["n_alns"][:, None])
             ln_i, sl_i = live.nonzero(as_tuple=True)
             w = walk_paths(got["arena"], ln_i, got["o_node"][ln_i, sl_i],
-                           nroot=1, nslot=S.NSLOT, nc=S.NC,
+                           nroot=S.NROOT, nslot=S.NSLOT, nc=S.NC,
                            pathcap=S.PATHCAP).cpu().numpy()
             inker = unpack_paths(got["paths"].cpu().numpy(), S.PATHCAP)
             walked = bool((w == inker[ln_i.cpu().numpy(),
                                       sl_i.cpu().numpy()]).all())
-            if not walked:
-                bad.append("walk_paths(arena)")
         tot = {k: int(got[k].sum(dtype=torch.int64)) for k in
                ("n_work", "pops", "rank_rows", "frame_rd", "frame_wr",
-                "n_alns", "overflow")}
-        io_bytes = sum(x.numel() * x.element_size() for x in a) + sum(
+                "root_rd", "n_alns", "overflow")}
+        io_bytes = sum(x.nbytes for x in host_in) + sum(
             got[k].numel() * got[k].element_size()
             for k in ("o_L", "o_U", "o_score", "o_len", "o_node", "o_snp",
                       "o_plen", "paths", "n_alns", "overflow"))
-        out = dict(ms=ms, plain_ms=plain_ms, err=err, io_bytes=io_bytes,
-                   reads=n, equal=not bad, **tot)
-        b_ms, b_by = bound_ms(out)
+        roots = {}
+        if seeds is not None:
+            # the kernel reads a read's seed count, and of its seed rows
+            # only those it pops: `root_rd` in bound_ms charges those
+            io_bytes += sd_host[2].nbytes
+            sc = np.minimum(sd_host[2], S.NROOT)
+            roots = dict(seed_slots=S.NROOT, precalc_len=S.PK,
+                         roots_mean=float(sc.mean()), roots_max=int(sc.max()),
+                         multi_root_share=float((sc > 1).mean()),
+                         no_seed_hit_share=float((sc == 0).mean()),
+                         seed_over_share=float(np.mean(seed_over)))
+        rec = dict(ms=ms, io_bytes=io_bytes, reads=n, **tot)
+        b_ms, b_by = bound_ms(rec)
         line = dict(
             world=name, entry=entry,
             alphabet=16 if params.is_multiref else 4, reads=n,
             lanes_used=n if lanes is None else min(lanes, n),
             refills=0 if lanes is None else max(0, n - lanes),
             cap=cfg.cap, acap=cfg.acap, xc=cfg.xcap or cfg.kx,
-            equal_to_plain=not bad,
             finished_share=1.0 - tot["overflow"] / n, kernel_ms=ms,
-            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
-        cmps.append(line)
-        emit("kernels.compare", mismatched=bad, walk_paths_equal=walked,
-             **line, **tot)
-        if bad:
-            fail("kernels", f"{entry} != plain version on {name}: {bad}")
-        out["over"] = got["overflow"].cpu().numpy()
-        return out
+            bound_ms=b_ms, bound_by=b_by, walk_paths_equal=walked, **roots)
+        if lanes is None:
+            def run_plain():
+                return fixed_search_plain(didx, *a, params, cfg, sd)
+        else:
+            # per-read results do not depend on the lane that serves a
+            # read, so the plain version runs all reads as one lockstep
+            # chunk
+            def run_plain():
+                return ring_search_plain(didx, *a, params, cfg, n, sd)
+        rec.update(line=line, run_plain=run_plain, totals=tot, walked=walked,
+                   got={k: v.cpu().numpy() for k, v in got.items()
+                        if k != "arena"},
+                   over=got["overflow"].cpu().numpy())
+        cmps.append(rec)
+        if walked is False:
+            fail("kernels", f"walk_paths over the arena != the in-kernel "
+                            f"walk: {entry} on {name}")
+        return rec
+
+    def resolve_plain() -> None:
+        """Run every comparison's plain version, one after another, timed,
+        and hold each kernel result against it."""
+        t = time.time()
+        for c in cmps:
+            torch.cuda.synchronize()
+            t0 = time.time()
+            ref = c.pop("run_plain")()
+            torch.cuda.synchronize()
+            plain_ms = (time.time() - t0) * 1e3
+            bad, err = [], 0
+            for k, v in ref.items():
+                if k in ("o_lane", "arena"):   # which lane served a read:
+                    continue                    # free; the arena: walked
+                d = np.abs(v.cpu().numpy().astype(np.int64)
+                           - c["got"][k].astype(np.int64))
+                if d.size and int(d.max()) != 0:
+                    bad.append(k)
+                    err = max(err, int(d.max()))
+            del ref
+            c.update(plain_ms=plain_ms, err=err, equal=not bad)
+            c["line"].update(equal_to_plain=not bad, plain_ms=plain_ms)
+            emit("kernels.compare", mismatched=bad, **c["line"],
+                 **c["totals"])
+            if bad:
+                fail("kernels", f"{c['line']['entry']} != plain version on "
+                                f"{c['line']['world']}: {bad}")
+        emit("kernels.plain", comparisons=len(cmps),
+             seconds=round(time.time() - t, 1),
+             plain_ms_sum=sum(c["plain_ms"] for c in cmps))
+
+    def timed_cli(argv):
+        """One CLI call: (exit code, seconds)."""
+        t0 = time.time()
+        code = cli.main(argv)
+        torch.cuda.synchronize()
+        return code, time.time() - t0
 
     def bound_ms(c):
         """Least time the card could take for the work these inputs need:
         the bytes moved (per-read inputs and outputs once, plus what the
         kernel's own counters say the search had to touch: 128-byte rank
         rows, 16-byte popped slots, at least one 16-byte slot and the
-        parent word per written frame) over the memory rate, against the
-        integer operations (about 16 per symbol word of a rank row's 11-16
-        symbols, ~1000 a row; ~300 a pop) over the ALU rate."""
+        parent word per written frame, a root pop's seed interval: two
+        int32 words of seed_L and seed_U) over the memory rate, against the integer operations (about
+        16 per symbol word of a rank row's 11-16 symbols, ~1000 a row; ~300
+        a pop) over the ALU rate."""
         nbytes = (c["io_bytes"] + 128 * c["rank_rows"] + 16 * c["frame_rd"]
-                  + 20 * c["frame_wr"])
+                  + 20 * c["frame_wr"] + 8 * c.get("root_rd", 0))
         ops = 1000 * c["rank_rows"] + 300 * c["pops"]
         tb, to = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_OPS_S * 1e3
         return max(tb, to), ("bytes" if tb >= to else "operations")
+
+    def gold_table(idx, k):
+        """The gold engine's seed table (small worlds only)."""
+        return build_precalc_gold(idx, AlnParams(), k=k)
+
+    def seeds_of(table, rd, k, slots):
+        """The seeds `rd`'s reads look up in `table`: ((seed_L, seed_U,
+        seed_cnt) int32, seed_over)."""
+        ri = read_indices(np.asarray(rd.rc, dtype=np.int8),
+                          rd.lengths.astype(np.int32), k=k)
+        sL, sU, scnt, over = table.lookup_batch(ri, slots)
+        return (sL.astype(np.int32), sU.astype(np.int32),
+                scnt.astype(np.int32)), over
+
+    def seeded_pair(name, didx, rd, D, Ds, params, cfg, table, slots,
+                    lanes, cfg_fixed=None):
+        """Seeded comparisons of both entries: the fixed batch (at
+        `cfg_fixed`, else `cfg`) and the ring at `lanes` lanes."""
+        sd, over = seeds_of(table, rd, int(params.precalc_len), slots)
+        rc_, ln_ = np.asarray(rd.rc, dtype=np.int8), rd.lengths
+        cf_ = compare(name, didx, rc_, ln_, D, Ds, params,
+                      cfg_fixed or cfg, None, sd, over)
+        cr_ = compare(name, didx, rc_, ln_, D, Ds, params, cfg, lanes, sd,
+                      over)
+        return cf_, cr_
 
     p3 = AlnParams(max_diff=3, batch_size=128)
     idx_s, rd_s = worlds.mixed_world()
@@ -268,6 +384,11 @@ def main() -> int:
     cfg_s = EngineConfig(cap=4096, acap=24, kx=2, max_iters=20_000, xcap=128)
     compare("mixed", didx_s, rd_s.rc, rd_s.lengths, D, Ds, p3, cfg_s, 64)
     compare("mixed", didx_s, rd_s.rc, rd_s.lengths, D, Ds, p3, cfg_s, None)
+    # (a) seeded roots: a gold-built table at precalc_len 4 and 8 seed slots
+    # (a 4-mer has dozens of intervals here: every read starts from 8 roots)
+    p3s = dataclasses.replace(p3, precalc_len=4, use_precalc=True)
+    seeded_pair("mixed", didx_s, rd_s, D, Ds, p3s, cfg_s,
+                gold_table(idx_s, 4), 8, 16)
     # scores that need 340 buckets (the domain goes to 1024), 16 lanes for
     # the 48 reads so that lanes refill
     pw = AlnParams(max_diff=3, batch_size=128, mm_score=30, gapo_score=40,
@@ -283,6 +404,8 @@ def main() -> int:
     compare("iupac_dense", didx_s, rd_s.rc, rd_s.lengths, D, Ds, p3, cfg_d, 32)
     compare("iupac_dense", didx_s, rd_s.rc, rd_s.lengths, D, Ds, p3, cfg_d,
             None)
+    seeded_pair("iupac_dense", didx_s, rd_s, D, Ds, p3s, cfg_d,
+                gold_table(idx_s, 4), 8, 16)
     # the 4-letter instantiations: ring (16 lanes for 48 reads, so lanes
     # refill) and fixed, D bounds from the device pass
     ps = AlnParams(max_diff=3, batch_size=128, is_multiref=False)
@@ -297,6 +420,11 @@ def main() -> int:
     if c4r["n_alns"] == 0 or c4r["n_alns"] != c4f["n_alns"]:
         fail("kernels", "the 4-letter searches reported no or unequal "
                         "alignments")
+    # (b) the 4-letter instantiations, seeded (one root a read on a single
+    # genome)
+    seeded_pair("single_genome", didx_s, rd_s, D, Ds,
+                dataclasses.replace(ps, precalc_len=4, use_precalc=True),
+                cfg_4, gold_table(idx_s, 4), 8, 16)
 
     # ------------------------------------------------------------- main path
     reduced = {} if args.genome_bp == GENOME_BP else \
@@ -319,11 +447,9 @@ def main() -> int:
     # first run, through the CLI: also the timed run's warm-up
     cli_aln = os.path.join(wdir, "cli.aln")
     kernel.LAUNCHES["ring_search"] = 0
-    t = time.time()
-    rc = cli.main(["align", "-n", "4", "-t", str(threads), "--queued",
-                   "--batch", "512", "--arena", "655360", fa, fq, cli_aln])
-    torch.cuda.synchronize()
-    t_cli = time.time() - t
+    rc, t_cli = timed_cli(["align", "-n", "4", "-t", str(threads),
+                           "--queued", "--batch", "512", "--arena", "655360",
+                           fa, fq, cli_aln])
     cli_launches = kernel.LAUNCHES["ring_search"]
     if rc != 0 or cli_launches == 0:
         fail("main_path", f"CLI align rc={rc} launches={cli_launches}")
@@ -354,7 +480,7 @@ def main() -> int:
     # parity: the whole file against the gold engine (native, threaded)
     t = time.time()
     gold = gold_fallback_many(idx, reads, list(range(reads.count)), params,
-                              threads)
+                              None, threads)
     gold_aln = os.path.join(wdir, "gold.aln")
     write_aln_file(gold_aln, [gold[i] for i in range(reads.count)])
     t_gold = time.time() - t
@@ -424,11 +550,8 @@ def main() -> int:
     # --arena 32768, on the world and reads of the main path
     fixed_cli_aln = os.path.join(wdir, "fixed_cli.aln")
     zero_launches()
-    t = time.time()
-    rc = cli.main(["align", "-n", "4", "-t", str(threads), fa, fq,
-                   fixed_cli_aln])
-    torch.cuda.synchronize()
-    t_cli = time.time() - t
+    rc, t_cli = timed_cli(["align", "-n", "4", "-t", str(threads), fa, fq,
+                           fixed_cli_aln])
     cli_launches = dict(kernel.LAUNCHES)
     if rc != 0 or cli_launches["fixed_search"] == 0:
         fail("fixed_path", f"CLI align rc={rc} launches={cli_launches}")
@@ -498,6 +621,28 @@ def main() -> int:
             deep_tier_cfg(cfg_tier1, int(p_fixed.batch_size), deep_B,
                           deep_kx), None)
 
+    # (d) seeded roots at the main world's IUPAC density: comparison A's
+    # reads, seeded from a precalc_len-10 table of the main world built on
+    # the card in memory (short k-mers there have hundreds of intervals on
+    # the way to level 10, hence the list capacity K), 32 seed slots; the
+    # ring at A's settings and the fixed launch at tier 1's
+    p_d = dataclasses.replace(params, precalc_len=10, use_precalc=True)
+    st_d: dict = {}
+    t = time.time()
+    table_d = build_precalc_device(idx, didx, p_d, k=10, K=1024,
+                                   max_level_full=8, sub_batch=4096,
+                                   device=dev, stats=st_d)
+    emit("kernels.main_world_table", k=10, K=1024,
+         seconds=round(time.time() - t, 1), intervals=int(table_d.L.shape[0]),
+         overflow_entries=st_d["overflow_entries"],
+         max_intervals=int(table_d.cnt.max()))
+    rd_d = worlds.head_reads(rd_c, n_cmp)
+    seeded_pair("main_world", didx, rd_d, Dc[:n_cmp], Dsc[:n_cmp], p_d,
+                EngineConfig(cap=65536, acap=24, kx=2, max_iters=500_000,
+                             xcap=128), table_d, 32, 512,
+                cfg_fixed=cfg_tier1)
+    del table_d
+
     # ------------------------------------------------------------- easy path
     # the easy world in fixed batches of 8 192: pure-ACGT genome, 16 384
     # reads of 100 bp with 2 mismatches, multi-genome mode
@@ -520,7 +665,7 @@ def main() -> int:
     write_aln_file(easy_aln, e_alns)
     t = time.time()
     egold = gold_fallback_many(eidx, ereads, list(range(ereads.count)),
-                               p_easy, threads)
+                               p_easy, None, threads)
     easy_gold_aln = os.path.join(edir, "gold.aln")
     write_aln_file(easy_gold_aln, [egold[i] for i in range(ereads.count)])
     t_egold = time.time() - t
@@ -544,11 +689,8 @@ def main() -> int:
     # search path (the ring queue at 512 lanes)
     single_cli_aln = os.path.join(edir, "single_cli.aln")
     zero_launches()
-    t = time.time()
-    rc = cli.main(["align", "-n", "4", "-S", "-t", str(threads), "--batch",
-                   "8192", efa, efq, single_cli_aln])
-    torch.cuda.synchronize()
-    t_scli = time.time() - t
+    rc, t_scli = timed_cli(["align", "-n", "4", "-S", "-t", str(threads),
+                            "--batch", "8192", efa, efq, single_cli_aln])
     s_cli_launches = dict(kernel.LAUNCHES)
     if rc != 0 or s_cli_launches["fixed_search"] == 0:
         fail("single_path", f"CLI align rc={rc} launches={s_cli_launches}")
@@ -608,15 +750,151 @@ def main() -> int:
         compare(tag, edidx, rc_e[:n_q], ln_e[:n_q], De[:n_q], Dse[:n_q],
                 prm, cfg_c, 512)
 
+    # --------------------------------------------------------------- precalc
+    # the k = 12 seed table of the easy world, built on the card as `-P`
+    # builds it at first use (align.c:59-66), written as `<fasta>.pre` (the
+    # file the CLI reads below) and read back, and a fixed-seed sample of
+    # its entries held against the gold engine's exact_match
+    pre_file = efa + ".pre"
+    if os.path.exists(pre_file):
+        os.remove(pre_file)
+    p_pre = AlnParams(max_diff=4, batch_size=8192, use_precalc=True,
+                      n_threads=threads)
+    k12 = int(p_pre.precalc_len)
+    st_p: dict = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.time()
+    table = build_precalc_device(eidx, edidx, p_pre, k=k12, device=dev,
+                                 stats=st_p)
+    torch.cuda.synchronize()
+    t_build = time.time() - t
+    build_peak = torch.cuda.max_memory_allocated() / 1e9
+    t = time.time()
+    store_pre(pre_file, table)
+    t_store = time.time() - t
+    t = time.time()
+    back = load_pre(pre_file, num_entries=4 ** k12)
+    t_load = time.time() - t
+    round_trip = all(np.array_equal(getattr(back, f), getattr(table, f))
+                     for f in ("cnt", "off", "L", "U"))
+    del back
+    sample = np.random.default_rng(12).choice(4 ** k12, 4096, replace=False)
+    t = time.time()
+    n_bad = 0
+    for e in sample.tolist():
+        digits = np.array([(e >> (2 * (k12 - 1 - q))) & 3
+                           for q in range(k12)], dtype=np.int8)
+        want = [tuple(iv) for iv in exact_match(eidx, digits, k12, p_pre)]
+        n_bad += table[e] != want
+    t_sample = time.time() - t
+    pre_ok = bool(round_trip and n_bad == 0)
+    emit("precalc", ok=pre_ok, k=k12, entries=4 ** k12,
+         intervals=int(table.L.shape[0]),
+         overflow_entries=st_p["overflow_entries"],
+         seconds=round(t_build, 2), peak_device_gb=build_peak,
+         store_seconds=round(t_store, 2), load_seconds=round(t_load, 2),
+         file_bytes=os.path.getsize(pre_file), round_trip=round_trip,
+         sample=int(sample.size),
+         sample_nonempty=int((table.cnt[sample] > 0).sum()),
+         sample_mismatched=n_bad, sample_seconds=round(t_sample, 1),
+         card=card)
+    if not pre_ok:
+        fail("precalc", "the `.pre` round trip or the gold sample differs")
+
+    # -------------------------------------------------------------- pre path
+    # `bench.py --pre` (bench.py:226-228, :279-294): the easy world, fixed
+    # batches of 8 192, seeded from the k = 12 table; in-process and timed,
+    # then through the CLI (which reads the `.pre` written above), then
+    # the queued search at 512 lanes over the same reads; the first
+    # PRE_GOLD_READS reads against the Python gold engine (the only gold of
+    # -P), on worker processes
+    cfg_pre = EngineConfig(cap=32768, acap=24, kx=2, max_iters=500_000)
+    timed_align(eidx, edidx, worlds.head_reads(ereads, 256), p_pre, cfg_pre,
+                d_cap=16, precalc=table)                      # warm-up
+    pr_alns, pr_dt, pr_stats, pr_launches, pr_peak = timed_align(
+        eidx, edidx, ereads, p_pre, cfg_pre, d_cap=16, queued=False,
+        precalc=table)
+    pre_aln = os.path.join(edir, "pre.aln")
+    write_aln_file(pre_aln, pr_alns)
+    pre_cli_aln = os.path.join(edir, "pre_cli.aln")
+    zero_launches()
+    rc, t_pcli = timed_cli(["align", "-n", "4", "-P", "-t", str(threads),
+                            "--batch", "8192", efa, efq, pre_cli_aln])
+    p_cli_launches = dict(kernel.LAUNCHES)
+    if rc != 0 or p_cli_launches["fixed_search_seeded"] == 0:
+        fail("pre_path", f"CLI align -P rc={rc} launches={p_cli_launches}")
+    pq_alns, pq_dt, pq_stats, pq_launches, _ = timed_align(
+        eidx, edidx, ereads, dataclasses.replace(p_pre, batch_size=512),
+        cfg_pre, d_cap=16, queued=True, precalc=table)
+    pre_q_aln = os.path.join(edir, "pre_queued.aln")
+    write_aln_file(pre_q_aln, pq_alns)
+    head = worlds.head_reads(ereads, PRE_GOLD_READS)
+    ri_h = read_indices(np.asarray(head.rc, dtype=np.int8),
+                        head.lengths.astype(np.int32), k=k12)
+    t = time.time()
+    step = -(-head.count // threads)
+    with ProcessPoolExecutor(
+            threads,
+            mp_context=multiprocessing.get_context("spawn")) as ex:
+        futs = [ex.submit(
+            _gold_job, efa + ".bwt", p_pre, head.seq[s0:s0 + step],
+            head.rc[s0:s0 + step], head.lengths[s0:s0 + step],
+            sorted(set(e for e in ri_h[s0:s0 + step].tolist() if e >= 0)))
+            for s0 in range(0, head.count, step)]
+        pgold = [a for f in futs for a in f.result()]
+    t_pgold = time.time() - t
+    pre_gold_ok = pgold == pr_alns[:head.count]
+    pre_same_cli = filecmp.cmp(pre_aln, pre_cli_aln, shallow=False)
+    pre_same_queued = filecmp.cmp(pre_aln, pre_q_aln, shallow=False)
+    pre_parity = bool(pre_gold_ok and pre_same_cli and pre_same_queued)
+    pr_ok = bool(pre_parity and pr_launches["fixed_search_seeded"] > 0
+                 and pq_launches["ring_search_seeded"] > 0)
+    emit("pre_path", ok=pr_ok, parity=pre_parity,
+         same_as_cli=pre_same_cli, same_as_queued=pre_same_queued,
+         gold_reads=head.count, gold_equal=pre_gold_ok,
+         gold_seconds=round(t_pgold, 1), gold_workers=threads,
+         parity_against=f"first {head.count} reads: Python gold engine "
+                        "with the same table; whole file: the CLI's and "
+                        "the queued search's at 512 lanes",
+         aligned=sum(1 for a in pr_alns if a), peak_device_gb=pr_peak,
+         seed_slots=32, precalc_len=k12,
+         seed_over_reads=pr_stats.get("seed_over_reads"),
+         no_seed_hit_reads=pr_stats.get("no_seed_hit_reads"),
+         root_rows=pr_stats.get("root_rows"),
+         cli_seconds=round(t_pcli, 1),
+         cli_launches=p_cli_launches["fixed_search_seeded"],
+         queued_seconds=pq_dt, queued_reads_per_sec=ereads.count / pq_dt,
+         queued_t_search=pq_stats.get("t_search"),
+         queued_t_host=pq_stats.get("t_host"),
+         queued_launches=pq_launches["ring_search_seeded"],
+         queued_fallback_reads=pq_stats.get("fallback_reads"),
+         **path_line(ereads.count, pr_dt, pr_stats,
+                     pr_launches["fixed_search_seeded"]))
+    if not pr_ok:
+        fail("pre_path", "`-P` outputs disagree, or a path did not launch "
+                         "its seeded kernel")
+
+    # (c) seeded comparisons at what pre_path launches: one fixed batch of
+    # 8 192 lanes, and one queued launch of its second run (512 lanes, two
+    # reads a lane), seeded from the k = 12 table, 32 seed slots
+    De, Dse = device_d(edidx, rd_e, p_easy, 16)
+    cfg_pc = dataclasses.replace(cfg_pre, xcap=128)
+    sd_e, over_e = seeds_of(table, rd_e, k12, 32)
+    c3 = compare("easy", edidx, rc_e, ln_e, De, Dse, p_pre, cfg_pc, None,
+                 sd_e, over_e)
+    compare("easy", edidx, rc_e[:n_q], ln_e[:n_q], De[:n_q], Dse[:n_q],
+            p_pre, cfg_pc, 512, tuple(x[:n_q] for x in sd_e), over_e[:n_q])
+    del table
+
     # ------------------------------------------------------------------- sam
     # stage 3 on the easy world's `.aln`: SA rows resolved on the card
     # against the host's per-row resolver
     sam_path = os.path.join(edir, "easy.sam")
-    t = time.time()
-    if cli.main(["aln2sam", "-n", "4", efa, efq, easy_aln, sam_path]) != 0:
+    rc, t_sam = timed_cli(["aln2sam", "-n", "4", efa, efq, easy_aln,
+                           sam_path])
+    if rc != 0:
         fail("sam", "aln2sam failed")
-    torch.cuda.synchronize()
-    t_sam = time.time() - t
     t = time.time()
     host_sam = alns_to_sam(FMIndex.load(efa + ".bwt", load_sa=True),
                            read_ann(efa + ".ann"), ereads,
@@ -630,22 +908,24 @@ def main() -> int:
     if not sam_parity:
         fail("sam", "SAM text differs from the host resolver's")
 
-    b_ms, b_by = bound_ms(c)
+    # every plain version, then the comparison lines
+    resolve_plain()
 
     def cmps_of(entry):
-        return [x for x in cmps if x["entry"] == entry]
+        return [x["line"] for x in cmps if x["line"]["entry"] == entry]
 
-    main_c = dict(io_bytes=0, rank_rows=main["rank_rows"],
-                  frame_rd=main["frame_rd_rows"],
-                  frame_wr=main["frame_wr_rows"], pops=main["pops"])
-    mb_ms, _ = bound_ms(main_c)
     def path_bound(st):
         return bound_ms(dict(io_bytes=0, rank_rows=st["rank_rows"],
                              frame_rd=st["frame_rd_rows"],
                              frame_wr=st["frame_wr_rows"],
+                             root_rd=st.get("root_rows", 0),
                              pops=st["pops"]))[0]
 
+    b_ms, b_by = bound_ms(c)
     fb_ms, fb_by = bound_ms(cf)
+    sb_ms, sb_by = bound_ms(c3)
+    seeded_lines = (cmps_of("fixed_search_seeded")
+                    + cmps_of("ring_search_seeded"))
     src = "bwbble_tpu_torch/csrc/ring_search.cu"
     print(card, flush=True)
     print(json.dumps({"kernels": [{
@@ -661,7 +941,7 @@ def main() -> int:
         "bound_by": b_by, "library_ms": None,
         # the same kernel over the main path's timed run (all launches)
         "main_path_ms": stats.get("t_search", 0.0) * 1e3,
-        "main_path_bound_ms": mb_ms,
+        "main_path_bound_ms": path_bound(stats),
         # the 4-letter instantiation over the queued run of the single path
         "single_path_launches": q_launches["ring_search"],
         "single_path_ms": q_stats.get("t_search", 0.0) * 1e3,
@@ -689,6 +969,30 @@ def main() -> int:
         "single_path_ms": s_stats.get("t_search", 0.0) * 1e3,
         "single_path_bound_ms": path_bound(s_stats),
         "comparisons": cmps_of("fixed_search"),
+    }, {
+        # K3's work: seeded roots in both entries of the same template
+        "name": "seeded_search", "route": "cuda", "source": src,
+        "replaces": "bwbble_tpu/engine/kernel.py:436 _kernel_body",
+        "replaces_name": "_kernel_body (pallas_call :2203 in run_loop "
+                         ":1978, seeded roots :2154-2162)",
+        "entries": ["fixed_search_seeded", "ring_search_seeded"],
+        "instantiations": ["<multiref, fixed>", "<multiref, ring>",
+                           "<single, fixed>", "<single, ring>"],
+        # pre_path's timed run: its fixed batches
+        "launches": pr_launches["fixed_search_seeded"],
+        "max_abs_err": max(x["err"] for x in cmps
+                           if x["line"]["entry"].endswith("_seeded")),
+        "equal_to_plain": all(x["equal_to_plain"] for x in seeded_lines),
+        # comparison (c), pre_path's fixed batch of 8 192 lanes
+        "reads": c3["reads"],
+        "ms": c3["ms"], "plain_ms": c3["plain_ms"], "bound_ms": sb_ms,
+        "bound_by": sb_by, "library_ms": None,
+        "pre_path_ms": pr_stats.get("t_search", 0.0) * 1e3,
+        "pre_path_bound_ms": path_bound(pr_stats),
+        "pre_path_queued_launches": pq_launches["ring_search_seeded"],
+        "pre_path_queued_ms": pq_stats.get("t_search", 0.0) * 1e3,
+        "pre_path_queued_bound_ms": path_bound(pq_stats),
+        "comparisons": seeded_lines,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -18,7 +18,7 @@ from bwbble_tpu_torch.align.params import AlnParams
 from bwbble_tpu_torch.engine import kernel
 from bwbble_tpu_torch.engine.dbound import calc_d
 from bwbble_tpu_torch.engine.device_index import from_arrays, from_fmindex
-from bwbble_tpu_torch.engine.inexact import (EngineConfig, inexact_search,
+from bwbble_tpu_torch.engine.inexact import (EngineConfig,
                                              inexact_search_queued)
 from bwbble_tpu_torch.engine.pipeline import align_reads_device
 
@@ -88,7 +88,7 @@ def test_default_device_raises_without_cuda(small):
 
 def test_kernel_wrapper_never_runs_the_plain_version(small):
     """The kernels' wrappers launch or raise: given CPU tensors they refuse,
-    they do not fall back."""
+    seeded or not; they do not fall back."""
     idx, reads = small
     didx = from_fmindex(idx, device="cpu")
     ln = torch.from_numpy(reads.lengths.astype(np.int32))
@@ -96,47 +96,46 @@ def test_kernel_wrapper_never_runs_the_plain_version(small):
     D = torch.zeros((reads.count, reads.max_len + 1, 2), dtype=torch.int32)
     Ds = torch.zeros((reads.count, 33, 2), dtype=torch.int32)
     before = dict(kernel.LAUNCHES)
-    assert set(before) == {"ring_search", "fixed_search"}
+    assert set(before) == {"ring_search", "fixed_search",
+                           "ring_search_seeded", "fixed_search_seeded"}
+    seeds = (torch.zeros((reads.count, 4), dtype=torch.int32),
+             torch.zeros((reads.count, 4), dtype=torch.int32),
+             torch.ones((reads.count,), dtype=torch.int32))
     for multiref in (True, False):
-        p = AlnParams(max_diff=1, is_multiref=multiref)
-        with pytest.raises(ValueError, match="CUDA"):
-            kernel.ring_search(didx, rc, ln, D, Ds, p, EngineConfig(cap=512),
-                               lanes=4)
-        with pytest.raises(ValueError, match="CUDA"):
-            kernel.fixed_search(didx, rc, ln, D, Ds, p,
-                                EngineConfig(cap=512))
+        p = AlnParams(max_diff=1, is_multiref=multiref, precalc_len=4,
+                      use_precalc=True)
+        for sd in (None, seeds):
+            with pytest.raises(ValueError, match="CUDA"):
+                kernel.ring_search(didx, rc, ln, D, Ds, p,
+                                   EngineConfig(cap=512), lanes=4, seeds=sd)
+            with pytest.raises(ValueError, match="CUDA"):
+                kernel.fixed_search(didx, rc, ln, D, Ds, p,
+                                    EngineConfig(cap=512), seeds=sd)
     assert kernel.LAUNCHES == before
 
 
 def test_unported_paths_raise_not_implemented(small, tmp_path):
+    """What is still to port raises: device meshes, `--mesh`/`--dist` and
+    the int64 layout.  (`-P` seeding is ported: tests/test_torch_precalc.py;
+    a seed table without params.use_precalc, or the flag without a table,
+    is refused.)"""
     idx, reads = small
     didx = from_fmindex(idx, device="cpu")
     cfg = EngineConfig(cap=512)
     for queued in (False, True):
-        with pytest.raises(NotImplementedError, match="-P"):
-            align_reads_device(idx, didx, reads,
-                               AlnParams(max_diff=1, use_precalc=True), cfg,
-                               queued=queued, device="cpu")
         with pytest.raises(NotImplementedError, match="mesh"):
             align_reads_device(idx, didx, reads, AlnParams(max_diff=1), cfg,
                                queued=queued, mesh=object(), device="cpu")
-    ln = reads.lengths.astype(np.int32)
-    seeds = torch.zeros((reads.count, 4), dtype=torch.int32)
-    D = torch.zeros((reads.count, reads.max_len + 1, 2), dtype=torch.int32)
-    Ds = torch.zeros((reads.count, 33, 2), dtype=torch.int32)
-    for search, kw in ((inexact_search, {}),
-                       (inexact_search_queued, {"lanes": 4})):
-        with pytest.raises(NotImplementedError, match="-P"):
-            search(didx, np.asarray(reads.rc, dtype=np.int8), ln, D, Ds,
-                   AlnParams(max_diff=1), cfg, seed_L=seeds, seed_U=seeds,
-                   seed_cnt=torch.zeros(reads.count, dtype=torch.int32),
-                   device="cpu", **kw)
+        with pytest.raises(ValueError, match="use_precalc"):
+            align_reads_device(idx, didx, reads,
+                               AlnParams(max_diff=1, use_precalc=True), cfg,
+                               queued=queued, device="cpu")
     # the int64 whole-genome layout: 48-word rows, or 2^31 positions
     with pytest.raises(NotImplementedError, match="int64"):
         from_arrays(np.zeros((4, 48), dtype=np.int32), np.zeros(17),
                     np.zeros(1), 400, 0, device="cpu")
-    # CLI: -P, --mesh and --dist raise before anything is read
-    for flag in (["-P"], ["--mesh", "2"], ["--dist", "localhost:1,1,0"]):
+    # CLI: --mesh and --dist raise before anything is read
+    for flag in (["--mesh", "2"], ["--dist", "localhost:1,1,0"]):
         with pytest.raises(NotImplementedError, match=flag[0]):
             cli.main(["align", *flag, "--device", "cpu", "g.fa", "r.fq",
                       str(tmp_path / "o.aln")])

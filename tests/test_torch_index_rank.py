@@ -129,6 +129,12 @@ def test_kernel_alphabet_formulas_match_constants():
     p4 = AlnParams(max_diff=2, is_multiref=False)
     s16 = TI.ring_statics(AlnParams(max_diff=2), TI.EngineConfig(), 100, 33)
     s4 = TI.ring_statics(p4, TI.EngineConfig(), 100, 33)
-    assert (s16.NC, s16.NSLOT, s16.ROWW) == (11, 23, 128) and TI.NROOT == 1
+    assert (s16.NC, s16.NSLOT, s16.ROWW) == (11, 23, 128) and s16.NROOT == 1
+    assert not s16.seeded and s16.PK == 0
+    # a seeded launch: NROOT root rows a read come off the frame budget
+    s32 = TI.ring_statics(AlnParams(max_diff=2), TI.EngineConfig(), 100, 33,
+                          seed_slots=32)
+    assert (s32.seeded, s32.NROOT, s32.PK) == (True, 32, 12)
+    assert s32.NFRAME == (32768 - 32) // 23 - 1 == s16.NFRAME - 1
     assert (s4.NC, s4.NSLOT, s4.ROWW) == (4, 9, 40)
     assert s4.NSLOT * 4 + 1 <= s4.ROWW and s4.ROWW % 4 == 0
