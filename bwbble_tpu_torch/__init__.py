@@ -8,13 +8,15 @@ for module, so each counterpart is found under the same name:
 - host side (Python + C++): the sequence/file-format codecs (`.ann`, `.ref`,
   `.bwt`, `.aln`, SAM), SA-IS index construction and the gold search engine
   are copies of the JAX-free modules, byte-compatible by construction;
-- device side (`engine/`): the int32 device FM-index, batched rank ops,
-  interval lists, D bounds, exact search, the ring-queue inexact search and
-  the queued alignment pipeline as plain functions on torch tensors with an
-  explicit `device` argument (None means CUDA; without a CUDA device the
-  entry points raise, they never carry on on the CPU by themselves);
+- device side (`engine/`): the device FM-index (int32, and the int64
+  whole-genome layout), batched rank ops, interval lists, D bounds, exact
+  search, the inexact search (fixed batches and the ring queue) and the
+  alignment pipeline as plain functions on torch tensors with an explicit
+  `device` argument (None means CUDA; without a CUDA device the entry points
+  raise, they never carry on on the CPU by themselves);
+- `benchmarks/`: the row-fetch probes the kernel design rests on;
 - `csrc/`: hand-written CUDA C++ kernels, built at first use with nvcc and
-  bound through ctypes (`engine/kernel.py`).
+  bound through ctypes (`engine/kernel.py`, `benchmarks/kernels.py`).
 
 Nothing here imports jax or the JAX package.
 """

@@ -106,6 +106,7 @@ def build_precalc_device(idx, didx, params, k: int = PRECALC_LEN,
 
     dev = index_device(didx, device)
     I32 = torch.int32
+    IDT = didx.idt                     # interval type of the index layout
 
     def extend_batched(Ls, Us, cnt, c):
         """Extend [N, K] lists by per-entry base c, in sub-batches; an
@@ -124,8 +125,8 @@ def build_precalc_device(idx, didx, params, k: int = PRECALC_LEN,
         return tuple(t.cpu().numpy() for t in ts)
 
     # level 1: the four single-base lists from the full range
-    Ls = torch.zeros((1, K), dtype=I32, device=dev)
-    Us = torch.full((1, K), -1, dtype=I32, device=dev)
+    Ls = torch.zeros((1, K), dtype=IDT, device=dev)
+    Us = torch.full((1, K), -1, dtype=IDT, device=dev)
     Us[0, 0] = int(idx.length) - 1
     cnt = torch.ones((1,), dtype=I32, device=dev)
     over = torch.zeros((1,), dtype=torch.bool, device=dev)
@@ -296,7 +297,8 @@ def load_or_build_precalc(idx, params, path: str, engine: str = "device",
             table = build_precalc_gold(idx, params, k=k)
         else:
             from bwbble_tpu_torch.engine.device_index import from_fmindex
-            table = build_precalc_device(idx, from_fmindex(idx, device),
+            table = build_precalc_device(idx,
+                                         from_fmindex(idx, device=device),
                                          params, k=k, device=device)
         store_pre(path, table)
         return table

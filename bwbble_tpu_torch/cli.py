@@ -175,9 +175,10 @@ def cmd_align(argv: list[str]) -> int:
 
 def device_sa_resolver(idx, device=None):
     """rows -> text positions through lockstep invPsi walks on the device
-    (engine/rank.py:sa_resolve; reference hot path bwt.c:320-329).  `device`
-    None means CUDA, and without one this raises: there is no fallback to
-    the host loop."""
+    (engine/rank.py:sa_resolve; reference hot path bwt.c:320-329), in the
+    index's own layout (int64 from 2^31 positions).  `device` None means
+    CUDA, and without one this raises: there is no fallback to the host
+    loop."""
     import torch
 
     from bwbble_tpu_torch.engine.device_index import from_fmindex
@@ -188,7 +189,7 @@ def device_sa_resolver(idx, device=None):
         rows = np.asarray(rows, dtype=np.int64)
         if rows.shape[0] == 0:
             return rows
-        out = sa_resolve(didx, torch.from_numpy(rows.astype(np.int32)))
+        out = sa_resolve(didx, torch.from_numpy(rows).to(didx.idt))
         return out.cpu().numpy().astype(np.int64)
     return resolve
 

@@ -1,7 +1,8 @@
 // ring_search.cu — the inexact search as one CUDA kernel, in two launch
-// modes (ring queue, fixed batch) and for two alphabets (the 16-letter
-// multi-genome, the 4-letter single genome of `-S`): four instantiations of
-// one template.
+// modes (ring queue, fixed batch), for two alphabets (the 16-letter
+// multi-genome, the 4-letter single genome of `-S`) and for two index
+// layouts (int32; int64, the whole-genome layout, in fixed mode only): six
+// instantiations of one template.
 //
 // Replaces: bwbble_tpu/engine/kernel.py:_resident_kernel, in ring mode
 // (driven by run_loop_resident_queued) and in fixed-batch mode (driven by
@@ -49,6 +50,16 @@
 // lane's loads are not overlapped with one another.  Warp-wide lanes, coalesced row reads, shared
 // memory and more lanes are left to later work.
 //
+// The int64 layout (IT = long long; fixed batches only, as in the JAX
+// package).  The index table's rows are 48 words (192 bytes): the 16 plane
+// words, the low and then the high 32 bits of the 16 checkpoint counts, so
+// a rank is still one row read, and forms 64-bit counts.  C, the length,
+// the frame's L/U, the exact-completion lists, D, D_seed, the seed
+// intervals and the reported alignments are 64-bit; a frame slot is 6
+// words (L and U low word first, then meta1, meta2), so frame rows are
+// NSLOT * 6 + 1 words padded to a multiple of 4 (140 and 56).  Nothing else
+// moves: exploration order is the contract.
+//
 // Seeded roots.  Given seed_L/seed_U [Q, NROOT] and seed_cnt [Q], read r's
 // root s < scnt is (seed_L[r][s], seed_U[r][s]) at i = len - PK with a
 // PK-long all-match path, linked to root s - 1 in bucket 0 (links are stored
@@ -70,6 +81,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <string.h>
+#include <type_traits>
 #include <utility>
 
 #define RS_WARP 32           // threads per lane: each lane owns a warp
@@ -94,6 +106,20 @@ struct RSParams {
     int NB, NFRAME, ACAP, XC, PATHCAP, max_iters;
     int Q, Lmax, DS, LEN, lanes, PW;
     int NROOT, PK;           // root rows a read; seed length (seeded only)
+    int LEN_HI;              // high 32 bits of the length (int64 layout)
+};
+
+// The index layout: IT is the type of positions, counts and intervals.
+template <typename IT>
+struct Layout {
+    static constexpr bool X64 = sizeof(IT) == 8;
+    static constexpr int TW = X64 ? 48 : 32;      // table words a row
+    static constexpr int NW = X64 ? 6 : 4;        // frame words a node
+    __host__ __device__ static IT length(const RSParams& P) {
+        return X64 ? (IT)(((unsigned long long)(uint32_t)P.LEN_HI << 32)
+                          | (uint32_t)P.LEN)
+                   : (IT)P.LEN;
+    }
 };
 
 // ---- alphabet tables, derived from the Gray-code definition (constants.py)
@@ -132,13 +158,17 @@ __device__ __forceinline__ void static_for(
     (f(std::integral_constant<int, T>{}), ...);
 }
 
-// The alphabet a node expands over, in slot order.
-template <bool MULTI>
+// The alphabet a node expands over, in slot order, and the frame row of an
+// index layout with NW words a node.
+template <bool MULTI, int NW = 4>
 struct Alpha {
     static constexpr int NC = MULTI ? 11 : 4;     // expanded codes
     static constexpr int NSLOT = 1 + 2 * NC;      // insertion, dels, matches
-    static constexpr int ROWW = MULTI ? 128 : 40; // int32 words a frame row
-    static constexpr int PARENT = NSLOT * 4;      // word of the parent id
+    // int32 words a frame row: NSLOT * NW + 1, padded to a multiple of 4
+    // (the int32 layout keeps its 128 and 40)
+    static constexpr int ROWW =
+        NW == 4 ? (MULTI ? 128 : 40) : (NSLOT * NW + 1 + 3) / 4 * 4;
+    static constexpr int PARENT = NSLOT * NW;     // word of the parent id
     // the t-th code: the non-skipped IUPAC codes in increasing order, or
     // the pure bases A, G, C, T
     __host__ __device__ static constexpr int code(int t) {
@@ -166,11 +196,11 @@ __device__ __forceinline__ uint32_t pack1(int i, int mm, int go, int ge,
 // (engine/rank.py:_rank_all).  DFS = the inexact-search variant: skipped
 // codes return C + inc - first_dec without counts.  Returns the number of
 // table rows read (0 on the i < 0 and i == LEN-1 edge paths).
-template <bool DFS>
+template <bool DFS, typename IT>
 __device__ __forceinline__ int rank16(const int32_t* __restrict__ table,
-                                      const int* carr, int LEN, int i,
-                                      int inc, uint32_t need, int out[16]) {
-    const int len_m1 = LEN - 1;
+                                      const IT* carr, IT LEN, IT i,
+                                      int inc, uint32_t need, IT out[16]) {
+    const IT len_m1 = LEN - 1;
     if (i == len_m1) {
 #pragma unroll
         for (int j = 1; j < 16; j++) out[j] = carr[j + 1] + inc;
@@ -183,12 +213,14 @@ __device__ __forceinline__ int rank16(const int32_t* __restrict__ table,
         out[0] = 0;
         return 0;
     }
-    int hi = len_m1 - 1 > 0 ? len_m1 - 1 : 0;
-    int ic = i < hi ? i : hi;
-    int k = ic >> 7, off = ic & 127;
-    const int4* row = reinterpret_cast<const int4*>(table + (size_t)k * 32);
+    const IT hi = len_m1 - 1 > 0 ? len_m1 - 1 : 0;
+    const IT ic = i < hi ? i : hi;
+    const size_t k = (size_t)(ic >> 7);
+    const int off = (int)(ic & 127);
+    const int4* row = reinterpret_cast<const int4*>(
+        table + k * Layout<IT>::TW);
     uint32_t pl[4][4];
-    int ck[16];
+    IT ck[16];
 #pragma unroll
     for (int t = 0; t < 4; t++) {
         int4 v = __ldg(row + t);
@@ -198,8 +230,17 @@ __device__ __forceinline__ int rank16(const int32_t* __restrict__ table,
 #pragma unroll
     for (int t = 0; t < 4; t++) {
         int4 v = __ldg(row + 4 + t);
-        ck[4 * t] = v.x; ck[4 * t + 1] = v.y;
-        ck[4 * t + 2] = v.z; ck[4 * t + 3] = v.w;
+        if constexpr (Layout<IT>::X64) {
+            // counts = high word << 32 | low word (uint32 bits)
+            int4 h = __ldg(row + 8 + t);
+            ck[4 * t] = ((IT)h.x << 32) | (uint32_t)v.x;
+            ck[4 * t + 1] = ((IT)h.y << 32) | (uint32_t)v.y;
+            ck[4 * t + 2] = ((IT)h.z << 32) | (uint32_t)v.z;
+            ck[4 * t + 3] = ((IT)h.w << 32) | (uint32_t)v.w;
+        } else {
+            ck[4 * t] = v.x; ck[4 * t + 1] = v.y;
+            ck[4 * t + 2] = v.z; ck[4 * t + 3] = v.w;
+        }
     }
     uint32_t mask[4];
 #pragma unroll
@@ -213,7 +254,7 @@ __device__ __forceinline__ int rank16(const int32_t* __restrict__ table,
 #pragma unroll
     for (int j = 1; j < 16; j++) {
         if (!((need >> j) & 1u)) continue;
-        int val = carr[j] + inc - (first == j ? 1 : 0);
+        IT val = carr[j] + inc - (first == j ? 1 : 0);
         if (!(DFS && is_skipped(j))) {
             int cnt = 0;
 #pragma unroll
@@ -233,17 +274,19 @@ __device__ __forceinline__ int rank16(const int32_t* __restrict__ table,
 }
 
 // Per-read search state that emission updates.
+template <typename IT>
 struct ReadState {
-    int n_alns, overflow, best_score, max_diff, num_best;
+    int n_alns, overflow, best_score, max_diff;
+    IT num_best;
 };
 
 // emit_alns of engine/inexact.py (inexact_match.c:331-375 and
 // add_alignment's gap dedup, align.c:271-298) for `cnt` intervals read
 // through getL/getU.  Returns true when the read is finished (max_best stop
 // or ACAP overflow).
-template <typename GetLU>
-__device__ __forceinline__ bool emit_alns(const RSParams& P, ReadState& S,
-                                          int32_t* oA, int node, uint32_t m1,
+template <typename IT, typename GetLU>
+__device__ __forceinline__ bool emit_alns(const RSParams& P, ReadState<IT>& S,
+                                          IT* oA, int node, uint32_t m1,
                                           uint32_t m2, int cnt, int extra_m,
                                           GetLU get) {
     const int mm = (m1 >> 8) & 0x1F, go = (m1 >> 13) & 0x7,
@@ -255,19 +298,22 @@ __device__ __forceinline__ bool emit_alns(const RSParams& P, ReadState& S,
         int nb = mm + go + ge + 1;
         S.max_diff = nb < P.p_maxdiff ? nb : P.p_maxdiff;
     }
-    uint32_t width = 0;
+    // wrapping sums in the index's type (int32 wraps as the JAX package's
+    // int32 sum does)
+    typedef typename std::make_unsigned<IT>::type UT;
+    UT width = 0;
     for (int s = 0; s < cnt; s++) {
-        int L, U;
+        IT L, U;
         get(s, L, U);
-        width += (uint32_t)(U - L + 1);
+        width += (UT)(U - L + 1);
     }
     const bool is_best = score == S.best_score;
-    const int old_nb = S.num_best;
-    if (is_best) S.num_best = (int)((uint32_t)S.num_best + width);
+    const IT old_nb = S.num_best;
+    if (is_best) S.num_best = (IT)((UT)S.num_best + width);
     if (!is_best && old_nb > P.p_maxbest) return true;   // stop this read
     const int A = P.ACAP;
     for (int s = 0; s < cnt; s++) {
-        int L, U;
+        IT L, U;
         get(s, L, U);
         if (go > 0) {
             bool dup = false;
@@ -288,44 +334,47 @@ __device__ __forceinline__ bool emit_alns(const RSParams& P, ReadState& S,
     return false;
 }
 
-template <bool MULTI, bool FIXED>
+template <bool MULTI, bool FIXED, typename IT>
 __global__ void ring_search_kernel(
         RSParams P, const int32_t* __restrict__ table,
-        const int32_t* __restrict__ carr_g, const int8_t* __restrict__ rc,
-        const int32_t* __restrict__ lens, const int32_t* __restrict__ D,
-        const int32_t* __restrict__ Ds, const int32_t* __restrict__ seed_L,
-        const int32_t* __restrict__ seed_U,
+        const IT* __restrict__ carr_g, const int8_t* __restrict__ rc,
+        const int32_t* __restrict__ lens, const IT* __restrict__ D,
+        const IT* __restrict__ Ds, const IT* __restrict__ seed_L,
+        const IT* __restrict__ seed_U,
         const int32_t* __restrict__ seed_cnt, int32_t* __restrict__ arena,
-        int32_t* __restrict__ xlist, int32_t* counter,
-        int32_t* __restrict__ q_alns, int32_t* __restrict__ q_meta,
+        IT* __restrict__ xlist, int32_t* counter,
+        IT* __restrict__ q_alns, int32_t* __restrict__ q_meta,
         uint8_t* __restrict__ q_paths) {
     const int gtid = blockIdx.x * blockDim.x + threadIdx.x;
     if (gtid % RS_WARP != 0) return;
     const int lane = gtid / RS_WARP;
     if (lane >= P.lanes) return;
 
-    int carr[17];
+    IT carr[17];
 #pragma unroll
     for (int j = 0; j < 17; j++) carr[j] = carr_g[j];
 
     extern __shared__ int head_smem[];        // [RS_BLOCK_LANES][NB]
     int* const head = head_smem + (threadIdx.x / RS_WARP) * P.NB;
-    typedef Alpha<MULTI> AL;
-    constexpr int ROWW = AL::ROWW, NSLOT = AL::NSLOT, NC = AL::NC;
+    typedef Layout<IT> LY;
+    typedef Alpha<MULTI, LY::NW> AL;
+    constexpr int ROWW = AL::ROWW, NSLOT = AL::NSLOT, NC = AL::NC,
+                  NW = LY::NW;
     int32_t* const A = arena + (size_t)lane * P.NFRAME * ROWW;
-    int32_t* const X = xlist + (size_t)lane * 4 * P.XC;   // [2][XC][L,U]
-    const int NB = P.NB, Lmax = P.Lmax, LEN = P.LEN, NROOT = P.NROOT;
+    IT* const X = xlist + (size_t)lane * 4 * P.XC;        // [2][XC][L,U]
+    const int NB = P.NB, Lmax = P.Lmax, NROOT = P.NROOT;
+    const IT LEN = LY::length(P);
     const bool seeded = seed_cnt != nullptr;
 
     for (int rid = FIXED ? lane : atomicAdd(counter, 1); rid < P.Q;
          rid = FIXED ? P.Q : atomicAdd(counter, 1)) {
         const int rlen = lens[rid];
         const int8_t* rcr = rc + (size_t)rid * Lmax;
-        const int32_t* Dr = D + (size_t)rid * (Lmax + 1) * 2;
-        const int32_t* Dsr = Ds + (size_t)rid * P.DS * 2;
-        int32_t* oA = q_alns + (size_t)rid * 7 * P.ACAP;
+        const IT* Dr = D + (size_t)rid * (Lmax + 1) * 2;
+        const IT* Dsr = Ds + (size_t)rid * P.DS * 2;
+        IT* oA = q_alns + (size_t)rid * 7 * P.ACAP;
 
-        ReadState S;
+        ReadState<IT> S;
         S.n_alns = 0; S.overflow = 0; S.best_score = NB;
         S.max_diff = P.p_maxdiff; S.num_best = 0;
         int work = 0, rank_rows = 0, frame_rd = 0, frame_wr = 0, pf = 0,
@@ -366,7 +415,7 @@ __global__ void ring_search_kernel(
             if (minb >= NB) break;
             const int bucket = minb;
             const int node = head[bucket];
-            int eL, eU;
+            IT eL, eU;
             uint32_t m1, m2;
             if (node < NROOT && seeded) {
                 const size_t r = (size_t)rid * NROOT + node;
@@ -381,9 +430,17 @@ __global__ void ring_search_kernel(
             } else {
                 int nn = node - NROOT;
                 int f = nn / NSLOT, s = nn - f * NSLOT;
-                int4 v = *reinterpret_cast<const int4*>(
-                    A + (size_t)f * ROWW + 4 * s);
-                eL = v.x; eU = v.y; m1 = (uint32_t)v.z; m2 = (uint32_t)v.w;
+                const int32_t* sp = A + (size_t)f * ROWW + NW * s;
+                if constexpr (LY::X64) {
+                    eL = *reinterpret_cast<const long long*>(sp);
+                    eU = *reinterpret_cast<const long long*>(sp + 2);
+                    const int2 mm = *reinterpret_cast<const int2*>(sp + 4);
+                    m1 = (uint32_t)mm.x; m2 = (uint32_t)mm.y;
+                } else {
+                    int4 v = *reinterpret_cast<const int4*>(sp);
+                    eL = v.x; eU = v.y; m1 = (uint32_t)v.z;
+                    m2 = (uint32_t)v.w;
+                }
                 frame_rd++;
             }
             head[bucket] = (int)((m2 >> 8) & 0xFFFFFFu) - 1;   // 24-bit link
@@ -409,10 +466,10 @@ __global__ void ring_search_kernel(
             auto sclip = [&](int t) {
                 return t < 0 ? 0 : (t > P.DS - 1 ? P.DS - 1 : t);
             };
-            const int D1n = Dr[dclip(ei - 1) * 2];
+            const IT D1n = Dr[dclip(ei - 1) * 2];
             const int dls = P.p_maxdiffseed - emm - ego - ege;
             const int seed_index = ei - (rlen - P.p_seedlen);
-            const int S1n = Dsr[sclip(seed_index - 1) * 2];
+            const IT S1n = Dsr[sclip(seed_index - 1) * 2];
             bool cont = diff_left < 0;
             cont |= (ei > 0) && (diff_left < D1n);
             cont |= (seed_index > 0) && (dls < S1n);
@@ -421,7 +478,7 @@ __global__ void ring_search_kernel(
             // hit at i == 0 (inexact_match.c:332-344)
             if (ei == 0) {
                 bool fin = emit_alns(P, S, oA, node, m1, m2, 1, 0,
-                                     [&](int, int& L, int& U) {
+                                     [&](int, IT& L, IT& U) {
                                          L = eL; U = eU;
                                      });
                 if (fin) break;
@@ -438,8 +495,8 @@ __global__ void ring_search_kernel(
                     S.overflow |= OV_FRAMES;
                     break;
                 }
-                int32_t* cur = X;
-                int32_t* nxt = X + 2 * P.XC;
+                IT* cur = X;
+                IT* nxt = X + 2 * P.XC;
                 cur[0] = eL; cur[1] = eU;
                 int cnt = 1;
                 int over = 0;
@@ -458,9 +515,10 @@ __global__ void ring_search_kernel(
                         if ((gray_val(q) & bm) && !is_order_n(q)
                                 && (MULTI || gray_val(q) == bm))
                             need |= 1u << q;
-                    int ncnt = 0, tailU = -2;
+                    int ncnt = 0;
+                    IT tailU = -2;
                     for (int s = 0; s < cnt && !over; s++) {
-                        int occL[16], occU[16];
+                        IT occL[16], occU[16];
                         rank_rows += rank16<false>(table, carr, LEN,
                                                    cur[2 * s] - 1, 1, need,
                                                    occL);
@@ -470,7 +528,7 @@ __global__ void ring_search_kernel(
 #pragma unroll
                         for (int q = 1; q < 16; q++) {
                             if (!((need >> q) & 1u)) continue;
-                            int L = occL[q], U = occU[q];
+                            IT L = occL[q], U = occU[q];
                             if (L > U || over) continue;
                             if (ncnt > 0 && L == tailU + 1) {
                                 nxt[2 * (ncnt - 1) + 1] = U;
@@ -485,16 +543,16 @@ __global__ void ring_search_kernel(
                         }
                     }
                     if (over) break;
-                    int32_t* t = cur; cur = nxt; nxt = t;
+                    IT* t = cur; cur = nxt; nxt = t;
                     cnt = ncnt;
                 }
                 if (over) { S.overflow |= over; break; }
                 if (cnt > 0) {
                     // the scan consumed ei chars: the path extends by ei
                     // implicit matches (inexact_match.c:365)
-                    const int32_t* lst = cur;
+                    const IT* lst = cur;
                     bool fin = emit_alns(P, S, oA, node, m1, m2, cnt, ei,
-                                         [&](int s, int& L, int& U) {
+                                         [&](int s, IT& L, IT& U) {
                                              L = lst[2 * s];
                                              U = lst[2 * s + 1];
                                          });
@@ -507,17 +565,17 @@ __global__ void ring_search_kernel(
             // (the DFS rank variant differs from the exact one on skipped
             // codes only, and a single genome expands none)
             constexpr uint32_t need_dfs = AL::mask();
-            int Lv[16], Uv[16];
+            IT Lv[16], Uv[16];
             rank_rows += rank16<MULTI>(table, carr, LEN, eL - 1, 1, need_dfs,
                                        Lv);
             rank_rows += rank16<MULTI>(table, carr, LEN, eU, 0, need_dfs, Uv);
 
-            const int D2n = Dr[dclip(ei - 2) * 2];
-            const int D1w = Dr[dclip(ei - 1) * 2 + 1];
-            const int D2w = Dr[dclip(ei - 2) * 2 + 1];
-            const int S2n = Dsr[sclip(seed_index - 2) * 2];
-            const int S1w = Dsr[sclip(seed_index - 1) * 2 + 1];
-            const int S2w = Dsr[sclip(seed_index - 2) * 2 + 1];
+            const IT D2n = Dr[dclip(ei - 2) * 2];
+            const IT D1w = Dr[dclip(ei - 1) * 2 + 1];
+            const IT D2w = Dr[dclip(ei - 2) * 2 + 1];
+            const IT S2n = Dsr[sclip(seed_index - 2) * 2];
+            const IT S1w = Dsr[sclip(seed_index - 1) * 2 + 1];
+            const IT S2w = Dsr[sclip(seed_index - 2) * 2 + 1];
             bool allow_diff = true, allow_mm = true;
             const bool pm = ei - 1 > 0;
             const bool ad1 = diff_left - 1 < D2n;
@@ -551,15 +609,23 @@ __global__ void ring_search_kernel(
             // buckets (inexact_match.c:510-610)
             int32_t* frow = A + (size_t)myf * ROWW;
             int total = 0;
-            auto push = [&](int s, int L, int U, uint32_t cm1, int snp) {
+            auto push = [&](int s, IT L, IT U, uint32_t cm1, int snp) {
                 int sc = ((cm1 >> 8) & 0x1F) * P.p_mm
                        + ((cm1 >> 13) & 0x7) * P.p_go
                        + ((cm1 >> 16) & 0xF) * P.p_ge;
                 int b = sc < 0 ? 0 : (sc > NB - 1 ? NB - 1 : sc);
                 uint32_t cm2 = ((uint32_t)snp & 0xFFu)
                              | ((uint32_t)(head[b] + 1) << 8);
-                *reinterpret_cast<int4*>(frow + 4 * s) =
-                    make_int4(L, U, (int)cm1, (int)cm2);
+                if constexpr (LY::X64) {
+                    int32_t* sp = frow + NW * s;
+                    *reinterpret_cast<long long*>(sp) = L;
+                    *reinterpret_cast<long long*>(sp + 2) = U;
+                    *reinterpret_cast<int2*>(sp + 4) =
+                        make_int2((int)cm1, (int)cm2);
+                } else {
+                    *reinterpret_cast<int4*>(frow + 4 * s) =
+                        make_int4(L, U, (int)cm1, (int)cm2);
+                }
                 head[b] = base + s;
                 if (b < minb) minb = b;
                 total++;
@@ -621,7 +687,7 @@ __global__ void ring_search_kernel(
         if (!S.overflow) {
             for (int k = 0; k < S.n_alns; k++) {
                 uint8_t* pp = q_paths + ((size_t)rid * P.ACAP + k) * P.PW;
-                int cur = oA[4 * P.ACAP + k];
+                int cur = (int)oA[4 * P.ACAP + k];
                 int t = 0;
                 uint32_t acc = 0;
                 while (t < P.PATHCAP && cur >= NROOT) {
@@ -652,7 +718,7 @@ extern "C" int ring_search_num_params() {
 
 extern "C" int ring_search_num_meta() { return RS_NMETA; }
 
-template <bool MULTI, bool FIXED>
+template <bool MULTI, bool FIXED, typename IT>
 static int launch(const RSParams& P, size_t smem, const void* table,
                   const void* carr, const void* rc, const void* lens,
                   const void* D, const void* Ds, const void* sL,
@@ -661,30 +727,37 @@ static int launch(const RSParams& P, size_t smem, const void* table,
                   void* stream) {
     const int threads = RS_BLOCK_LANES * RS_WARP;
     const int blocks = (P.lanes + RS_BLOCK_LANES - 1) / RS_BLOCK_LANES;
-    ring_search_kernel<MULTI, FIXED>
+    ring_search_kernel<MULTI, FIXED, IT>
         <<<blocks, threads, smem, (cudaStream_t)stream>>>(
-        P, (const int32_t*)table, (const int32_t*)carr, (const int8_t*)rc,
-        (const int32_t*)lens, (const int32_t*)D, (const int32_t*)Ds,
-        (const int32_t*)sL, (const int32_t*)sU, (const int32_t*)scnt,
-        (int32_t*)arena, (int32_t*)xlist, (int32_t*)counter,
-        (int32_t*)q_alns, (int32_t*)q_meta, (uint8_t*)q_paths);
+        P, (const int32_t*)table, (const IT*)carr, (const int8_t*)rc,
+        (const int32_t*)lens, (const IT*)D, (const IT*)Ds,
+        (const IT*)sL, (const IT*)sU, (const int32_t*)scnt,
+        (int32_t*)arena, (IT*)xlist, (int32_t*)counter,
+        (IT*)q_alns, (int32_t*)q_meta, (uint8_t*)q_paths);
     return (int)cudaGetLastError();
 }
 
-// Frame-row width in int32 words for an alphabet, for the wrapper's arena.
-extern "C" int ring_search_row_words(int multiref) {
+// Frame-row width in int32 words for an alphabet and an index layout, for
+// the wrapper's arena.
+extern "C" int ring_search_row_words(int multiref, int x64) {
+    if (x64)
+        return multiref ? Alpha<true, 6>::ROWW : Alpha<false, 6>::ROWW;
     return multiref ? Alpha<true>::ROWW : Alpha<false>::ROWW;
 }
 
 // Launches on `stream`; returns cudaGetLastError() (0 on success), or -1
 // when the parameter block does not match RSParams, the bucket heads do not
-// fit a block's shared memory, a fixed launch has not one lane per read, or
-// the seeds are given in part or with NROOT < 1.  `multiref` picks the
-// alphabet, `fixed` the launch mode (`counter` is not read then); seed_L,
-// seed_U and seed_cnt are all null (one unseeded root, NROOT = 1) or all
-// given ([Q, NROOT], [Q, NROOT], [Q] int32).
+// fit a block's shared memory, a fixed launch has not one lane per read,
+// the seeds are given in part or with NROOT < 1, or the int64 layout is
+// asked of a ring launch.  `multiref` picks the alphabet, `fixed` the
+// launch mode (`counter` is not read then), `x64` the index layout (carr,
+// D, Ds, the seed intervals, xlist and q_alns are int64 then, the table
+// has 48 words a row); seed_L, seed_U and seed_cnt are all null (one
+// unseeded root, NROOT = 1) or all given ([Q, NROOT], [Q, NROOT], [Q]
+// int32).
 extern "C" int ring_search_launch(
-        const int* hp, int nhp, int multiref, int fixed, const void* table,
+        const int* hp, int nhp, int multiref, int fixed, int x64,
+        const void* table,
         const void* carr, const void* rc, const void* lens, const void* D,
         const void* Ds, const void* seed_L, const void* seed_U,
         const void* seed_cnt, void* arena, void* xlist, void* counter,
@@ -699,10 +772,16 @@ extern "C" int ring_search_launch(
                     + (seed_cnt != nullptr);
     if (nseed == 1 || nseed == 2 || P.NROOT < 1 || (!nseed && P.NROOT != 1))
         return -1;
-#define RS_LAUNCH(M, F) launch<M, F>(P, smem, table, carr, rc, lens, D, Ds, \
-                                     seed_L, seed_U, seed_cnt, arena, xlist, \
-                                     counter, q_alns, q_meta, q_paths, stream)
-    if (multiref) return fixed ? RS_LAUNCH(true, true) : RS_LAUNCH(true, false);
-    return fixed ? RS_LAUNCH(false, true) : RS_LAUNCH(false, false);
+#define RS_LAUNCH(M, F, T) launch<M, F, T>(                                 \
+        P, smem, table, carr, rc, lens, D, Ds, seed_L, seed_U, seed_cnt,   \
+        arena, xlist, counter, q_alns, q_meta, q_paths, stream)
+    if (x64) {
+        if (!fixed) return -1;
+        return multiref ? RS_LAUNCH(true, true, long long)
+                        : RS_LAUNCH(false, true, long long);
+    }
+    if (multiref)
+        return fixed ? RS_LAUNCH(true, true, int) : RS_LAUNCH(true, false, int);
+    return fixed ? RS_LAUNCH(false, true, int) : RS_LAUNCH(false, false, int);
 #undef RS_LAUNCH
 }

@@ -22,8 +22,9 @@ from bwbble_tpu_torch.engine.rank import rank1_pair
 
 def calc_d(didx: DeviceIndex, seq, lengths, K: int = 32,
            max_len: int | None = None, device=None):
-    """Multi-genome D bounds.  Returns (D int32 [B, max_len+1, 2],
-    overflow bool [B]); D[b, t] = (num_diff, sa_intv_width).  seq/lengths
+    """Multi-genome D bounds.  Returns (D [B, max_len+1, 2] in the index's
+    type didx.idt, overflow bool [B]); D[b, t] = (num_diff,
+    sa_intv_width).  seq/lengths
     may be numpy arrays or tensors; they are moved to `device` (None means
     CUDA), which must be where the index lives."""
     dev = index_device(didx, device)
@@ -33,13 +34,14 @@ def calc_d(didx: DeviceIndex, seq, lengths, K: int = 32,
     max_len = Lmax if max_len is None else max_len
     full_w = didx.length  # (length-1) - 0 + 1
 
-    D = torch.zeros((B, max_len + 1, 2), dtype=torch.int32, device=dev)
-    Ls0 = torch.zeros((B, K), dtype=torch.int32, device=dev)
-    Us0 = torch.full((B, K), -1, dtype=torch.int32, device=dev)
+    idt = didx.idt
+    D = torch.zeros((B, max_len + 1, 2), dtype=idt, device=dev)
+    Ls0 = torch.zeros((B, K), dtype=idt, device=dev)
+    Us0 = torch.full((B, K), -1, dtype=idt, device=dev)
     Us0[:, 0] = didx.length - 1
     Ls, Us = Ls0, Us0
     cnt = torch.ones((B,), dtype=torch.int32, device=dev)
-    z = torch.zeros((B,), dtype=torch.int32, device=dev)
+    z = torch.zeros((B,), dtype=idt, device=dev)
     over = torch.zeros((B,), dtype=torch.bool, device=dev)
     four = torch.full((B,), 4, dtype=torch.int32, device=dev)
 
@@ -53,7 +55,7 @@ def calc_d(didx: DeviceIndex, seq, lengths, K: int = 32,
         empty = ncnt == 0
         # on empty: reset to the full range, count a difference, and report
         # the full width (inexact_match.c:239-244)
-        nz = z + empty.to(torch.int32)
+        nz = z + empty.to(idt)
         nLs = torch.where(empty[:, None], Ls0, nLs)
         nUs = torch.where(empty[:, None], Us0, nUs)
         ncnt = torch.where(empty, torch.ones_like(ncnt), ncnt)
@@ -86,10 +88,11 @@ def calc_d_1to1(didx: DeviceIndex, seq, lengths, max_len: int | None = None,
     gray = torch.tensor(C.NT4_GRAY, dtype=torch.int32, device=dev)
     last = didx.length - 1
 
-    D = torch.zeros((B, max_len + 1, 2), dtype=torch.int32, device=dev)
-    L = torch.zeros((B,), dtype=torch.int32, device=dev)
-    U = torch.full((B,), last, dtype=torch.int32, device=dev)
-    z = torch.zeros((B,), dtype=torch.int32, device=dev)
+    idt = didx.idt
+    D = torch.zeros((B, max_len + 1, 2), dtype=idt, device=dev)
+    L = torch.zeros((B,), dtype=idt, device=dev)
+    U = torch.full((B,), last, dtype=idt, device=dev)
+    z = torch.zeros((B,), dtype=idt, device=dev)
     for s in range(min(Lmax, max_len)):
         r = lengths - 1 - s
         active = r >= 0
@@ -101,7 +104,7 @@ def calc_d_1to1(didx: DeviceIndex, seq, lengths, max_len: int | None = None,
         nL = Cc + occL + 1
         nU = Cc + occU
         miss = is_n | (nL > nU)
-        nz = z + miss.to(torch.int32)
+        nz = z + miss.to(idt)
         nL = torch.where(miss, torch.zeros_like(nL), nL)
         nU = torch.where(miss, torch.full_like(nU, last), nU)
         row = torch.where(active[:, None],

@@ -3,7 +3,8 @@
 Counterpart of bwbble_tpu/engine/exact.py: the device equivalent of
 exact_match / exact_match_bounded (exact_match.c:58-222).  All reads advance
 one character per step with masked inactive lanes; interval lists live in
-fixed [B, K] arrays (see engine.intervals).
+fixed [B, K] arrays (see engine.intervals), in the index's arithmetic type
+`didx.idt`.
 """
 
 from __future__ import annotations
@@ -28,8 +29,8 @@ def exact_search(didx: DeviceIndex, seq, lengths, K: int = 16, device=None):
     seq = torch.as_tensor(seq).to(dev).to(torch.int32)
     lengths = torch.as_tensor(lengths).to(dev).to(torch.int32)
     B, Lmax = seq.shape
-    Ls = torch.zeros((B, K), dtype=torch.int32, device=dev)
-    Us = torch.full((B, K), -1, dtype=torch.int32, device=dev)
+    Ls = torch.zeros((B, K), dtype=didx.idt, device=dev)
+    Us = torch.full((B, K), -1, dtype=didx.idt, device=dev)
     Us[:, 0] = didx.length - 1
     cnt = torch.ones((B,), dtype=torch.int32, device=dev)
     over = torch.zeros((B,), dtype=torch.bool, device=dev)
@@ -58,8 +59,8 @@ def exact_search_1to1(didx: DeviceIndex, seq, lengths, device=None):
     lengths = torch.as_tensor(lengths).to(dev).to(torch.int32)
     B, Lmax = seq.shape
     gray = torch.tensor(C.NT4_GRAY, dtype=torch.int32, device=dev)
-    L = torch.zeros((B,), dtype=torch.int32, device=dev)
-    U = torch.full((B,), didx.length - 1, dtype=torch.int32, device=dev)
+    L = torch.zeros((B,), dtype=didx.idt, device=dev)
+    U = torch.full((B,), didx.length - 1, dtype=didx.idt, device=dev)
     alive = torch.ones((B,), dtype=torch.bool, device=dev)
     for s in range(Lmax):
         r = lengths - 1 - s

@@ -15,8 +15,12 @@ score-bucketed best-first DFS (inexact_match.c:256-506):
 - **Score-bucket stacks.**  The reference heap (score buckets, LIFO within a
   bucket, pop = tail of the best bucket) is per-lane bucket heads plus a
   per-node `prev` link.  Exploration order is bit-identical.
-- **Packed node words.**  A node is 4 int32s: L, U, meta1
-  (i|mm|go|ge|state|plen), meta2 (snps | prev+1 << 8).
+- **Packed node words.**  A node is NW = 4 int32s: L, U, meta1
+  (i|mm|go|ge|state|plen), meta2 (snps | prev+1 << 8).  On the int64
+  whole-genome layout (`didx.idt` int64) L and U take two words each, low
+  word first: NW = 6, and the frame rows widen to hold NSLOT * 6 words.
+  As in the JAX package, the int64 layout runs fixed batches only: the
+  queued search refuses it.
 - **Seeded roots (`-P`).**  Without seeds a read has one root, the whole
   SA range at i = len (NROOT = 1).  With a seed table, a read's root rows
   are its first S = NROOT interval(s) of the table entry of its last
@@ -92,10 +96,18 @@ def alphabet(multiref: bool) -> tuple[int, ...]:
     return tuple(int(j) for j in C.NT4_GRAY[:4])
 
 
-def row_words(multiref: bool) -> int:
-    """int32 words of a frame row: NSLOT * 4 + 1 (the parent id), padded to
-    a multiple of 4 words so slots stay 16-byte aligned: 128 words (512
-    bytes) for NSLOT = 23, 40 words (160 bytes) for NSLOT = 9."""
+# the JAX package's refusal of a queued search on the int64 layout
+QUEUED_I64 = ("queue mode packs node words through int32 slabs; use fixed "
+              "batching (queued=False) with an int64 index")
+
+
+def row_words(multiref: bool, x64: bool = False) -> int:
+    """int32 words of a frame row: NSLOT * NW + 1 (the parent id), padded
+    to a multiple of 4 words so rows stay 16-byte aligned: 128 words (512
+    bytes) for NSLOT = 23, 40 words (160 bytes) for NSLOT = 9; on the int64
+    layout (NW = 6) 140 and 56 words."""
+    if x64:
+        return 140 if multiref else 56
     return 128 if multiref else 40
 
 
@@ -140,6 +152,8 @@ class RingStatics:
     wrapper and the plain version."""
     multiref: bool
     fixed: bool               # fixed-batch frame-budget rule (else ring)
+    x64: bool                 # int64 index layout: L and U take 2 words
+    NW: int                   # int32 words a node: 4, or 6 when x64
     NC: int
     NSLOT: int
     ROWW: int
@@ -158,10 +172,13 @@ class RingStatics:
 
 
 def ring_statics(params: AlnParams, cfg: EngineConfig, Lmax: int,
-                 DS: int, fixed: bool = False,
-                 seed_slots: int = 0) -> RingStatics:
+                 DS: int, fixed: bool = False, seed_slots: int = 0,
+                 x64: bool = False) -> RingStatics:
     """`seed_slots` > 0: a seeded search with that many root rows a read
-    (NROOT) and seeds of params.precalc_len bases; 0: one unseeded root."""
+    (NROOT) and seeds of params.precalc_len bases; 0: one unseeded root.
+    `x64`: the int64 index layout, which runs fixed batches only."""
+    if x64 and not fixed:
+        raise NotImplementedError(QUEUED_I64)
     p = params
     seeded = int(seed_slots) > 0
     NROOT = int(seed_slots) if seeded else 1
@@ -189,8 +206,9 @@ def ring_statics(params: AlnParams, cfg: EngineConfig, Lmax: int,
     if not 0 < nb <= NB_MAX:
         raise ValueError(f"{nb} score buckets: the search holds 1..{NB_MAX}")
     xc = int(cfg.xcap) if int(cfg.xcap) > 0 else int(cfg.kx)
-    return RingStatics(multiref=multiref, fixed=bool(fixed), NC=NC,
-                       NSLOT=NSLOT, ROWW=row_words(multiref), NB=int(nb),
+    return RingStatics(multiref=multiref, fixed=bool(fixed),
+                       x64=bool(x64), NW=6 if x64 else 4, NC=NC,
+                       NSLOT=NSLOT, ROWW=row_words(multiref, x64), NB=int(nb),
                        NFRAME=nframe, ACAP=int(cfg.acap), XC=xc,
                        PATHCAP=pathcap, PW=(pathcap + 3) // 4,
                        max_iters=int(cfg.max_iters), Lmax=int(Lmax),
@@ -230,11 +248,18 @@ def _wrap32(x: torch.Tensor) -> torch.Tensor:
     return (((x + 2**31) % 2**32) - 2**31).to(torch.int32)
 
 
+def _join64(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    """An int64 from its low and high int32 words."""
+    return (hi.to(torch.int64) << 32) | (lo.to(torch.int64) & 0xFFFFFFFF)
+
+
 def alloc_outputs(Q: int, S: RingStatics, device):
     """Zeroed per-read result slabs: q_alns [Q, 7, ACAP] =
-    (L, U, score, len, node, m1, snp); q_meta [Q, NMETA] (META_* columns);
-    q_paths [Q, ACAP, PW] 2-bit packed reverse-order state walks."""
-    return (torch.zeros((Q, 7, S.ACAP), dtype=torch.int32, device=device),
+    (L, U, score, len, node, m1, snp), int64 on the int64 layout, else
+    int32; q_meta [Q, NMETA] (META_* columns); q_paths [Q, ACAP, PW] 2-bit
+    packed reverse-order state walks."""
+    adt = torch.int64 if S.x64 else torch.int32
+    return (torch.zeros((Q, 7, S.ACAP), dtype=adt, device=device),
             torch.zeros((Q, NMETA), dtype=torch.int32, device=device),
             torch.zeros((Q, S.ACAP, S.PW), dtype=torch.uint8, device=device))
 
@@ -246,16 +271,17 @@ def result_dict(q_alns, q_meta, q_paths):
     ovwhy = q_meta[:, META_OVER]
     over = ovwhy > 0
     keep = (~over).to(torch.int32)
-    qa = q_alns * keep[:, None, None]
-    m1o = qa[:, 5]
+    qa = q_alns * keep[:, None, None].to(q_alns.dtype)
+    col = [qa[:, j].to(torch.int32) for j in range(2, 7)]
+    m1o = col[3]
     return dict(
         n_alns=q_meta[:, META_NALN] * keep,
-        o_L=qa[:, 0], o_U=qa[:, 1], o_score=qa[:, 2], o_len=qa[:, 3],
-        o_node=qa[:, 4], o_lane=q_meta[:, META_LANE],
+        o_L=qa[:, 0], o_U=qa[:, 1], o_score=col[0], o_len=col[1],
+        o_node=col[2], o_lane=q_meta[:, META_LANE],
         o_mm=(m1o >> _SH_MM) & 0x1F,
         o_go=(m1o >> _SH_GO) & 0x7,
         o_ge=(m1o >> _SH_GE) & 0xF,
-        o_snp=qa[:, 6],
+        o_snp=col[4],
         o_plen=(m1o >> _SH_PLEN) & 0x1FF,
         overflow=over, ovwhy=ovwhy,
         paths=q_paths * keep.to(torch.uint8)[:, None, None],
@@ -276,13 +302,17 @@ def _plain_chunk(didx: DeviceIndex, rc, lengths, D, Ds, params: AlnParams,
                  S: RingStatics, q_alns, q_meta, q_paths, seeds=None):
     """Run one chunk of reads, one lane per read, in lockstep to completion;
     fills the chunk's rows of the result slabs and returns the chunk's arena
-    [B, NFRAME, ROWW] (frame rows: NSLOT slots of 4 words, then the parent
-    id).  Serves both launch modes (S.fixed), both alphabets (S.multiref)
-    and seeded roots (S.seeded: `seeds` = (seed_L, seed_U, seed_cnt))."""
+    [B, NFRAME, ROWW] (frame rows: NSLOT slots of NW words, then the
+    parent id).  Serves both launch modes (S.fixed), both alphabets
+    (S.multiref), seeded roots (S.seeded: `seeds` = (seed_L, seed_U,
+    seed_cnt)) and both index layouts (S.x64: intervals, D bounds and the
+    reported L/U in int64)."""
     dev = rc.device
     B, Lmax = rc.shape
     LEN = int(didx.length)
     I32 = torch.int32
+    IDT = torch.int64 if S.x64 else I32
+    NW = S.NW
     p = params
     p_mm, p_go, p_ge = int(p.mm_score), int(p.gapo_score), int(p.gape_score)
     p_maxdiff, p_maxgapo = int(p.max_diff), int(p.max_gapo)
@@ -292,7 +322,7 @@ def _plain_chunk(didx: DeviceIndex, rc, lengths, D, Ds, params: AlnParams,
     NB, NFRAME, ACAP, XC, PATHCAP = S.NB, S.NFRAME, S.ACAP, S.XC, S.PATHCAP
     NC, NSLOT, ROWW = S.NC, S.NSLOT, S.ROWW
     NROOT, PK = S.NROOT, S.PK
-    PAR = NSLOT * 4                    # frame-row word holding the parent id
+    PAR = NSLOT * NW                   # frame-row word holding the parent id
     chars = alphabet(S.multiref)
 
     def zi():
@@ -300,14 +330,14 @@ def _plain_chunk(didx: DeviceIndex, rc, lengths, D, Ds, params: AlnParams,
 
     rc = rc.to(I32)
     lengths = lengths.to(I32)
-    D = D.to(I32)
-    Ds = Ds.to(I32)
+    D = D.to(IDT)
+    Ds = Ds.to(IDT)
     arena = torch.zeros((B, NFRAME * ROWW), dtype=I32, device=dev)
     head = torch.full((B, NB), -1, dtype=I32, device=dev)
     if S.seeded:
         # root rows s < scnt, chained last-first in bucket 0 (read_init);
         # a count above NROOT counts as NROOT
-        sL, sU = seeds[0].to(I32), seeds[1].to(I32)
+        sL, sU = seeds[0].to(IDT), seeds[1].to(IDT)
         scnt = seeds[2].to(I32).clamp(0, NROOT)
         head[:, 0] = scnt - 1
         n_open = scnt.clone()
@@ -316,12 +346,13 @@ def _plain_chunk(didx: DeviceIndex, rc, lengths, D, Ds, params: AlnParams,
         n_open = torch.ones((B,), dtype=I32, device=dev)
     best = torch.full((B,), NB, dtype=I32, device=dev)
     maxd = torch.full((B,), p_maxdiff, dtype=I32, device=dev)
-    num_best, n_alns, pf, work = zi(), zi(), zi(), zi()
+    num_best = torch.zeros((B,), dtype=IDT, device=dev)
+    n_alns, pf, work = zi(), zi(), zi()
     rank_rows, frame_rd, frame_wr, root_rd = zi(), zi(), zi(), zi()
     ovwhy = zi()                       # overflow reason bits
-    oA = torch.zeros((B, 7, ACAP), dtype=I32, device=dev)
-    xL = torch.zeros((B, XC), dtype=I32, device=dev)
-    xU = torch.full((B, XC), -1, dtype=I32, device=dev)
+    oA = torch.zeros((B, 7, ACAP), dtype=IDT, device=dev)
+    xL = torch.zeros((B, XC), dtype=IDT, device=dev)
+    xU = torch.full((B, XC), -1, dtype=IDT, device=dev)
     x_cnt, x_j, x_node, x_m1, x_m2 = zi(), zi(), zi(), zi(), zi()
 
     # up-front N-count discard (inexact_match.c:259-266)
@@ -333,7 +364,7 @@ def _plain_chunk(didx: DeviceIndex, rc, lengths, D, Ds, params: AlnParams,
     mode = torch.where(discard, MODE_DONE, MODE_DFS).to(I32)
 
     col_a = torch.arange(ACAP, dtype=I32, device=dev)[None, :]
-    ar4 = torch.arange(4, dtype=torch.int64, device=dev)[None, :]
+    ar_nw = torch.arange(NW, dtype=torch.int64, device=dev)[None, :]
     match_t = torch.from_numpy(_MATCH).to(dev)
     states_t = torch.from_numpy(slot_states(NC).astype(np.int32)).to(dev)
     gray4_t = torch.from_numpy(_GRAY4).to(dev)
@@ -365,8 +396,9 @@ def _plain_chunk(didx: DeviceIndex, rc, lengths, D, Ds, params: AlnParams,
         return mm * p_mm + go * p_go + ge * p_ge
 
     def in_table(i):
-        """rank queries that read a table row (not the edge paths)."""
-        return ((i >= 0) & (i <= LEN - 2)).to(I32)
+        """rank queries that read a table row (not the edge paths i < 0
+        and i == LEN - 1)."""
+        return ((i >= 0) & (i != LEN - 1)).to(I32)
 
     def emit_alns(ix, node, m1, m2, Ls, Us, cnt, extra_m):
         """Record alignments for lanes `ix` (inexact_match.c:331-375 and
@@ -385,7 +417,9 @@ def _plain_chunk(didx: DeviceIndex, rc, lengths, D, Ds, params: AlnParams,
                             ).sum(dim=1)
         is_best = score == best[ix]
         old = num_best[ix]
-        num_best[ix] = torch.where(is_best, _wrap32(old.long() + width), old)
+        nb = old.long() + width.long()
+        num_best[ix] = torch.where(is_best, nb if S.x64 else _wrap32(nb),
+                                   old)
         fin = ~is_best & (old > p_maxbest)        # stop this read
         oa = oA[ix]
         na = n_alns[ix]
@@ -403,8 +437,8 @@ def _plain_chunk(didx: DeviceIndex, rc, lengths, D, Ds, params: AlnParams,
             ok = ok & ~full
             rows = ok.nonzero()[:, 0]
             if rows.numel():
-                vals = torch.stack([Lv, Uv, score, add_len, node, m1, snp],
-                                   dim=1)
+                vals = torch.stack([v.to(IDT) for v in (
+                    Lv, Uv, score, add_len, node, m1, snp)], dim=1)
                 oa[rows, :, na[rows].long()] = vals[rows]
             na = na + ok.to(I32)
         oA[ix] = oa
@@ -431,8 +465,8 @@ def _plain_chunk(didx: DeviceIndex, rc, lengths, D, Ds, params: AlnParams,
             L1, U1 = Cc + occL + 1, Cc + occU
             dead = (c > 3) | (L1 > U1)
             nL, nU = Ls.clone(), Us.clone()
-            nL[:, 0] = torch.where(dead, 0, L1).to(I32)
-            nU[:, 0] = torch.where(dead, -1, U1).to(I32)
+            nL[:, 0] = torch.where(dead, 0, L1).to(IDT)
+            nU[:, 0] = torch.where(dead, -1, U1).to(IDT)
             ncnt = (~dead).to(I32)
             ov = torch.zeros_like(dead)
         work[ix] += 1
@@ -476,7 +510,13 @@ def _plain_chunk(didx: DeviceIndex, rc, lengths, D, Ds, params: AlnParams,
         nn = (node - NROOT).clamp(min=0)
         f = torch.div(nn, NSLOT, rounding_mode="floor")
         s = nn - f * NSLOT
-        words = arena[ix[:, None], (f * ROWW + 4 * s).long()[:, None] + ar4]
+        words = arena[ix[:, None],
+                      (f * ROWW + NW * s).long()[:, None] + ar_nw]
+        if S.x64:
+            wL, wU = _join64(words[:, 0], words[:, 1]), _join64(
+                words[:, 2], words[:, 3])
+        else:
+            wL, wU = words[:, 0], words[:, 1]
         if S.seeded:
             rn = node.clamp(0, NROOT - 1).long()
             rL, rU = sL[ix, rn], sU[ix, rn]
@@ -487,10 +527,10 @@ def _plain_chunk(didx: DeviceIndex, rc, lengths, D, Ds, params: AlnParams,
             rL, rU = 0, LEN - 1
             rm1 = _pack1(lengths[ix], 0, 0, 0, C.STATE_M, 0)
             rm2 = 0
-        eL = torch.where(isroot, rL, words[:, 0]).to(I32)
-        eU = torch.where(isroot, rU, words[:, 1]).to(I32)
-        m1 = torch.where(isroot, rm1, words[:, 2]).to(I32)
-        m2 = torch.where(isroot, rm2, words[:, 3]).to(I32)
+        eL = torch.where(isroot, rL, wL).to(IDT)
+        eU = torch.where(isroot, rU, wU).to(IDT)
+        m1 = torch.where(isroot, rm1, words[:, NW - 2]).to(I32)
+        m2 = torch.where(isroot, rm2, words[:, NW - 1]).to(I32)
         frame_rd[ix] += (~isroot).to(I32)
         head[ix, bucket.long()] = ((m2 >> 8) & 0xFFFFFF) - 1   # 24-bit link
         n_open[ix] -= 1
@@ -551,8 +591,8 @@ def _plain_chunk(didx: DeviceIndex, rc, lengths, D, Ds, params: AlnParams,
             x_node[lx], x_m1[lx], x_m2[lx] = node[ti], m1[ti], m2[ti]
             x_j[lx] = ei[ti] - 1
             x_cnt[lx] = 1
-            nl = torch.zeros((ti.numel(), XC), dtype=I32, device=dev)
-            nu = torch.full((ti.numel(), XC), -1, dtype=I32, device=dev)
+            nl = torch.zeros((ti.numel(), XC), dtype=IDT, device=dev)
+            nu = torch.full((ti.numel(), XC), -1, dtype=IDT, device=dev)
             nl[:, 0] = eL[ti]
             nu[:, 0] = eU[ti]
             xL[lx], xU[lx] = nl, nu
@@ -642,8 +682,8 @@ def _plain_chunk(didx: DeviceIndex, rc, lengths, D, Ds, params: AlnParams,
         sc_M = score_of(mmn, per_code(ego), per_code(ege))
 
         valid = torch.cat([valid0[:, None], validD, ok_mm | ok_ex], dim=1)
-        candL = torch.cat([eL[:, None], Lc, Lc], dim=1).to(I32)
-        candU = torch.cat([eU[:, None], Uc, Uc], dim=1).to(I32)
+        candL = torch.cat([eL[:, None], Lc, Lc], dim=1).to(IDT)
+        candU = torch.cat([eU[:, None], Uc, Uc], dim=1).to(IDT)
         candM1 = torch.cat([m1_0[:, None], m1_D, m1_M], dim=1).to(I32)
         candSc = torch.cat([sc_0[:, None], sc_D, sc_M], dim=1).to(I32)
         candSnp = torch.cat([esnp[:, None], per_code(esnp), snp_M], dim=1
@@ -667,9 +707,14 @@ def _plain_chunk(didx: DeviceIndex, rc, lengths, D, Ds, params: AlnParams,
         head[ix] = hsub
         total = valid.sum(dim=1).to(I32)
         # invalid slots still occupy the row; they are simply never linked
+        if S.x64:
+            words = [_wrap32(candL & 0xFFFFFFFF), (candL >> 32).to(I32),
+                     _wrap32(candU & 0xFFFFFFFF), (candU >> 32).to(I32)]
+        else:
+            words = [candL, candU]
         frow = torch.cat(
-            [torch.stack([candL, candU, candM1, candM2], dim=2
-                         ).reshape(n, NSLOT * 4), node[:, None]], dim=1)
+            [torch.stack(words + [candM1, candM2], dim=2
+                         ).reshape(n, NSLOT * NW), node[:, None]], dim=1)
         cols = (myf * ROWW).long()[:, None] + torch.arange(
             PAR + 1, dtype=torch.int64, device=dev)[None, :]
         arena[ix[:, None], cols] = frow
@@ -750,7 +795,8 @@ def ring_search_plain(didx: DeviceIndex, rc_all, lengths_all, D_all, Ds_all,
     to `lanes` columns, as in the kernel."""
     Q, Lmax = rc_all.shape
     S = ring_statics(params, cfg, Lmax, Ds_all.shape[1],
-                     seed_slots=_nseed(seeds))
+                     seed_slots=_nseed(seeds),
+                     x64=didx.idt == torch.int64)
     q_alns, q_meta, q_paths = alloc_outputs(Q, S, rc_all.device)
     lanes = max(1, int(lanes))
     for s in range(0, Q, lanes):
@@ -769,7 +815,8 @@ def fixed_search_plain(didx: DeviceIndex, rc, lengths, D, Ds,
     dict as `arena` [B, NFRAME, ROWW]; `seeds` as for ring_search_plain."""
     B, Lmax = rc.shape
     S = ring_statics(params, cfg, Lmax, Ds.shape[1], fixed=True,
-                     seed_slots=_nseed(seeds))
+                     seed_slots=_nseed(seeds),
+                     x64=didx.idt == torch.int64)
     q_alns, q_meta, q_paths = alloc_outputs(B, S, rc.device)
     arena = _plain_chunk(didx, rc, lengths, D, Ds, params, S, q_alns,
                          q_meta, q_paths, seeds)
@@ -779,6 +826,7 @@ def fixed_search_plain(didx: DeviceIndex, rc, lengths, D, Ds,
 def _search_inputs(didx, rc, lengths, D, Ds, seed_L, seed_U, seed_cnt,
                    device):
     dev = index_device(didx, device)
+    idt = didx.idt
 
     def on_dev(x, dtype):
         return torch.as_tensor(x).to(dev).to(dtype).contiguous()
@@ -789,7 +837,7 @@ def _search_inputs(didx, rc, lengths, D, Ds, seed_L, seed_U, seed_cnt,
     if any(given):
         if not all(given):
             raise ValueError("seed_L, seed_U and seed_cnt go together")
-        seeds = (on_dev(seed_L, torch.int32), on_dev(seed_U, torch.int32),
+        seeds = (on_dev(seed_L, idt), on_dev(seed_U, idt),
                  on_dev(seed_cnt, torch.int32))
         B = rc.shape[0]
         if (seeds[0].dim() != 2 or seeds[0].shape[0] != B
@@ -798,8 +846,8 @@ def _search_inputs(didx, rc, lengths, D, Ds, seed_L, seed_U, seed_cnt,
                 or tuple(seeds[2].shape) != (B,)):
             raise ValueError("seeds must be seed_L/seed_U [B, S] (S >= 1) "
                              "and seed_cnt [B]")
-    return (dev, rc, on_dev(lengths, torch.int32), on_dev(D, torch.int32),
-            on_dev(Ds, torch.int32), seeds)
+    return (dev, rc, on_dev(lengths, torch.int32), on_dev(D, idt),
+            on_dev(Ds, idt), seeds)
 
 
 def inexact_search(didx: DeviceIndex, rc, lengths, D, D_seed,
@@ -814,7 +862,8 @@ def inexact_search(didx: DeviceIndex, rc, lengths, D, D_seed,
       rc:        int8/int32 [B, Lmax] nt4 reverse-complement reads (the
                  search operates on the RC, inexact_match.c:59-65).
       lengths:   int32 [B].
-      D, D_seed: int32 [B, *, 2] lower bounds from engine.dbound.
+      D, D_seed: [B, *, 2] lower bounds from engine.dbound (in the index's
+                 type didx.idt, as are seed_L/seed_U and the reported L/U).
       seed_*:    optional seed-table intervals per read (seed_L/seed_U
                  [B, S], seed_cnt [B]; align.precalc lookup_batch): each
                  read starts from its first seed_cnt (at most S) of them
@@ -841,7 +890,11 @@ def inexact_search_queued(didx: DeviceIndex, rc_all, lengths_all, D_all,
                           seed_cnt=None, device=None):
     """Continuous-batching search: `lanes` lanes stream through all NR reads
     (global work queue, queue order = the order given); outputs are per-read
-    [NR, ...] tensors on the device.  Arguments as for `inexact_search`."""
+    [NR, ...] tensors on the device.  Arguments as for `inexact_search`.
+    The int64 index layout is refused (NotImplementedError), as the JAX
+    package refuses it: its queue packs node words through int32 slabs."""
+    if didx.idt == torch.int64:
+        raise NotImplementedError(QUEUED_I64)
     dev, rc_all, lengths_all, D_all, Ds_all, seeds = _search_inputs(
         didx, rc_all, lengths_all, D_all, Ds_all, seed_L, seed_U, seed_cnt,
         device)
@@ -854,12 +907,14 @@ def inexact_search_queued(didx: DeviceIndex, rc_all, lengths_all, D_all,
 
 
 def walk_paths(arena: torch.Tensor, lanes: torch.Tensor, nodes: torch.Tensor,
-               nroot: int, nslot: int, nc: int, pathcap: int) -> torch.Tensor:
+               nroot: int, nslot: int, nc: int, pathcap: int,
+               nw: int = 4) -> torch.Tensor:
     """Reverse-order state paths for a flat list of (lane, node) alignments.
 
     A node's appended state is a static function of its frame slot
-    ((node - nroot) % nslot), so only the parent id — word nslot*4 of the
-    node's frame row in `arena` [B, F, ROWW] — is gathered per step.
+    ((node - nroot) % nslot), so only the parent id — word nslot*nw of the
+    node's frame row in `arena` [B, F, ROWW] (nw = node words a slot: 4, or
+    6 on the int64 layout) — is gathered per step.
     Returns int8 [W, pathcap]; entry t is the state of the t-th ancestor
     (the node itself first; roots contribute nothing)."""
     dev = arena.device
@@ -871,7 +926,7 @@ def walk_paths(arena: torch.Tensor, lanes: torch.Tensor, nodes: torch.Tensor,
     for t in range(pathcap):
         nn = (cur - nroot).clamp(min=0)
         f = torch.div(nn, nslot, rounding_mode="floor").clamp(0, F - 1)
-        par = torch.where(cur >= nroot, arena[lanes, f.long(), nslot * 4],
+        par = torch.where(cur >= nroot, arena[lanes, f.long(), nslot * nw],
                           -1).to(torch.int32)
         alive = (cur >= 0) & (par >= 0)
         if not bool(alive.any()):

@@ -33,7 +33,8 @@ def expand_step(didx: DeviceIndex, Ls: torch.Tensor, Us: torch.Tensor,
                 cnt: torch.Tensor, c: torch.Tensor):
     """One backward-search step over interval lists.
 
-    Args:  Ls/Us int32 [B, K]; cnt int32 [B]; c int32 [B] nt4 read base.
+    Args:  Ls/Us [B, K] in the index's type didx.idt; cnt int32 [B]; c
+           int32 [B] nt4 read base.
     Returns (newLs, newUs, newcnt, width_sum, overflow_step):
       width_sum[b] = total width of the candidate intervals (the
       num_matches accumulator of calculate_d, inexact_match.c:226);

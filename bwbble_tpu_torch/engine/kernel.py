@@ -5,10 +5,12 @@ Counterpart of bwbble_tpu/engine/kernel.py: `ring_search` takes the place of
 `fixed_search` that of `run_loop_resident` driving it in fixed-batch mode,
 each for the multi-genome and the single-genome (`-S`) alphabet.  Given
 seeds (`-P`), the same two entries take the place of `run_loop` driving
-`_kernel_body`, the JAX package's kernel for seeded roots (NROOT > 1).  The
-kernel source is csrc/ring_search.cu (one template, four instantiations);
-the plain PyTorch versions are engine/inexact.py:ring_search_plain and
-fixed_search_plain.
+`_kernel_body`, the JAX package's kernel for seeded roots (NROOT > 1).  On
+the int64 whole-genome index layout `fixed_search` takes that layout's
+instantiations (the JAX package runs that layout in fixed batches only, and
+so does the port).  The kernel source is csrc/ring_search.cu (one template,
+six instantiations); the plain PyTorch versions are
+engine/inexact.py:ring_search_plain and fixed_search_plain.
 
 Build: at first use, `nvcc` compiles the source for sm_90a into a shared
 library with a plain C interface under `build/` at the repository root,
@@ -40,9 +42,11 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "build")
 
 # launches per kernel entry, incremented where a kernel is launched and
 # nowhere else (a run can show that its path went through the kernels); a
-# seeded launch counts under its entry's `_seeded` key only
+# seeded launch counts under its entry's `_seeded` key only, a launch on the
+# int64 index layout under its `_i64` key only
 LAUNCHES = {"ring_search": 0, "fixed_search": 0, "ring_search_seeded": 0,
-            "fixed_search_seeded": 0}
+            "fixed_search_seeded": 0, "fixed_search_i64": 0,
+            "fixed_search_seeded_i64": 0}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -78,23 +82,36 @@ def build(name: str = "ring_search") -> str:
     return out
 
 
-def _load(name: str = "ring_search") -> ctypes.CDLL:
+def _bind_ring_search(lib: ctypes.CDLL) -> None:
+    vp = ctypes.c_void_p
+    lib.ring_search_launch.argtypes = [vp] + [ctypes.c_int] * 4 + [vp] * 16
+    lib.ring_search_launch.restype = ctypes.c_int
+    lib.ring_search_row_words.argtypes = [ctypes.c_int] * 2
+    lib.ring_search_row_words.restype = ctypes.c_int
+    lib.ring_search_num_params.argtypes = []
+    lib.ring_search_num_params.restype = ctypes.c_int
+    lib.ring_search_num_meta.argtypes = []
+    lib.ring_search_num_meta.restype = ctypes.c_int
+
+
+def _load(name: str = "ring_search", bind=_bind_ring_search) -> ctypes.CDLL:
+    """The library built from csrc/<name>.cu, loaded once and bound by
+    `bind(lib)`, which sets its entry points' argument and result types."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
             lib = ctypes.CDLL(build(name))
-            vp = ctypes.c_void_p
-            lib.ring_search_launch.argtypes = (
-                [vp, ctypes.c_int, ctypes.c_int, ctypes.c_int] + [vp] * 16)
-            lib.ring_search_launch.restype = ctypes.c_int
-            lib.ring_search_row_words.argtypes = [ctypes.c_int]
-            lib.ring_search_row_words.restype = ctypes.c_int
-            lib.ring_search_num_params.argtypes = []
-            lib.ring_search_num_params.restype = ctypes.c_int
-            lib.ring_search_num_meta.argtypes = []
-            lib.ring_search_num_meta.restype = ctypes.c_int
+            bind(lib)
             _libs[name] = lib
         return lib
+
+
+def count_launch(launches: dict, entry: str, rc: int) -> None:
+    """Raise for a launch that returned CUDA error `rc`, else add one to
+    `launches[entry]`."""
+    if rc != 0:
+        raise RuntimeError(f"{entry}: launch failed with CUDA error {rc}")
+    launches[entry] += 1
 
 
 def _check(t: torch.Tensor, name: str, dtype, ndim: int, dev) -> None:
@@ -104,6 +121,21 @@ def _check(t: torch.Tensor, name: str, dtype, ndim: int, dev) -> None:
             f"search kernel: `{name}` must be a contiguous {ndim}-d {dtype} "
             f"CUDA tensor on {dev}; got {t.dtype} {tuple(t.shape)} on "
             f"{t.device}")
+
+
+def param_block(params: AlnParams, S, Q: int, Lmax: int, length: int,
+                lanes: int) -> np.ndarray:
+    """The kernel's RSParams fields, in order, as int32 (the length split
+    into its low 32 bits, wrapped to int32, and its high 32 bits)."""
+    p = params
+    lo = ((int(length) + 2**31) % 2**32) - 2**31
+    return np.array(
+        [p.mm_score, p.gapo_score, p.gape_score, p.max_diff, p.max_gapo,
+         p.max_gape, p.seed_length, p.max_diff_seed, p.max_best,
+         p.no_indel_length, min(int(p.max_entries), 2**31 - 1),
+         S.NB, S.NFRAME, S.ACAP, S.XC, S.PATHCAP, S.max_iters,
+         Q, Lmax, S.DS, lo, lanes, S.PW, S.NROOT, S.PK,
+         int(length) >> 32], dtype=np.int32)
 
 
 def _launch(entry: str, didx: DeviceIndex, rc_all: torch.Tensor,
@@ -119,25 +151,28 @@ def _launch(entry: str, didx: DeviceIndex, rc_all: torch.Tensor,
     if dev.type != "cuda":
         raise ValueError(f"{entry} launches a CUDA kernel: the index lives "
                          f"on {dev}")
+    idt = didx.idt
+    x64 = idt == torch.int64
     _check(didx.table, "table", torch.int32, 2, dev)
-    _check(didx.Carr, "Carr", torch.int32, 1, dev)
+    _check(didx.Carr, "Carr", idt, 1, dev)
     _check(rc_all, "rc", torch.int8, 2, dev)
     _check(lengths_all, "lengths", torch.int32, 1, dev)
-    _check(D_all, "D", torch.int32, 3, dev)
-    _check(Ds_all, "Ds", torch.int32, 3, dev)
+    _check(D_all, "D", idt, 3, dev)
+    _check(Ds_all, "Ds", idt, 3, dev)
     Q, Lmax = rc_all.shape
     nseed = 0
     if seeds is not None:
         sL, sU, scnt = seeds
-        _check(sL, "seed_L", torch.int32, 2, dev)
-        _check(sU, "seed_U", torch.int32, 2, dev)
+        _check(sL, "seed_L", idt, 2, dev)
+        _check(sU, "seed_U", idt, 2, dev)
         _check(scnt, "seed_cnt", torch.int32, 1, dev)
         nseed = sL.shape[1]
         if (sL.shape[0] != Q or nseed < 1 or sU.shape != sL.shape
                 or scnt.shape[0] != Q):
             raise ValueError(f"{entry}: inconsistent seed shapes")
         entry += "_seeded"
-    if (didx.table.shape[1] != 32 or didx.Carr.shape[0] != 17
+    if (didx.table.shape[1] != (48 if x64 else 32)
+            or didx.Carr.shape[0] != 17
             or lengths_all.shape[0] != Q
             or tuple(D_all.shape) != (Q, Lmax + 1, 2)
             or D_all.shape[0] != Ds_all.shape[0] or Ds_all.shape[2] != 2):
@@ -145,19 +180,15 @@ def _launch(entry: str, didx: DeviceIndex, rc_all: torch.Tensor,
     if int(didx.length) < 2 or Q < 1:
         raise ValueError(f"{entry}: empty index or read set")
     S = ring_statics(params, cfg, Lmax, Ds_all.shape[1], fixed=fixed,
-                     seed_slots=nseed)
+                     seed_slots=nseed, x64=x64)
+    if x64:
+        entry += "_i64"
     lanes = Q if fixed else max(1, min(int(lanes), Q))
     lib = _load()
-    p = params
-    hp = np.array(
-        [p.mm_score, p.gapo_score, p.gape_score, p.max_diff, p.max_gapo,
-         p.max_gape, p.seed_length, p.max_diff_seed, p.max_best,
-         p.no_indel_length, min(int(p.max_entries), 2**31 - 1),
-         S.NB, S.NFRAME, S.ACAP, S.XC, S.PATHCAP, S.max_iters,
-         Q, Lmax, S.DS, int(didx.length), lanes, S.PW, S.NROOT, S.PK],
-        dtype=np.int32)
+    hp = param_block(params, S, Q, Lmax, int(didx.length), lanes)
     if (hp.size != lib.ring_search_num_params()
-            or S.ROWW != lib.ring_search_row_words(int(S.multiref))
+            or S.ROWW != lib.ring_search_row_words(int(S.multiref),
+                                                   int(x64))
             or NMETA != lib.ring_search_num_meta()):
         raise RuntimeError(f"{entry}: parameter block, frame-row width or "
                            "result columns out of date")
@@ -167,19 +198,16 @@ def _launch(entry: str, didx: DeviceIndex, rc_all: torch.Tensor,
         q_alns, q_meta, q_paths = alloc_outputs(Q, S, dev)
         arena = torch.empty((lanes, S.NFRAME, S.ROWW), dtype=torch.int32,
                             device=dev)
-        xlist = torch.empty((lanes, 2, S.XC, 2), dtype=torch.int32,
-                            device=dev)
+        xlist = torch.empty((lanes, 2, S.XC, 2), dtype=idt, device=dev)
         counter = torch.zeros((1,), dtype=torch.int32, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.ring_search_launch(
-            hp.ctypes.data, hp.size, int(S.multiref), int(fixed),
+            hp.ctypes.data, hp.size, int(S.multiref), int(fixed), int(x64),
             didx.table.data_ptr(), didx.Carr.data_ptr(), rc_all.data_ptr(),
             lengths_all.data_ptr(), D_all.data_ptr(), Ds_all.data_ptr(),
             *sp, arena.data_ptr(), xlist.data_ptr(), counter.data_ptr(),
             q_alns.data_ptr(), q_meta.data_ptr(), q_paths.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"{entry}: launch failed with CUDA error {rc}")
-    LAUNCHES[entry] += 1
+    count_launch(LAUNCHES, entry, rc)
     # the scratch tensors stay referenced by the caching allocator's stream
     # ordering: later allocations on this stream cannot reuse them before
     # the kernel has finished
@@ -207,7 +235,9 @@ def fixed_search(didx: DeviceIndex, rc: torch.Tensor, lengths: torch.Tensor,
                  cfg: EngineConfig, seeds=None) -> dict:
     """Launch the fixed-batch search on CUDA tensors: lane b runs read b
     and nothing else, so there is a lane, and an arena column, for exactly
-    the reads given; `seeds` as for `ring_search`.  Returns the per-read
+    the reads given; `seeds` as for `ring_search`.  On the int64 index
+    layout D, Ds and the seed intervals are int64, and so are the reported
+    L/U.  Returns the per-read
     result dict in read order plus `arena`, the launch's frame rows
     [B, NFRAME, ROWW] (its scratch, valid once the launch has finished).
     Does not synchronise.  Raises for anything the kernel does not take —

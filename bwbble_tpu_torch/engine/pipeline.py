@@ -8,15 +8,18 @@ probe that chooses between them), difficulty ordering and pre-routing, the
 fixed-batch tiers (`run_tier`: the default path of `align`, with its
 streamed scan-and-launch branch and escalation ladder),
 the queued branch with its single deep rung, single-genome `-S` mode in
-both, `-P` seeding in both (`precalc`, `seed_slots`), and the overlapped
-host gold pool.  Not ported yet (raise NotImplementedError): the int64
-layout and device meshes.
+both, `-P` seeding in both (`precalc`, `seed_slots`), the int64
+whole-genome index layout in the fixed tiers, and the overlapped host gold
+pool.  Not ported yet (raise NotImplementedError): device meshes.
+
+The int64 layout (`didx.idt`, automatic at 2^31 positions) runs as the JAX
+package runs it: D bounds, seeds and intervals in int64, fixed tiers only;
+a queued run on it raises NotImplementedError, as the JAX package's does.
 
 Where the JAX package chooses a branch by asking whether it runs on its
 accelerator, the port takes the accelerator's branch, on the card and on
 the CPU alike, because its kernel and its plain version are one function:
-the search covers every int32, unsharded run at any lane count, seeded or
-not, so exact completion runs over lists of 128 intervals in multi-genome
+the search covers every unsharded run at any lane count, seeded or not, so exact completion runs over lists of 128 intervals in multi-genome
 mode (one interval in `-S`), 2.5 % of each D chunk is pre-routed to the
 gold pool, the ladder is one deep tier of 256 lanes, and the deep tier is
 on whenever the gold pool is up.  Seeded (`-P`) runs keep these rules too,
@@ -61,7 +64,7 @@ from bwbble_tpu_torch.engine import index_device
 from bwbble_tpu_torch.engine.dbound import calc_d, calc_d_1to1
 from bwbble_tpu_torch.engine.device_index import DeviceIndex
 from bwbble_tpu_torch.engine.inexact import (NB_MAX, OV_LIST, EngineConfig,
-                                             inexact_search,
+                                             QUEUED_I64, inexact_search,
                                              inexact_search_queued,
                                              ring_statics, unpack_paths)
 from bwbble_tpu_torch.formats.fastq import Reads
@@ -230,9 +233,9 @@ def calc_d_all(didx: DeviceIndex, reads: Reads, params: AlnParams,
         planes = host_idx.bit_planes()
         fused = host_idx.fused_planes()
         seed_len = int(params.seed_length)
-        Dp = np.zeros((still.size,) + tuple(D_all.shape[1:]), dtype=np.int32)
-        Dsp = np.zeros((still.size,) + tuple(Ds_all.shape[1:]),
-                       dtype=np.int32)
+        np_dt = _np_dtype(didx)
+        Dp = np.zeros((still.size,) + tuple(D_all.shape[1:]), dtype=np_dt)
+        Dsp = np.zeros((still.size,) + tuple(Ds_all.shape[1:]), dtype=np_dt)
         for t, r in enumerate(still):
             _native_d_read(nat, host_idx, planes, fused, nb_tab,
                            reads.seq[r], int(reads.lengths[r]), seed_len,
@@ -244,8 +247,13 @@ def calc_d_all(didx: DeviceIndex, reads: Reads, params: AlnParams,
     return D_all, Ds_all, dov_all
 
 
+def _np_dtype(didx: DeviceIndex):
+    """numpy type of D bounds and intervals for the index's layout."""
+    return np.int64 if didx.idt == torch.int64 else np.int32
+
+
 def native_scan_chunks(host_idx: FMIndex, reads: Reads, params: AlnParams,
-                       batch: int):
+                       batch: int, np_dt=np.int32):
     """Generator: exact D/D_seed bounds from the native unbounded-list
     scanner (the reference's calculate_d semantics at any interval-list
     width, inexact_match.c:171-254), one `batch`-read chunk at a time.
@@ -268,9 +276,8 @@ def native_scan_chunks(host_idx: FMIndex, reads: Reads, params: AlnParams,
     with ThreadPoolExecutor(n_threads) as ex:
         for s in range(0, NR, batch):
             e = min(s + batch, NR)
-            Dch = np.zeros((e - s, Lmax + 1, 2), dtype=np.int32)
-            Dsch = np.zeros((e - s, max(seed_len, 1) + 1, 2),
-                            dtype=np.int32)
+            Dch = np.zeros((e - s, Lmax + 1, 2), dtype=np_dt)
+            Dsch = np.zeros((e - s, max(seed_len, 1) + 1, 2), dtype=np_dt)
 
             def scan(lo, hi, s=s, Dch=Dch, Dsch=Dsch):
                 for r in range(lo, hi):
@@ -293,10 +300,11 @@ def _calc_d_native_all(didx: DeviceIndex, host_idx: FMIndex, reads: Reads,
     NR = reads.count
     Lmax = max(reads.max_len, 1)
     seed_len = int(params.seed_length)
-    D_np = np.zeros((NR, Lmax + 1, 2), dtype=np.int32)
-    Ds_np = np.zeros((NR, max(seed_len, 1) + 1, 2), dtype=np.int32)
+    np_dt = _np_dtype(didx)
+    D_np = np.zeros((NR, Lmax + 1, 2), dtype=np_dt)
+    Ds_np = np.zeros((NR, max(seed_len, 1) + 1, 2), dtype=np_dt)
     for gi, Dch, Dsch, zc in native_scan_chunks(host_idx, reads, params,
-                                                batch):
+                                                batch, np_dt):
         D_np[gi[0]:gi[-1] + 1] = Dch
         Ds_np[gi[0]:gi[-1] + 1] = Dsch
         if on_chunk is not None:
@@ -345,11 +353,15 @@ _COUNTER_KEYS = (("n_work", "work_units"), ("pops", "pops"),
 
 
 def _count_launch(counters: dict, host: dict) -> None:
-    """Add one collected launch's per-read counters to the run's totals."""
+    """Add one collected launch's per-read counters to the run's totals,
+    and the work units of its busiest lane to `chain_work` (a lane's work
+    units are a chain of dependent fetches: the base of a latency bound)."""
     for ks, kd in _COUNTER_KEYS:
         counters[kd] = counters.get(kd, 0) + int(
             host[ks].sum(dtype=np.int64))
     counters["launches"] = counters.get("launches", 0) + 1
+    counters["chain_work"] = counters.get("chain_work", 0) + int(
+        np.bincount(host["o_lane"], weights=host["n_work"]).max())
 
 
 def _assemble(host: dict, pathcap: int, root_plen: int) -> list:
@@ -412,10 +424,11 @@ class _LaunchTimer:
 
 def _lookup_seeds(precalc, rc: np.ndarray, lengths: np.ndarray,
                   params: AlnParams, seed_slots: int, dev, ids: np.ndarray,
-                  seen: np.ndarray, counters: dict):
+                  seen: np.ndarray, counters: dict, idt=torch.int32):
     """Seed intervals of a launch's reads on the host (read_indices +
-    lookup_batch): ((seed_L, seed_U, seed_cnt) int32 tensors on `dev`,
-    seed_over bool [n] — reads with more than `seed_slots` intervals).
+    lookup_batch): ((seed_L, seed_U, seed_cnt) tensors on `dev`, the
+    intervals in the index's type `idt`, the counts int32; seed_over bool
+    [n] — reads with more than `seed_slots` intervals).
     Copies to the device do not wait for it.  The reads `ids` (absolute)
     not `seen` before are added to the counters `no_seed_hit_reads` (no
     interval, or an N among their last precalc_len bases) and
@@ -426,8 +439,8 @@ def _lookup_seeds(precalc, rc: np.ndarray, lengths: np.ndarray,
     seen[ids] = True
     counters["no_seed_hit_reads"] += int((scnt[new] == 0).sum())
     counters["seed_over_reads"] += int(seed_over[new].sum())
-    seeds = tuple(torch.from_numpy(np.ascontiguousarray(x, dtype=np.int32))
-                  .to(dev) for x in (sL, sU, scnt))
+    seeds = tuple(torch.from_numpy(np.ascontiguousarray(x)).to(dev).to(dt)
+                  for x, dt in ((sL, idt), (sU, idt), (scnt, torch.int32)))
     return seeds, seed_over
 
 
@@ -493,6 +506,8 @@ def align_reads_device(idx: FMIndex, didx: DeviceIndex, reads: Reads,
             out[orig] = alns
         return out
     if queued and reads.count > int(params.batch_size):
+        if didx.idt == torch.int64:
+            raise NotImplementedError(QUEUED_I64)
         return _align_queued(idx, didx, reads, params, cfg, d_cap, stats,
                              precalc, seed_slots, sort_reads, qchunk=qchunk)
     t_start = _tm.time()
@@ -530,7 +545,7 @@ def align_reads_device(idx: FMIndex, didx: DeviceIndex, reads: Reads,
             if precalc is not None:
                 seeds, seed_over = _lookup_seeds(
                     precalc, rc, lengths, params, seed_slots, dev, sel,
-                    seed_seen, counters)
+                    seed_seen, counters, didx.idt)
             if isinstance(D_all, np.ndarray):
                 Dsel = torch.from_numpy(D_all[sel]).to(dev)
                 Dssel = torch.from_numpy(Ds_all[sel]).to(dev)
@@ -630,9 +645,10 @@ def align_reads_device(idx: FMIndex, didx: DeviceIndex, reads: Reads,
                 and probe_native_d(didx, reads, params, d_cap,
                                    host_idx=idx)[1]):
             seed_len = int(params.seed_length)
-            D_all = np.zeros((reads.count, Lmax + 1, 2), dtype=np.int32)
+            np_dt = _np_dtype(didx)
+            D_all = np.zeros((reads.count, Lmax + 1, 2), dtype=np_dt)
             Ds_all = np.zeros((reads.count, max(seed_len, 1) + 1, 2),
-                              dtype=np.int32)
+                              dtype=np_dt)
             z_all = np.zeros(reads.count, dtype=np.int64)
             t_scan = [0.0]
 
@@ -641,7 +657,7 @@ def align_reads_device(idx: FMIndex, didx: DeviceIndex, reads: Reads,
                 pend_z = np.empty(0, dtype=np.int64)
                 ts = _tm.monotonic()
                 for gi, Dch, Dsch, zc in native_scan_chunks(
-                        idx, reads, params, B):
+                        idx, reads, params, B, np_dt):
                     D_all[gi[0]:gi[-1] + 1] = Dch
                     Ds_all[gi[0]:gi[-1] + 1] = Dsch
                     z_all[gi[0]:gi[-1] + 1] = zc

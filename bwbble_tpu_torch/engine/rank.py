@@ -1,4 +1,4 @@
-"""Batched FM-index rank ops on the fused int32 table.
+"""Batched FM-index rank ops on the fused table.
 
 Counterpart of bwbble_tpu/engine/rank.py.  Each function takes a vector of
 BWT positions and returns occurrence bounds for the whole batch: one row
@@ -12,7 +12,9 @@ Two 16-symbol variants exist on purpose:
   i == length-1 edge paths return full counts for all symbols.
 
 Returned values are fully formed interval bounds:
-occ[j] = C[j] + O(j, i) + inc.
+occ[j] = C[j] + O(j, i) + inc, in the index's arithmetic type `didx.idt`
+(int32, or int64 for the whole-genome layout, whose checkpoint counts are
+split into low and high words: ck = hi << 32 | lo).
 """
 
 from __future__ import annotations
@@ -49,10 +51,14 @@ def _gather_block(didx: DeviceIndex, i: torch.Tensor):
     len_m1 = didx.length - 1
     i_c = i.clamp(0, max(len_m1 - 1, 0))
     k = torch.div(i_c, BLK, rounding_mode="floor")
-    off = i_c - k * BLK
-    rows = didx.table.index_select(0, k.long())              # [B, 32]
+    off = (i_c - k * BLK).to(torch.int32)
+    rows = didx.table.index_select(0, k.long())              # [B, 32|48]
     pw = rows[:, :16].reshape(-1, 4, 4)                      # [B, bit, word]
-    ck = rows[:, 16:32]
+    if didx.idt == torch.int64:
+        lo = rows[:, 16:32].to(torch.int64) & 0xFFFFFFFF
+        ck = (rows[:, 32:48].to(torch.int64) << 32) | lo     # [B, 16] i64
+    else:
+        ck = rows[:, 16:32]
     first = ((pw[:, 0, 0] & 1) | ((pw[:, 1, 0] & 1) << 1)
              | ((pw[:, 2, 0] & 1) << 2) | ((pw[:, 3, 0] & 1) << 3))
     return pw, ck, off, first
@@ -93,15 +99,16 @@ def _block_count1(pw: torch.Tensor, off: torch.Tensor,
 def _rank_all(didx: DeviceIndex, i: torch.Tensor, inc, dfs: bool
               ) -> torch.Tensor:
     """inc may be a scalar or a per-query [B] vector."""
-    i = i.to(torch.int32)
+    idt = didx.idt
+    i = i.to(idt)
     if not torch.is_tensor(inc):
         inc = torch.full_like(i, int(inc))
-    inc = inc.to(torch.int32)[:, None]
+    inc = inc.to(idt)[:, None]
     len_m1 = didx.length - 1
     pw, ck, off, first = _gather_block(didx, i)
-    cnt = _block_counts(pw, off)
+    cnt = _block_counts(pw, off).to(idt)
     sym = torch.arange(16, dtype=torch.int32, device=i.device)
-    first_dec = (first[:, None] == sym[None, :]).to(torch.int32)
+    first_dec = (first[:, None] == sym[None, :]).to(idt)
     Cv = didx.Carr[:16][None, :]
 
     normal = Cv + ck + cnt + inc - first_dec
@@ -148,16 +155,16 @@ def rank1(didx: DeviceIndex, c: torch.Tensor, i: torch.Tensor
           ) -> torch.Tensor:
     """Single-char rank O(c, i) per lane (bwt.c:348-372), including the
     sentinel-row exclusion for c == 0 (bwt.c:360-369)."""
+    idt = didx.idt
     c = c.to(torch.int32)
-    i = i.to(torch.int32)
+    i = i.to(idt)
     len_m1 = didx.length - 1
     pw, ck, off, first = _gather_block(didx, i)
     base = torch.div(i, BLK, rounding_mode="floor") * BLK
-    cnt = _block_count1(pw, off, c)
+    cnt = _block_count1(pw, off, c).to(idt)
     ckc = ck.gather(1, c.long()[:, None])[:, 0]
-    sentinel = ((c == 0) & (base < didx.sa0) & (didx.sa0 <= i)
-                ).to(torch.int32)
-    normal = ckc + cnt - (first == c).to(torch.int32) - sentinel
+    sentinel = ((c == 0) & (base < didx.sa0) & (didx.sa0 <= i)).to(idt)
+    normal = ckc + cnt - (first == c).to(idt) - sentinel
     high = didx.Carr[(c + 1).long()] - didx.Carr[c.long()]
     return torch.where(i == len_m1, high,
                        torch.where(i < 0, torch.zeros_like(normal), normal))
@@ -165,8 +172,8 @@ def rank1(didx: DeviceIndex, c: torch.Tensor, i: torch.Tensor
 
 def _pair(didx, iL, iU, dfs):
     B = iL.shape[0]
-    iL = iL.to(torch.int32)
-    iU = iU.to(torch.int32)
+    iL = iL.to(didx.idt)
+    iU = iU.to(didx.idt)
     inc = torch.cat([torch.ones_like(iL), torch.zeros_like(iU)])
     out = _rank_all(didx, torch.cat([iL, iU]), inc, dfs=dfs)
     return out[:B], out[B:]
@@ -201,9 +208,9 @@ def rank1_pair(didx: DeviceIndex, c: torch.Tensor, iL: torch.Tensor,
 
 def bwt_char(didx: DeviceIndex, i: torch.Tensor) -> torch.Tensor:
     """B(i) per lane (bwt.c:337-345); returns int32 codes."""
-    i = i.to(torch.int32)
+    i = i.to(didx.idt)
     k = torch.div(i, BLK, rounding_mode="floor")
-    off = i - k * BLK
+    off = (i - k * BLK).to(torch.int32)
     pw = didx.table.index_select(0, k.long())[:, :16].reshape(-1, 4, 4)
     w = torch.div(off, 32, rounding_mode="floor")
     b = off - w * 32
@@ -215,7 +222,7 @@ def bwt_char(didx: DeviceIndex, i: torch.Tensor) -> torch.Tensor:
 
 def inv_psi(didx: DeviceIndex, i: torch.Tensor) -> torch.Tensor:
     """LF step per lane (invPsi, bwt.c:311-317)."""
-    i = i.to(torch.int32)
+    i = i.to(didx.idt)
     c = bwt_char(didx, i)
     step = didx.Carr[c.long()] + rank1(didx, c, i)
     return torch.where(i == didx.sa0, torch.zeros_like(step), step)
@@ -227,14 +234,14 @@ def sa_resolve(didx: DeviceIndex, rows: torch.Tensor) -> torch.Tensor:
     Samples are stored at rows = 0 (mod SA_INTERVAL), so the lockstep walk
     length is geometric with mean SA_INTERVAL; all lanes run until every one
     has parked on a sampled row (one host check per step)."""
-    i = rows.to(didx.table.device).to(torch.int32)
+    i = rows.to(didx.table.device).to(didx.idt)
     j = torch.zeros_like(i)
     while True:
         moving = (i % C.SA_INTERVAL) != 0
         if not bool(moving.any()):
             break
         i = torch.where(moving, inv_psi(didx, i), i)
-        j = j + moving.to(torch.int32)
+        j = j + moving.to(didx.idt)
     vals = didx.sa_samples[torch.div(i, C.SA_INTERVAL,
                                      rounding_mode="floor").long()]
     return (vals + j) % didx.length

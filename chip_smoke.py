@@ -28,10 +28,19 @@ against the gold engine); pre_path (`align -n 4 -P` on the easy world,
 fixed batches of 8 192: the seeded launches); seeded comparisons on the
 small worlds, on the easy world at pre_path's settings and on main-world
 reads with a precalc_len-10 table built on the card; sam (`aln2sam` with
-SA rows resolved on the card); then the rest of the plain versions and
-every comparison line; then the `{"kernels": [...]}` line and the last
-line.  Before each path the launch counts are set to 0 and after it they
-are read: a path that did not launch its kernel fails.
+SA rows resolved on the card); probes (the three row-fetch probes through
+their entry points at their own sizes, then each probe kernel against its
+plain version, exact equality, beside the one PyTorch call that computes
+the same function where there is one; `dma_wave` at the main path's 512
+lanes gives the card's latency of a dependent row fetch); int64_path (the
+main world's index in the int64 layout, aligned as fixed_path aligns it,
+`.aln` byte-equal to fixed_path's; the int64 fixed kernel against its plain
+version on main-world reads and on a virtual-offset index whose counts lie
+past 2^33); then the rest of the plain versions and every comparison line;
+then the `{"kernels": [...]}` line and the last line.  The small-world
+comparisons also run the int64 layout's instantiations.  Before each path
+the launch counts are set to 0 and after it they are read: a path that did
+not launch its kernel fails.
 
 The plain versions (one lockstep iteration per pop of a comparison's
 longest read, bound by the host's dispatch of small ops) run one after
@@ -117,7 +126,14 @@ def main() -> int:
     from bwbble_tpu_torch import build_native, cli, worlds
     from bwbble_tpu_torch.align.params import AlnParams
     from bwbble_tpu_torch.engine import kernel
-    from bwbble_tpu_torch.engine.device_index import from_fmindex
+    from bwbble_tpu_torch.benchmarks import (dma_probe, gather_bench,
+                                             gather_pallas_probe)
+    from bwbble_tpu_torch.benchmarks import kernels as probe_k
+    from bwbble_tpu_torch.engine.device_index import (build_planes,
+                                                      from_arrays,
+                                                      from_fmindex)
+    from bwbble_tpu_torch.engine.rank import rank_all_exact
+    from bwbble_tpu_torch.formats.fastq import parse_fastq_bytes
     from bwbble_tpu_torch.align.pipeline import (align_reads_gold,
                                                  alns_to_sam)
     from bwbble_tpu_torch.align.precalc import (build_precalc_device,
@@ -153,27 +169,34 @@ def main() -> int:
 
     # ----------------------------------------------------------------- build
     t = time.time()
-    nvcc = subprocess.Popen(
-        [sys.executable, "-c",
-         "from bwbble_tpu_torch.engine import kernel; print(kernel.build())"],
+    # one nvcc for each CUDA source, all started together, beside g++
+    nvcc = {name: subprocess.Popen(
+        [sys.executable, "-c", "from bwbble_tpu_torch.engine import kernel; "
+         f"print(kernel.build({name!r}))"],
         cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for name in ("ring_search", "probes")}
     try:
         build_native.build(verbose=False)       # g++, alongside nvcc
     finally:
-        k_out, k_err = nvcc.communicate()
-    if nvcc.returncode != 0:
-        fail("build", "kernel build failed: " + k_err[-2000:])
+        built = {name: p.communicate() for name, p in nvcc.items()}
+    for name, p in nvcc.items():
+        if p.returncode != 0:
+            fail("build", f"{name} build failed: " + built[name][1][-2000:])
     nat = get_native()
     if nat is None or not nat._has_gold or not nat._has_calc_d:
         fail("build", "native library did not load")
     kernel._load()
-    with open(k_out.strip() + ".log") as f:
-        # one entry per instantiation: <multiref, fixed> of the template
-        ptxas = [ln.strip().replace("ptxas info    : ", "") for ln in f
-                 if "Compiling entry" in ln or "registers" in ln
-                 or "stack frame" in ln]
+    probe_k._load()
+    ptxas, libs = {}, {}
+    for name, (k_out, _err) in built.items():
+        libs[name] = os.path.relpath(k_out.strip(), ROOT)
+        with open(k_out.strip() + ".log") as f:
+            # one entry per instantiation of each template
+            ptxas[name] = [ln.strip().replace("ptxas info    : ", "")
+                           for ln in f if "Compiling entry" in ln
+                           or "registers" in ln or "stack frame" in ln]
     emit("build", ok=True, seconds=round(time.time() - t, 1),
-         kernel_lib=os.path.relpath(k_out.strip(), ROOT), ptxas=ptxas)
+         kernel_libs=libs, ptxas=ptxas)
 
     # --------------------------------------------------------------- kernels
     def exact_d(idx, rd, params):
@@ -217,12 +240,15 @@ def main() -> int:
                     D, Ds)]
         a = [torch.from_numpy(x).to(dev) for x in host_in]
         sd_host = None if seeds is None else [
-            np.ascontiguousarray(x, dtype=np.int32) for x in seeds]
+            np.ascontiguousarray(x, dtype=dt) for x, dt in zip(
+                seeds, (np.int64 if didx.idt == torch.int64 else np.int32,) * 2
+                + (np.int32,))]
         sd = None if seeds is None else tuple(
             torch.from_numpy(x).to(dev) for x in sd_host)
         n = a[0].shape[0]
+        x64 = didx.idt == torch.int64
         entry = ("fixed_search" if lanes is None else "ring_search") + (
-            "" if seeds is None else "_seeded")
+            "" if seeds is None else "_seeded") + ("_i64" if x64 else "")
         if lanes is None:
             def run():
                 return kernel.fixed_search(didx, *a, params, cfg, sd)
@@ -241,14 +267,15 @@ def main() -> int:
         walked = None
         S = ring_statics(params, cfg, a[0].shape[1], a[3].shape[1],
                          fixed=lanes is None,
-                         seed_slots=0 if seeds is None else sd[0].shape[1])
+                         seed_slots=0 if seeds is None else sd[0].shape[1],
+                         x64=x64)
         if lanes is None:
             live = (torch.arange(S.ACAP, device=dev)[None, :]
                     < got["n_alns"][:, None])
             ln_i, sl_i = live.nonzero(as_tuple=True)
             w = walk_paths(got["arena"], ln_i, got["o_node"][ln_i, sl_i],
                            nroot=S.NROOT, nslot=S.NSLOT, nc=S.NC,
-                           pathcap=S.PATHCAP).cpu().numpy()
+                           pathcap=S.PATHCAP, nw=S.NW).cpu().numpy()
             inker = unpack_paths(got["paths"].cpu().numpy(), S.PATHCAP)
             walked = bool((w == inker[ln_i.cpu().numpy(),
                                       sl_i.cpu().numpy()]).all())
@@ -270,7 +297,13 @@ def main() -> int:
                          multi_root_share=float((sc > 1).mean()),
                          no_seed_hit_share=float((sc == 0).mean()),
                          seed_over_share=float(np.mean(seed_over)))
-        rec = dict(ms=ms, io_bytes=io_bytes, reads=n, **tot)
+        # work units (pops and exact-completion characters) of the busiest
+        # lane: a chain of dependent fetches, the base of a latency bound
+        lane = got["o_lane"].cpu().numpy()
+        lane_work_max = int(np.bincount(
+            lane, weights=got["n_work"].cpu().numpy()).max())
+        rec = dict(ms=ms, io_bytes=io_bytes, reads=n, x64=x64,
+                   lane_work_max=lane_work_max, **tot)
         b_ms, b_by = bound_ms(rec)
         line = dict(
             world=name, entry=entry,
@@ -279,7 +312,8 @@ def main() -> int:
             refills=0 if lanes is None else max(0, n - lanes),
             cap=cfg.cap, acap=cfg.acap, xc=cfg.xcap or cfg.kx,
             finished_share=1.0 - tot["overflow"] / n, kernel_ms=ms,
-            bound_ms=b_ms, bound_by=b_by, walk_paths_equal=walked, **roots)
+            bound_ms=b_ms, bound_by=b_by, lane_work_max=lane_work_max,
+            walk_paths_equal=walked, **roots)
         if lanes is None:
             def run_plain():
                 return fixed_search_plain(didx, *a, params, cfg, sd)
@@ -320,7 +354,9 @@ def main() -> int:
                     err = max(err, int(d.max()))
             del ref
             c.update(plain_ms=plain_ms, err=err, equal=not bad)
-            c["line"].update(equal_to_plain=not bad, plain_ms=plain_ms)
+            c["line"].update(equal_to_plain=not bad, plain_ms=plain_ms,
+                             latency_bound_ms=latency_ms(
+                                 c["lane_work_max"]))
             emit("kernels.compare", mismatched=bad, **c["line"],
                  **c["totals"])
             if bad:
@@ -343,11 +379,14 @@ def main() -> int:
         kernel's own counters say the search had to touch: 128-byte rank
         rows, 16-byte popped slots, at least one 16-byte slot and the
         parent word per written frame, a root pop's seed interval: two
-        int32 words of seed_L and seed_U) over the memory rate, against the integer operations (about
-        16 per symbol word of a rank row's 11-16 symbols, ~1000 a row; ~300
-        a pop) over the ALU rate."""
-        nbytes = (c["io_bytes"] + 128 * c["rank_rows"] + 16 * c["frame_rd"]
-                  + 20 * c["frame_wr"] + 8 * c.get("root_rd", 0))
+        words of seed_L and seed_U; on the int64 layout 192-byte rows,
+        24-byte slots and 8-byte words) over the memory rate, against the
+        integer operations (about 16 per symbol word of a rank row's 11-16
+        symbols, ~1000 a row; ~300 a pop) over the ALU rate."""
+        w = 2 if c.get("x64") else 1
+        nbytes = (c["io_bytes"] + (128 + 64 * (w - 1)) * c["rank_rows"]
+                  + (16 + 8 * (w - 1)) * (c["frame_rd"] + c["frame_wr"])
+                  + 4 * c["frame_wr"] + 8 * w * c.get("root_rd", 0))
         ops = 1000 * c["rank_rows"] + 300 * c["pops"]
         tb, to = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_OPS_S * 1e3
         return max(tb, to), ("bytes" if tb >= to else "operations")
@@ -425,6 +464,22 @@ def main() -> int:
     seeded_pair("single_genome", didx_s, rd_s, D, Ds,
                 dataclasses.replace(ps, precalc_len=4, use_precalc=True),
                 cfg_4, gold_table(idx_s, 4), 8, 16)
+    # the int64 layout's two instantiations (fixed batches only, as in the
+    # JAX package): the single-genome world, then the mixed world unseeded
+    # and seeded, each built in the int64 layout
+    didx_s64 = from_fmindex(idx_s, use_int64=True, device=dev)
+    D, Ds = device_d(didx_s64, rd_s, ps, 16)
+    compare("single_genome_i64", didx_s64, rd_s.rc, ln_s, D, Ds, ps, cfg_4,
+            None)
+    idx_s, rd_s = worlds.mixed_world()
+    didx_s64 = from_fmindex(idx_s, use_int64=True, device=dev)
+    D, Ds = (x.astype(np.int64) for x in exact_d(idx_s, rd_s, p3))
+    compare("mixed_i64", didx_s64, rd_s.rc, rd_s.lengths, D, Ds, p3, cfg_s,
+            None)
+    sd, over = seeds_of(gold_table(idx_s, 4), rd_s, 4, 8)
+    compare("mixed_i64", didx_s64, rd_s.rc, rd_s.lengths, D, Ds, p3s, cfg_s,
+            None, sd, over)
+    del didx_s64
 
     # ------------------------------------------------------------- main path
     reduced = {} if args.genome_bp == GENOME_BP else \
@@ -525,7 +580,8 @@ def main() -> int:
             n_work=stats.get("work_units"), pops=stats.get("pops"),
             rank_rows=stats.get("rank_rows"),
             frame_rd_rows=stats.get("frame_rd_rows"),
-            frame_wr_rows=stats.get("frame_wr_rows"), card=card, **extra)
+            frame_wr_rows=stats.get("frame_wr_rows"),
+            chain_work=stats.get("chain_work"), card=card, **extra)
 
     def zero_launches():
         for k in kernel.LAUNCHES:
@@ -908,22 +964,287 @@ def main() -> int:
     if not sam_parity:
         fail("sam", "SAM text differs from the host resolver's")
 
+    # ---------------------------------------------------------------- probes
+    # the three row-fetch probes through their entry points at their own
+    # sizes (`python -m bwbble_tpu_torch.benchmarks.<probe>`), with the
+    # launch counts set to 0 before and read after; then each kernel held
+    # against its plain version on host copies of the same inputs (exact
+    # equality), beside the one PyTorch call that computes the same
+    # function where there is one
+    for k_ in probe_k.LAUNCHES:
+        probe_k.LAUNCHES[k_] = 0
+    t = time.time()
+    k4 = {b0: dma_probe.main([str(b0), "256"]) for b0 in (128, 512, 8192)}
+    k5 = gather_pallas_probe.main()
+    k6 = gather_bench.main()
+    probe_launches = dict(probe_k.LAUNCHES)
+    t_probes = time.time() - t
+    for b0, rows in k4.items():
+        for r in rows:
+            emit("probes.dma_wave", variant=r["variant"], B0=b0, K=r["K"],
+                 N=r["N"], ms=r["ms"], us_per_wave=r["us_per_wave"],
+                 ns_per_row=r["ns_per_row"], card=card)
+    for r in k5:
+        emit("probes.digest_consume", variant=r["variant"], RQ=r["RQ"],
+             B=r["B"], N=r["N"], layout=r["layout"], iters=r["iters"],
+             ms=r["ms"], us_per_iter=r["us_per_iter"],
+             ns_per_row=r["ns_per_row"], card=card)
+    for r in k6:
+        emit("probes.row_gather", variant=r["variant"], N=r["N"], ms=r["ms"],
+             ns_per_row=r["ns_per_row"], equal=r["equal"], card=card)
+    # ns a wave of `wave` at the main path's 512 lanes: the card's latency
+    # of one dependent row fetch
+    latency_ns = next(r for r in k4[512] if r["variant"] == "wave")[
+        "ms"] * 1e6 / 256
+
+    def latency_ms(chain_work):
+        """Latency bound of launches whose busiest lanes did `chain_work`
+        work units in all: each unit a round of dependent fetches."""
+        return chain_work * latency_ns / 1e6
+    emit("probes", ok=True, seconds=round(t_probes, 1),
+         launches=probe_launches,
+         latency_ns_per_dependent_row=latency_ns,
+         latency_from="dma_wave, variant wave, B0 = 512, K = 256: ms a "
+                      "launch / K", card=card)
+    if min(probe_launches.values()) == 0 or not all(r["equal"] for r in k6):
+        fail("probes", f"a probe kernel was not launched ({probe_launches})"
+                       " or a gather differs from index_select")
+
+    pcmps: dict = {"dma_wave": [], "digest_consume": [], "row_gather": []}
+
+    def probe_compare(name, fn, plain, sets, nbytes, library=None, **what):
+        """One probe kernel on the card against its plain version on host
+        copies of the first of `sets` (argument tuples of distinct inputs);
+        kernel and library call timed with CUDA events, one call on each
+        other set after a warm-up on the last, the plain version on the
+        host clock."""
+        got = fn(*sets[0]).cpu()
+        host = [x.cpu() if torch.is_tensor(x) else x for x in sets[0]]
+        t0 = time.time()
+        ref = plain(*host)
+        plain_ms = (time.time() - t0) * 1e3
+        err = int((got.to(torch.int64) - ref.to(torch.int64)).abs().max())
+        n_t = len(sets) - 1
+        line = dict(ms=probe_k.time_calls(fn, sets, n_t),
+                    plain_ms=plain_ms,
+                    library_ms=None if library is None else
+                    probe_k.time_calls(library, sets, n_t),
+                    bound_ms=nbytes / PEAK_BYTES_S * 1e3, bound_by="bytes",
+                    max_abs_err=err, equal_to_plain=err == 0, **what)
+        pcmps[name].append(line)
+        emit("probes.compare", kernel=name, **line)
+        if err:
+            fail("probes", f"{name} {what} != its plain version")
+        return line
+
+    # every comparison is timed over SETS distinct input sets, one warms up
+    SETS = 21
+    # K4: the probe's table (N rows of 512 bytes), B0 = 128 lanes for 16
+    # waves, and the main path's 512 lanes for 256 waves, both variants.
+    # Its bytes: of each row fetched, the words the output depends on (8
+    # for `wave`, 32 for `compute`), idx0 read and the output written once
+    tbl, idx_w = dma_probe.make_inputs(512, dma_probe.N, dev, seed=1,
+                                       sets=SETS)
+    for b0, kw in ((128, 16), (512, 256)):
+        sets = [(i[:, :b0].contiguous(), tbl) for i in idx_w]
+        for variant, heavy in dma_probe.VARIANTS:
+            probe_compare(
+                "dma_wave",
+                lambda i, tb, k=kw, h=heavy: probe_k.dma_wave(
+                    i, tb, k, h, check_index=False),
+                lambda i, tb, k=kw, h=heavy: probe_k.dma_wave_plain(
+                    i, tb, k, h),
+                sets, b0 * kw * (128 if heavy else 32) + 2 * 8 * b0 * 4,
+                variant=variant, B0=b0, K=kw, N=dma_probe.N)
+    del tbl, idx_w, sets
+    # K5: one iteration's rows of every variant, in its layout; the
+    # library call is torch.sum over the digest view
+    for variant, (rq, _w, layout) in gather_pallas_probe.VARIANTS.items():
+        tb, k0 = gather_pallas_probe.make_inputs(variant, dev, seed=1)
+        B_ = k0.shape[1]
+        sets = [(gather_pallas_probe.gather_rows(variant, tb, k),)
+                for k in [k0] + [torch.randint_like(k0, 0, tb.shape[0])
+                                 for _ in range(SETS - 1)]]
+        probe_compare(
+            "digest_consume",
+            lambda x_, l=layout, r=rq: probe_k.digest_consume(x_, l, r, B_),
+            lambda x_, l=layout, r=rq: probe_k.digest_consume_plain(
+                x_, l, r, B_),
+            sets, rq * B_ * 8 * 4 + 8 * B_ * 4,
+            library=lambda x_, l=layout, r=rq: probe_k.digest_view(
+                x_, l, r, B_).sum(dim=0, dtype=torch.int32),
+            variant=variant, layout=layout, RQ=rq, B=B_)
+        del tb, k0, sets
+    # K6: both N, every variant; the library call is index_select
+    for n_ in gather_bench.NS:
+        tb, ks = gather_bench.make_inputs(gather_bench.NBLK, n_, dev, seed=1,
+                                          sets=SETS)
+        for variant, mode, unroll, nbuf in gather_bench.VARIANTS:
+            probe_compare(
+                "row_gather",
+                lambda t_, k_, m=mode, u=unroll, b=nbuf: probe_k.row_gather(
+                    t_, k_, m, u, b, check_index=False),
+                lambda t_, k_, m=mode, u=unroll, b=nbuf:
+                    probe_k.row_gather_plain(t_, k_, m, u, b),
+                [(tb, k) for k in ks], n_ * 128 * 2 + n_ * 4,
+                library=lambda t_, k_: t_.index_select(0, k_.long()),
+                variant=variant, N=n_, NBLK=gather_bench.NBLK)
+        del tb, ks
+    # an index outside the table is refused on the card, before a launch
+    tb = torch.zeros((16, 128), dtype=torch.int32, device=dev)
+    bad = torch.full((8, 8), 16, dtype=torch.int32, device=dev)
+    refused = 0
+    for call in (lambda: probe_k.dma_wave(bad, tb, 2),
+                 lambda: probe_k.row_gather(tb[:, :32].contiguous(), bad[0]),
+                 lambda: probe_k.row_gather(tb[:, :32].contiguous(), -bad[0],
+                                            "ring", nbuf=8)):
+        try:
+            call()
+        except IndexError:
+            refused += 1
+    emit("probes.refusal", ok=refused == 3, refused=refused, of=3)
+    if refused != 3:
+        fail("probes", "a probe wrapper took an index outside its table")
+    del tb, bad
+
+    # ------------------------------------------------------------ int64 path
+    # the int64 whole-genome layout (192-byte rows, int64 intervals and D)
+    # through the fixed kernel's int64 instantiations: the main world's
+    # index built in that layout, aligned as fixed_path aligns it (`align
+    # -n 4`, default --batch and --arena, the same 8 192 reads); its `.aln`
+    # must equal fixed_path's, which equals the gold engine's
+    t = time.time()
+    didx64 = from_fmindex(idx, use_int64=True, device=dev)
+    torch.cuda.synchronize()
+    t_build64 = time.time() - t
+    i_alns, i_dt, i_stats, i_launches, i_peak = timed_align(
+        idx, didx64, reads, p_fixed, cfg_fixed)
+    i64_aln = os.path.join(wdir, "fixed_i64.aln")
+    write_aln_file(i64_aln, i_alns)
+    i_same = filecmp.cmp(i64_aln, fixed_aln, shallow=False)
+    i_ok = bool(i_same and i_launches["fixed_search_i64"] > 0
+                and i_launches["fixed_search"] == 0
+                and i_stats.get("launches") == i_launches["fixed_search_i64"])
+    i64_reduced = {
+        "genome": "the main world (46.7 Mbp) in the int64 layout, not a "
+                  "whole genome: a whole-genome index takes hours to build "
+                  "on the host",
+        "past_2^31": "checked on a virtual-offset index (counts and C "
+                     "shifted by 3 * 2^32) of 2^16 blocks"}
+    emit("int64_path", ok=i_ok, same_as_fixed_path=i_same,
+         parity_against="fixed_path's `.aln` (itself equal to the gold "
+                        "engine's), byte for byte",
+         table_bytes=didx64.table.numel() * 4,
+         layout_seconds=round(t_build64, 2), peak_device_gb=i_peak,
+         i64_launches=i_launches["fixed_search_i64"], reduced=i64_reduced,
+         **path_line(reads.count, i_dt, i_stats,
+                     i_launches["fixed_search_i64"]))
+    if not i_ok:
+        fail("int64_path", "the int64 run's `.aln` differs from "
+                           "fixed_path's, or it did not launch the int64 "
+                           "instantiation (alone)")
+    # the int64 fixed kernel against its plain version on 256 of the main
+    # world's reads at tier 1's settings
+    n_i64 = 256
+    ci = compare("main_world_i64", didx64, rc_c[:n_i64],
+                 rd_c.lengths[:n_i64], Dc[:n_i64].astype(np.int64),
+                 Dsc[:n_i64].astype(np.int64), params, cfg_tier1, None)
+    del didx64
+    # past 2^31: a virtual-offset index (tests/test_int64.py) of 2^16
+    # blocks: real in-block codes, every count and C shifted by 3 * 2^32;
+    # the length stays 2^23 so that every rank query's clamped block lies
+    # in the table.  rank_all_exact against a numpy int64 model, and the
+    # int64 kernel against its plain version on 256 reads of 1-3 bases
+    # (longer reads find only empty intervals on such an index): their
+    # reported L/U lie past 2^33
+    vrng = np.random.default_rng(3)
+    OFF = 3 << 32
+    nblk_v = 1 << 16
+    vblocks = vrng.integers(0, 16, (nblk_v, 128)).astype(np.int8)
+    vocc = vrng.integers(0, 100, (nblk_v, 16)).astype(np.int64) + OFF
+    vtab = np.concatenate(
+        [build_planes(vblocks),
+         (vocc & 0xFFFFFFFF).astype(np.uint32).view(np.int32),
+         (vocc >> 32).astype(np.int32)], axis=1)
+    vcarr = np.arange(17, dtype=np.int64) * 7 + OFF
+    vd = from_arrays(vtab, vcarr, np.zeros(4, np.int64), nblk_v * 128, 1,
+                     device=dev)
+    vpos = vrng.integers(0, nblk_v * 128 - 2, 4096).astype(np.int64)
+    vgot = rank_all_exact(vd, torch.from_numpy(vpos).to(dev), 0).cpu().numpy()
+    kb, ob = vpos // 128, vpos % 128
+    vblk = vblocks[kb]
+    sym = np.arange(16)
+    vcnt = ((vblk[:, :, None] == sym) & (np.arange(128)[None, :, None]
+                                         <= ob[:, None, None])).sum(axis=1)
+    vexp = (vcarr[None, :16] + vocc[kb] + vcnt
+            - (vblk[:, :1] == sym[None, :]).astype(np.int64))
+    vexp[:, 0] = 0
+    v_rank_ok = bool((vgot == vexp).all())
+    vreads = parse_fastq_bytes("".join(
+        f"@v{i}\n{s_}\n+\n{'I' * len(s_)}\n" for i, s_ in enumerate(
+            "".join("ACGT"[x] for x in vrng.integers(0, 4, int(n)))
+            for n in vrng.integers(1, 4, 256))).encode())
+    cv = compare("virtual_offset_i64", vd, vreads.rc, vreads.lengths,
+                 np.zeros((vreads.count, vreads.max_len + 1, 2), np.int64),
+                 np.zeros((vreads.count, 33, 2), np.int64),
+                 AlnParams(max_diff=1),
+                 EngineConfig(cap=8192, acap=24, kx=2, max_iters=20_000,
+                              xcap=16), None)
+    v_high = int(cv["got"]["o_L"].max())
+    emit("int64_path.virtual", ok=bool(v_rank_ok and v_high > 2**33),
+         blocks=nblk_v, offset=OFF, rank_positions=int(vpos.size),
+         rank_equal_to_numpy=v_rank_ok, search_reads=vreads.count,
+         search_alignments=cv["n_alns"], reported_L_max=v_high)
+    if not (v_rank_ok and v_high > 2**33 and cv["n_alns"] > 0):
+        fail("int64_path", "the virtual-offset rank differs from the numpy "
+                           "model, or its search reported nothing past 2^33")
+    del vd
+
     # every plain version, then the comparison lines
     resolve_plain()
 
     def cmps_of(entry):
         return [x["line"] for x in cmps if x["line"]["entry"] == entry]
 
-    def path_bound(st):
+    def path_bound(st, x64=False):
         return bound_ms(dict(io_bytes=0, rank_rows=st["rank_rows"],
                              frame_rd=st["frame_rd_rows"],
                              frame_wr=st["frame_wr_rows"],
                              root_rd=st.get("root_rows", 0),
-                             pops=st["pops"]))[0]
+                             pops=st["pops"], x64=x64))[0]
 
     b_ms, b_by = bound_ms(c)
     fb_ms, fb_by = bound_ms(cf)
     sb_ms, sb_by = bound_ms(c3)
+    ib_ms, ib_by = bound_ms(ci)
+    i64_lines = cmps_of("fixed_search_i64") + cmps_of(
+        "fixed_search_seeded_i64")
+
+    def probe_entry(name, source_replaces, replaces_name, main, **extra):
+        """A probe kernel's entry: the numbers of its comparison `main`,
+        every comparison, and the launches of the probes phase."""
+        return {
+            "name": name, "route": "cuda",
+            "source": "bwbble_tpu_torch/csrc/probes.cu",
+            "replaces": source_replaces, "replaces_name": replaces_name,
+            "launches": probe_launches[name],
+            "max_abs_err": max(x["max_abs_err"] for x in pcmps[name]),
+            "equal_to_plain": all(x["equal_to_plain"]
+                                  for x in pcmps[name]),
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": main["library_ms"], "at": {
+                k: v for k, v in main.items() if k not in (
+                    "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                    "max_abs_err", "equal_to_plain")},
+            **extra, "comparisons": pcmps[name]}
+
+    k4_main = next(x for x in pcmps["dma_wave"]
+                   if x["B0"] == 512 and x["variant"] == "wave")
+    k5_main = next(x for x in pcmps["digest_consume"]
+                   if x["variant"] == "take")
+    k6_main = next(x for x in pcmps["row_gather"]
+                   if x["N"] == 65_536 and x["variant"] == "direct u1")
     seeded_lines = (cmps_of("fixed_search_seeded")
                     + cmps_of("ring_search_seeded"))
     src = "bwbble_tpu_torch/csrc/ring_search.cu"
@@ -939,13 +1260,16 @@ def main() -> int:
         "reads": c["reads"],
         "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": b_ms,
         "bound_by": b_by, "library_ms": None,
+        "latency_bound_ms": c["line"]["latency_bound_ms"],
         # the same kernel over the main path's timed run (all launches)
         "main_path_ms": stats.get("t_search", 0.0) * 1e3,
         "main_path_bound_ms": path_bound(stats),
+        "main_path_latency_bound_ms": latency_ms(stats["chain_work"]),
         # the 4-letter instantiation over the queued run of the single path
         "single_path_launches": q_launches["ring_search"],
         "single_path_ms": q_stats.get("t_search", 0.0) * 1e3,
         "single_path_bound_ms": path_bound(q_stats),
+        "single_path_latency_bound_ms": latency_ms(q_stats["chain_work"]),
         "comparisons": cmps_of("ring_search"),
     }, {
         "name": "fixed_search", "route": "cuda", "source": src,
@@ -959,16 +1283,37 @@ def main() -> int:
         "reads": cf["reads"],
         "ms": cf["ms"], "plain_ms": cf["plain_ms"], "bound_ms": fb_ms,
         "bound_by": fb_by, "library_ms": None,
+        "latency_bound_ms": cf["line"]["latency_bound_ms"],
         # the same kernel over each path's timed run (all launches)
         "fixed_path_ms": f_stats.get("t_search", 0.0) * 1e3,
         "fixed_path_bound_ms": path_bound(f_stats),
+        "fixed_path_latency_bound_ms": latency_ms(f_stats["chain_work"]),
         "easy_path_launches": e_launches["fixed_search"],
         "easy_path_ms": e_stats.get("t_search", 0.0) * 1e3,
         "easy_path_bound_ms": path_bound(e_stats),
+        "easy_path_latency_bound_ms": latency_ms(e_stats["chain_work"]),
         "single_path_launches": s_launches["fixed_search"],
         "single_path_ms": s_stats.get("t_search", 0.0) * 1e3,
         "single_path_bound_ms": path_bound(s_stats),
+        "single_path_latency_bound_ms": latency_ms(s_stats["chain_work"]),
         "comparisons": cmps_of("fixed_search"),
+        # the int64 layout's instantiations: int64_path's timed run, and
+        # comparison main_world_i64 (256 main-world reads at tier 1)
+        "i64": {
+            "instantiations": ["<multiref, fixed, i64>",
+                               "<single, fixed, i64>"],
+            "launches": i_launches["fixed_search_i64"],
+            "max_abs_err": max(x["err"] for x in cmps
+                               if x["line"]["entry"].endswith("_i64")),
+            "equal_to_plain": all(x["equal_to_plain"] for x in i64_lines),
+            "reads": ci["reads"], "ms": ci["ms"],
+            "plain_ms": ci["plain_ms"], "bound_ms": ib_ms,
+            "bound_by": ib_by,
+            "latency_bound_ms": ci["line"]["latency_bound_ms"],
+            "int64_path_ms": i_stats.get("t_search", 0.0) * 1e3,
+            "int64_path_bound_ms": path_bound(i_stats, x64=True),
+            "int64_path_latency_bound_ms": latency_ms(i_stats["chain_work"]),
+            "comparisons": i64_lines},
     }, {
         # K3's work: seeded roots in both entries of the same template
         "name": "seeded_search", "route": "cuda", "source": src,
@@ -987,13 +1332,28 @@ def main() -> int:
         "reads": c3["reads"],
         "ms": c3["ms"], "plain_ms": c3["plain_ms"], "bound_ms": sb_ms,
         "bound_by": sb_by, "library_ms": None,
+        "latency_bound_ms": c3["line"]["latency_bound_ms"],
         "pre_path_ms": pr_stats.get("t_search", 0.0) * 1e3,
         "pre_path_bound_ms": path_bound(pr_stats),
+        "pre_path_latency_bound_ms": latency_ms(pr_stats["chain_work"]),
         "pre_path_queued_launches": pq_launches["ring_search_seeded"],
         "pre_path_queued_ms": pq_stats.get("t_search", 0.0) * 1e3,
         "pre_path_queued_bound_ms": path_bound(pq_stats),
+        "pre_path_queued_latency_bound_ms": latency_ms(
+            pq_stats["chain_work"]),
         "comparisons": seeded_lines,
-    }]}), flush=True)
+    },
+        probe_entry("dma_wave", "benchmarks/dma_probe.py:99",
+                    "_make (pallas_call :99, kernel :48)", k4_main,
+                    latency_ns_per_dependent_row=latency_ns),
+        probe_entry("digest_consume", "benchmarks/gather_pallas_probe.py:50",
+                    "consume :49, consume_rowmajor :103, run_pad128's "
+                    "consume :157, run_pad128_grid's consume3 :195",
+                    k5_main),
+        probe_entry("row_gather", "benchmarks/gather_bench.py:56",
+                    "gather_vmem :54 (_vmem_kernel :46), gather_hbm :101 "
+                    "(_hbm_kernel :68)", k6_main),
+    ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -15,6 +15,7 @@ import torch
 import bwbble_tpu_torch
 from bwbble_tpu_torch import cli, worlds
 from bwbble_tpu_torch.align.params import AlnParams
+from bwbble_tpu_torch.benchmarks import kernels as probes
 from bwbble_tpu_torch.engine import kernel
 from bwbble_tpu_torch.engine.dbound import calc_d
 from bwbble_tpu_torch.engine.device_index import from_arrays, from_fmindex
@@ -31,14 +32,19 @@ def _submodules():
 
 
 def test_importing_every_submodule_pulls_in_no_jax():
+    """Nor the JAX package or its probes (`benchmarks`): the port's probes
+    under bwbble_tpu_torch.benchmarks are its own."""
     mods = [m for m in _submodules() if not m.endswith("__main__")]
     assert len(mods) > 20
+    assert {"bwbble_tpu_torch.benchmarks.kernels",
+            "bwbble_tpu_torch.benchmarks.dma_probe",
+            "bwbble_tpu_torch.benchmarks.gather_pallas_probe",
+            "bwbble_tpu_torch.benchmarks.gather_bench"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
-            "bad = [m for m in sys.modules if m == 'jax' or "
-            "m.startswith('jax.') or m == 'bwbble_tpu' or "
-            "m.startswith('bwbble_tpu.')]\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'bwbble_tpu', 'benchmarks')]\n"
             "print('BAD', bad)\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True, timeout=300)
@@ -47,8 +53,8 @@ def test_importing_every_submodule_pulls_in_no_jax():
 
 
 def test_sources_name_neither_jax_nor_the_jax_package():
-    pat = re.compile(r"^\s*(import|from)\s+(jax|bwbble_tpu)(\.|\s|$)",
-                     re.M)
+    pat = re.compile(
+        r"^\s*(import|from)\s+(jax|bwbble_tpu|benchmarks)(\.|\s|$)", re.M)
     files = [os.path.join(ROOT, "chip_smoke.py")]
     for d, _, names in os.walk(os.path.join(ROOT, "bwbble_tpu_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
@@ -97,7 +103,8 @@ def test_kernel_wrapper_never_runs_the_plain_version(small):
     Ds = torch.zeros((reads.count, 33, 2), dtype=torch.int32)
     before = dict(kernel.LAUNCHES)
     assert set(before) == {"ring_search", "fixed_search",
-                           "ring_search_seeded", "fixed_search_seeded"}
+                           "ring_search_seeded", "fixed_search_seeded",
+                           "fixed_search_i64", "fixed_search_seeded_i64"}
     seeds = (torch.zeros((reads.count, 4), dtype=torch.int32),
              torch.zeros((reads.count, 4), dtype=torch.int32),
              torch.ones((reads.count,), dtype=torch.int32))
@@ -114,11 +121,42 @@ def test_kernel_wrapper_never_runs_the_plain_version(small):
     assert kernel.LAUNCHES == before
 
 
+def test_probe_wrappers_never_run_the_plain_version_off_the_cpu(monkeypatch):
+    """The probe wrappers run their plain version only for CPU tensors; a
+    tensor elsewhere (here on the `meta` device) is refused before any
+    launch, and the plain versions are not called."""
+    before = dict(probes.LAUNCHES)
+    assert set(before) == {"dma_wave", "digest_consume", "row_gather"}
+
+    def boom(*a, **k):
+        raise AssertionError("plain version called")
+
+    for name in ("dma_wave_plain", "digest_consume_plain",
+                 "row_gather_plain"):
+        monkeypatch.setattr(probes, name, boom)
+    meta = {"device": "meta", "dtype": torch.int32}
+    calls = [
+        lambda: probes.dma_wave(torch.empty((8, 4), **meta),
+                                torch.empty((16, 128), **meta), 2),
+        lambda: probes.digest_consume(torch.empty((6 * 32, 256), **meta),
+                                      "lane_major", 6, 256),
+        lambda: probes.row_gather(torch.empty((16, 32), **meta),
+                                  torch.empty((8,), **meta)),
+        lambda: probes.row_gather(torch.empty((16, 32), **meta),
+                                  torch.empty((8,), **meta), "ring", nbuf=8),
+    ]
+    for call in calls:
+        with pytest.raises(ValueError, match="CUDA"):
+            call()
+    assert probes.LAUNCHES == before
+
+
 def test_unported_paths_raise_not_implemented(small, tmp_path):
-    """What is still to port raises: device meshes, `--mesh`/`--dist` and
-    the int64 layout.  (`-P` seeding is ported: tests/test_torch_precalc.py;
-    a seed table without params.use_precalc, or the flag without a table,
-    is refused.)"""
+    """What is still to port raises: device meshes and `--mesh`/`--dist`.
+    (`-P` seeding is ported: tests/test_torch_precalc.py; a seed table
+    without params.use_precalc, or the flag without a table, is refused.
+    The int64 layout is ported for fixed batches: tests/test_torch_int64.py;
+    a queued search on it raises, as in the JAX package.)"""
     idx, reads = small
     didx = from_fmindex(idx, device="cpu")
     cfg = EngineConfig(cap=512)
@@ -130,10 +168,18 @@ def test_unported_paths_raise_not_implemented(small, tmp_path):
             align_reads_device(idx, didx, reads,
                                AlnParams(max_diff=1, use_precalc=True), cfg,
                                queued=queued, device="cpu")
-    # the int64 whole-genome layout: 48-word rows, or 2^31 positions
+    # the int64 whole-genome layout: 48-word rows are taken as int64, and
+    # a queued search on them is refused
+    d64 = from_arrays(np.zeros((4, 48), dtype=np.int32), np.zeros(17),
+                      np.zeros(1), 400, 0, device="cpu")
+    assert d64.idt == torch.int64 and d64.Carr.dtype == torch.int64
     with pytest.raises(NotImplementedError, match="int64"):
-        from_arrays(np.zeros((4, 48), dtype=np.int32), np.zeros(17),
-                    np.zeros(1), 400, 0, device="cpu")
+        inexact_search_queued(d64, np.zeros((4, 8), np.int8),
+                              np.full(4, 8, np.int32),
+                              np.zeros((4, 9, 2), np.int64),
+                              np.zeros((4, 33, 2), np.int64),
+                              AlnParams(max_diff=1), cfg, lanes=4,
+                              device="cpu")
     # CLI: --mesh and --dist raise before anything is read
     for flag in (["--mesh", "2"], ["--dist", "localhost:1,1,0"]):
         with pytest.raises(NotImplementedError, match=flag[0]):

@@ -64,8 +64,9 @@ DEVICE_ARG = [
      'engine: str = "device",\n                          device=None) '
      '-> PrecalcTable:'),
     ("build_precalc_device(idx, from_fmindex(idx), params, k=k)",
-     "build_precalc_device(idx, from_fmindex(idx, device),\n"
-     "                                         params, k=k, device=device)"),
+     "build_precalc_device(idx,\n"
+     "                                         from_fmindex(idx, device=device),"
+     "\n                                         params, k=k, device=device)"),
 ]
 
 
