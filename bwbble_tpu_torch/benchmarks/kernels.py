@@ -280,3 +280,32 @@ def time_calls(fn, args_list: list, n: int) -> float:
     ev1.record()
     torch.cuda.synchronize()
     return ev0.elapsed_time(ev1) / n
+
+
+def time_graph(fn, args_list: list, n: int) -> float:
+    """Milliseconds a call of `fn` takes on the card without the host's
+    dispatch: after a warm-up call on the last argument tuple, `n` calls
+    over the others in turn are captured in one CUDA graph, and one replay
+    of the graph is timed between two CUDA events, over `n`.  `fn` must not
+    synchronise with the host."""
+    fn(*args_list[-1])
+    torch.cuda.synchronize()
+    timed = args_list[:-1] or args_list
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(*timed[0])
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(n):
+            fn(*timed[i % len(timed)])
+    graph.replay()
+    torch.cuda.synchronize()
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    ev0.record()
+    graph.replay()
+    ev1.record()
+    torch.cuda.synchronize()
+    return ev0.elapsed_time(ev1) / n

@@ -17,38 +17,62 @@
 // (inexact_match.c:256-506) reports, in discovery order, with their packed
 // state paths.
 //
-// Design: one thread per lane runs its reads to completion.  In ring mode a
-// lane takes the next read id from a global counter (atomicAdd keeps the
+// The search.  A lane runs its reads to completion.  In ring mode a lane
+// takes the next read id from a global counter (atomicAdd keeps the
 // caller's hardest-first queue order); in fixed mode lane b runs read b and
-// nothing else.  For a read the lane initialises, loops
+// nothing else.  For a read the lane loops
 //   pop -> prune -> emit | exact-complete | expand -> link -> write frame,
 // then walks the parent chains of the read's reported alignments and writes
-// the per-read outputs.  A lane restarts its pop clock at every read (it has
-// already walked the finished read's chains), so the lane's arena column is
-// a plain array of NFRAME frame rows and a read's frame budget is NFRAME of
-// its own pops.  Ring mode flags a read that is not finished right after
-// its NFRAME-th pop; fixed mode flags a read that attempts one more pop
-// after NFRAME (engine/inexact.py states both rules).  Any capacity overflow
-// ends the read at once with its reason bit set: callers discard and retry
-// such reads, so nothing after the flag is observable.
+// the per-read outputs.  A lane restarts its pop clock at every read, so the
+// lane's arena column is a plain array of NFRAME frame rows and a read's
+// frame budget is NFRAME of its own pops.  Ring mode flags a read that is
+// not finished right after its NFRAME-th pop; fixed mode flags a read that
+// attempts one more pop after NFRAME (engine/inexact.py states both rules).
+// Any capacity overflow ends the read at once with its reason bit set:
+// callers discard and retry such reads, so nothing after the flag is
+// observable.
 //
-// The alphabet is a compile-time parameter so that the expansion loops
-// unroll and the rank vectors stay in registers: NC = 11 codes, NSLOT = 23
-// and 128-word frame rows for a multi-genome; NC = 4, NSLOT = 9 and 40-word
-// rows (37 used) for a single genome, where every code is a pure base, so
-// the IUPAC match test reduces to equality, no code counts as a SNP, and an
+// What bounds it on an H100: not bytes and not arithmetic, but the latency
+// of dependent fetches.  A pop is a chain: the popped node's slot, then the
+// two rank rows its interval selects, then the frame row written from
+// them; an exact completion is a chain of characters, each reading the rank
+// rows of every interval of the list the previous character produced.  A
+// read's pops follow one another, so a lane's time is its number of work
+// units times the latency of one round of fetches (`dma_wave` in
+// csrc/probes.cu measures that latency), and the card's memory rate is far
+// from reached.  What this design does about it:
+// - A warp per lane, all 32 threads at work, control flow uniform across
+//   the warp: decisions are made once and shared with ballots, match and
+//   reduce intrinsics and shuffles; no thread leaves early.
+// - Both rank rows of a pop in one step: half-warp 0 reads the row of
+//   L - 1, half-warp 1 that of U; thread j of a half forms code j's bound,
+//   so the 16 codes of both ends come out together, and the slot threads
+//   take theirs with two shuffles.
+// - The expansion in parallel: thread s forms slot s; the sequential LIFO
+//   push becomes a match over the slots' buckets (a slot links to the
+//   highest earlier valid slot of its bucket, else to the bucket's old
+//   head; the last valid slot of a bucket becomes its head), a warp minimum
+//   and a popcount; the slot threads write the frame row in one store.
+// - Pops from registers: thread s keeps the slot it formed last; a pop of a
+//   node of that frame (often the next pop) takes it with a shuffle instead
+//   of a dependent read of the arena.  The counters still count the
+//   algorithm's frame reads, not the cache's.
+// - A read's small state in shared memory, staged once per read: its
+//   codes, its D and D_seed rows, the two exact-completion lists, beside
+//   the bucket heads; the lowest occupied bucket is a ballot over 32 heads.
+// - The exact completion across the warp: a character's (interval, code)
+//   items go to threads, 32 at a time, each reading its two rows, so up to
+//   32 independent row pairs are in flight; the sequential merge (an item
+//   joins the previous run iff L == U_prev + 1, U_prev the previous
+//   non-empty item's U) becomes ballots and a prefix count.  The duplicate
+//   check of an emit is spread over the threads (the emits stay in order),
+//   and the path walk takes one alignment a thread.
+//
+// The alphabet is a compile-time parameter: NC = 11 codes, NSLOT = 23 and
+// 128-word frame rows for a multi-genome; NC = 4, NSLOT = 9 and 40-word rows
+// (37 used) for a single genome, where every code is a pure base, so the
+// IUPAC match test reduces to equality, no code counts as a SNP, and an
 // exact completion keeps one interval.
-//
-// What bounds it on an H100: every pop is a chain of dependent random reads
-// — the popped node's 16-byte slot of a 512-byte frame row, then two
-// 128-byte rank rows of the index table — followed by up to 23 16-byte slot
-// writes; an exact completion reads two rank rows per list entry per
-// character.  That is memory latency and bytes, not arithmetic (a rank is 64
-// popcounts).  What this first design does about it: nothing beyond giving
-// each lane a warp of its own (thread 0 of the warp; the other 31 exit), so
-// that lanes on different control paths do not serialise each other; a
-// lane's loads are not overlapped with one another.  Warp-wide lanes, coalesced row reads, shared
-// memory and more lanes are left to later work.
 //
 // The int64 layout (IT = long long; fixed batches only, as in the JAX
 // package).  The index table's rows are 48 words (192 bytes): the 16 plane
@@ -69,24 +93,26 @@
 // with no alignment and no overflow.  Without seeds (null pointers, NROOT =
 // 1) the one root is the whole SA range at i = len, formed in registers.
 //
-// Memory notes.  The bucket heads head[NB] are indexed dynamically and their
-// number depends on the scoring parameters, so they live in shared memory,
-// NB words for each of the block's lanes.  The two exact-completion interval
-// lists (capacity XC entries each) are too large for registers and live in
-// per-lane global scratch (`xlist`), as does the frame arena.  Reported
-// alignments are written straight into the per-read output slab, which also
-// serves the duplicate check.  The kernel allocates nothing and runs on the
-// stream it is given.
+// Memory.  Shared memory holds, for each lane (warp) of a block, C, the
+// read's D and D_seed rows, the two exact-completion lists (XC entries
+// each), the NB bucket heads and the read's codes (ring_search_lane_smem
+// gives the bytes; the wrapper asks for more than 48 KB a block where it
+// needs it, and refuses a configuration past the card's 227 KB).  The frame
+// arena is per-lane global scratch.  Reported alignments are written
+// straight into the per-read output slab, which also serves the duplicate
+// check.  The kernel allocates nothing and runs on the stream it is given.
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 #include <string.h>
 #include <type_traits>
-#include <utility>
 
 #define RS_WARP 32           // threads per lane: each lane owns a warp
-#define RS_BLOCK_LANES 4     // lanes (warps) per thread block
+#define RS_MAX_LPB 2         // lanes (warps) a block at most
 #define RS_NMETA 9           // q_meta columns (engine/inexact.py META_*)
+#define RS_SMEM_MAX 232448   // dynamic shared memory a block may have (H100)
+#define RS_FULL 0xFFFFFFFFu
 
 #define STATE_M 0
 #define STATE_I 1
@@ -122,6 +148,27 @@ struct Layout {
     }
 };
 
+// A lane's shared memory, byte offsets of each array (16-byte aligned):
+// C [17], D [(Lmax + 1) * 2], D_seed [DS * 2], the two exact-completion
+// lists [2][XC][L, U] (IT each), the bucket heads [NB] (int32), the read's
+// codes [Lmax] (int8).  engine/kernel.py:lane_smem_bytes mirrors it.
+struct LaneSmem {
+    size_t carr, D, Ds, xl, head, rc, bytes;
+    __host__ __device__ static size_t up16(size_t x) {
+        return (x + 15) & ~(size_t)15;
+    }
+    __host__ __device__ LaneSmem(int NB, int Lmax, int DS, int XC, int it) {
+        size_t o = 0;
+        carr = o; o += up16(17 * (size_t)it);
+        D = o;    o += up16((size_t)(Lmax + 1) * 2 * it);
+        Ds = o;   o += up16((size_t)DS * 2 * it);
+        xl = o;   o += up16((size_t)4 * XC * it);
+        head = o; o += up16((size_t)NB * 4);
+        rc = o;   o += up16((size_t)Lmax);
+        bytes = o;
+    }
+};
+
 // ---- alphabet tables, derived from the Gray-code definition (constants.py)
 __host__ __device__ constexpr int gray_val(int j) { return j ^ (j >> 1); }
 __host__ __device__ constexpr int popc4(int m) {
@@ -150,14 +197,6 @@ __host__ __device__ constexpr int pure_code(int c) {
     return r;
 }
 
-// f(integral_constant<int, 0>) ... f(integral_constant<int, N-1>), in order:
-// a loop whose index is a constant expression inside the body
-template <typename F, int... T>
-__device__ __forceinline__ void static_for(
-        std::integer_sequence<int, T...>, F f) {
-    (f(std::integral_constant<int, T>{}), ...);
-}
-
 // The alphabet a node expands over, in slot order, and the frame row of an
 // index layout with NW words a node.
 template <bool MULTI, int NW = 4>
@@ -178,9 +217,21 @@ struct Alpha {
             if (!is_skipped(j)) { if (n == t) r = j; n++; }
         return r;
     }
-    __host__ __device__ static constexpr uint32_t mask() {
+    // code(t) for every t, 4 bits each
+    __host__ __device__ static constexpr uint64_t codes() {
+        uint64_t r = 0;
+        for (int t = 0; t < NC; t++) r |= (uint64_t)code(t) << (4 * t);
+        return r;
+    }
+    // the codes an exact-completion step over base c keeps: those that
+    // contain the base (N excluded); within a single genome the pure base
+    // alone, so the list keeps one interval
+    __host__ __device__ static constexpr uint32_t need(int c) {
         uint32_t m = 0;
-        for (int t = 0; t < NC; t++) m |= 1u << code(t);
+        for (int q = 1; q < 16; q++)
+            if ((gray_val(q) & base_mask(c)) && !is_order_n(q)
+                    && (MULTI || gray_val(q) == base_mask(c)))
+                m |= 1u << q;
         return m;
     }
 };
@@ -192,88 +243,66 @@ __device__ __forceinline__ uint32_t pack1(int i, int mm, int go, int ge,
          | ((uint32_t)plen << 22);
 }
 
-// Occurrence bounds C[j] + O(j, i) + inc for the codes in `need`
-// (engine/rank.py:_rank_all).  DFS = the inexact-search variant: skipped
-// codes return C + inc - first_dec without counts.  Returns the number of
-// table rows read (0 on the i < 0 and i == LEN-1 edge paths).
-template <bool DFS, typename IT>
-__device__ __forceinline__ int rank16(const int32_t* __restrict__ table,
-                                      const IT* carr, IT LEN, IT i,
-                                      int inc, uint32_t need, IT out[16]) {
-    const IT len_m1 = LEN - 1;
-    if (i == len_m1) {
-#pragma unroll
-        for (int j = 1; j < 16; j++) out[j] = carr[j + 1] + inc;
-        out[0] = 0;
-        return 0;
-    }
-    if (i < 0) {
-#pragma unroll
-        for (int j = 1; j < 16; j++) out[j] = carr[j] + inc;
-        out[0] = 0;
-        return 0;
-    }
-    const IT hi = len_m1 - 1 > 0 ? len_m1 - 1 : 0;
-    const IT ic = i < hi ? i : hi;
-    const size_t k = (size_t)(ic >> 7);
-    const int off = (int)(ic & 127);
-    const int4* row = reinterpret_cast<const int4*>(
-        table + k * Layout<IT>::TW);
-    uint32_t pl[4][4];
-    IT ck[16];
-#pragma unroll
-    for (int t = 0; t < 4; t++) {
-        int4 v = __ldg(row + t);
-        pl[t][0] = (uint32_t)v.x; pl[t][1] = (uint32_t)v.y;
-        pl[t][2] = (uint32_t)v.z; pl[t][3] = (uint32_t)v.w;
-    }
-#pragma unroll
-    for (int t = 0; t < 4; t++) {
-        int4 v = __ldg(row + 4 + t);
-        if constexpr (Layout<IT>::X64) {
-            // counts = high word << 32 | low word (uint32 bits)
-            int4 h = __ldg(row + 8 + t);
-            ck[4 * t] = ((IT)h.x << 32) | (uint32_t)v.x;
-            ck[4 * t + 1] = ((IT)h.y << 32) | (uint32_t)v.y;
-            ck[4 * t + 2] = ((IT)h.z << 32) | (uint32_t)v.z;
-            ck[4 * t + 3] = ((IT)h.w << 32) | (uint32_t)v.w;
-        } else {
-            ck[4 * t] = v.x; ck[4 * t + 1] = v.y;
-            ck[4 * t + 2] = v.z; ck[4 * t + 3] = v.w;
-        }
-    }
-    uint32_t mask[4];
-#pragma unroll
-    for (int w = 0; w < 4; w++) {
-        int nbits = off + 1 - 32 * w;
-        mask[w] = nbits >= 32 ? 0xFFFFFFFFu
-                : (nbits <= 0 ? 0u : ((1u << nbits) - 1u));
-    }
-    int first = (int)((pl[0][0] & 1u) | ((pl[1][0] & 1u) << 1)
-                      | ((pl[2][0] & 1u) << 2) | ((pl[3][0] & 1u) << 3));
-#pragma unroll
-    for (int j = 1; j < 16; j++) {
-        if (!((need >> j) & 1u)) continue;
-        IT val = carr[j] + inc - (first == j ? 1 : 0);
-        if (!(DFS && is_skipped(j))) {
-            int cnt = 0;
-#pragma unroll
-            for (int w = 0; w < 4; w++) {
-                uint32_t m = mask[w];
-#pragma unroll
-                for (int t = 0; t < 4; t++)
-                    m &= ((j >> t) & 1) ? pl[t][w] : ~pl[t][w];
-                cnt += __popc(m);
-            }
-            val += ck[j] + cnt;
-        }
-        out[j] = val;
-    }
-    out[0] = 0;
-    return 1;
+template <typename IT>
+__device__ __forceinline__ int in_table(IT i, IT LEN) {
+    return (i >= 0 && i != LEN - 1) ? 1 : 0;
 }
 
-// Per-read search state that emission updates.
+// warp-wide wrapping sum of an unsigned value
+template <typename UT>
+__device__ __forceinline__ UT warp_sum(UT v) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(RS_FULL, v, o);
+    return v;
+}
+
+// Occurrence bound C[j] + O(j, i) + inc of one code j (engine/rank.py:
+// _rank_all); 0 for j == 0.  DFS = the inexact-search variant: skipped
+// codes take C + inc - first_dec without in-block counts (quirk Q1).  On
+// the edge paths (i < 0, i == LEN - 1) no table row is read.  Every thread
+// of a half-warp that asks for the same i reads the same 64 plane bytes
+// (one request) and its own count word.
+template <bool DFS, typename IT>
+__device__ __forceinline__ IT rank_one(const int32_t* __restrict__ table,
+                                       const IT* carr, IT LEN, IT i,
+                                       int inc, int j) {
+    const IT len_m1 = LEN - 1;
+    if (j == 0) return 0;
+    if (i == len_m1) return carr[j + 1] + inc;
+    if (i < 0) return carr[j] + inc;
+    const IT hi = len_m1 - 1 > 0 ? len_m1 - 1 : 0;
+    const IT ic = i < hi ? i : hi;
+    const int32_t* row = table + (size_t)(ic >> 7) * Layout<IT>::TW;
+    const int off = (int)(ic & 127);
+    const int4* r4 = reinterpret_cast<const int4*>(row);
+    const int4 p0 = __ldg(r4), p1 = __ldg(r4 + 1), p2 = __ldg(r4 + 2),
+               p3 = __ldg(r4 + 3);
+    IT ck;
+    if constexpr (Layout<IT>::X64)
+        ck = ((IT)__ldg(row + 32 + j) << 32) | (uint32_t)__ldg(row + 16 + j);
+    else
+        ck = __ldg(row + 16 + j);
+    const int first = (p0.x & 1) | ((p1.x & 1) << 1) | ((p2.x & 1) << 2)
+                    | ((p3.x & 1) << 3);
+    const IT val = carr[j] + inc - (first == j ? 1 : 0);
+    if (DFS && is_skipped(j)) return val;
+    // plane t's word, or its complement where bit t of j is clear
+    const uint32_t s0 = (j & 1) ? 0u : RS_FULL, s1 = (j & 2) ? 0u : RS_FULL,
+                   s2 = (j & 4) ? 0u : RS_FULL, s3 = (j & 8) ? 0u : RS_FULL;
+    auto word = [&](uint32_t a, uint32_t b, uint32_t c, uint32_t d, int w) {
+        const int nbits = off + 1 - 32 * w;
+        const uint32_t m = nbits >= 32 ? RS_FULL
+                         : (nbits <= 0 ? 0u : ((1u << nbits) - 1u));
+        return __popc(m & (a ^ s0) & (b ^ s1) & (c ^ s2) & (d ^ s3));
+    };
+    const int cnt = word(p0.x, p1.x, p2.x, p3.x, 0)
+                  + word(p0.y, p1.y, p2.y, p3.y, 1)
+                  + word(p0.z, p1.z, p2.z, p3.z, 2)
+                  + word(p0.w, p1.w, p2.w, p3.w, 3);
+    return val + ck + cnt;
+}
+
+// Per-read search state that emission updates (the same in every thread).
 template <typename IT>
 struct ReadState {
     int n_alns, overflow, best_score, max_diff;
@@ -282,13 +311,16 @@ struct ReadState {
 
 // emit_alns of engine/inexact.py (inexact_match.c:331-375 and
 // add_alignment's gap dedup, align.c:271-298) for `cnt` intervals read
-// through getL/getU.  Returns true when the read is finished (max_best stop
-// or ACAP overflow).
+// through get(s, L, U), the same for every thread.  The intervals are
+// emitted in order; each one's duplicate check is spread over the threads
+// (thread t takes earlier alignments t, t + 32, ...), and its seven fields
+// are written by threads 0-6.  Returns true when the read is finished
+// (max_best stop or ACAP overflow).
 template <typename IT, typename GetLU>
 __device__ __forceinline__ bool emit_alns(const RSParams& P, ReadState<IT>& S,
                                           IT* oA, int node, uint32_t m1,
                                           uint32_t m2, int cnt, int extra_m,
-                                          GetLU get) {
+                                          int t, GetLU get) {
     const int mm = (m1 >> 8) & 0x1F, go = (m1 >> 13) & 0x7,
               ge = (m1 >> 16) & 0xF, plen = (m1 >> 22) & 0x1FF;
     const int snp = m2 & 0xFF;
@@ -302,11 +334,12 @@ __device__ __forceinline__ bool emit_alns(const RSParams& P, ReadState<IT>& S,
     // int32 sum does)
     typedef typename std::make_unsigned<IT>::type UT;
     UT width = 0;
-    for (int s = 0; s < cnt; s++) {
+    for (int s = t; s < cnt; s += RS_WARP) {
         IT L, U;
         get(s, L, U);
         width += (UT)(U - L + 1);
     }
+    width = warp_sum(width);
     const bool is_best = score == S.best_score;
     const IT old_nb = S.num_best;
     if (is_best) S.num_best = (IT)((UT)S.num_best + width);
@@ -317,86 +350,115 @@ __device__ __forceinline__ bool emit_alns(const RSParams& P, ReadState<IT>& S,
         get(s, L, U);
         if (go > 0) {
             bool dup = false;
-            for (int k = 0; k < S.n_alns; k++)
+            for (int k = t; k < S.n_alns; k += RS_WARP)
                 dup |= (oA[k] == L) & (oA[A + k] == U);
-            if (dup) continue;
+            if (__any_sync(RS_FULL, dup)) continue;
         }
         if (S.n_alns >= A) { S.overflow |= OV_ACAP; return true; }
-        int k = S.n_alns++;
-        oA[k] = L;
-        oA[A + k] = U;
-        oA[2 * A + k] = score;
-        oA[3 * A + k] = plen + extra_m;
-        oA[4 * A + k] = node;
-        oA[5 * A + k] = (int)m1;
-        oA[6 * A + k] = snp;
+        const int k = S.n_alns++;
+        if (t < 7) {
+            const IT v = t == 0 ? L : t == 1 ? U : t == 2 ? (IT)score
+                       : t == 3 ? (IT)(plen + extra_m) : t == 4 ? (IT)node
+                       : t == 5 ? (IT)(int)m1 : (IT)snp;
+            oA[t * A + k] = v;
+        }
+        __syncwarp();
     }
     return false;
 }
 
 template <bool MULTI, bool FIXED, typename IT>
-__global__ void ring_search_kernel(
+__global__ void __launch_bounds__(RS_WARP * RS_MAX_LPB)
+ring_search_kernel(
         RSParams P, const int32_t* __restrict__ table,
         const IT* __restrict__ carr_g, const int8_t* __restrict__ rc,
         const int32_t* __restrict__ lens, const IT* __restrict__ D,
         const IT* __restrict__ Ds, const IT* __restrict__ seed_L,
         const IT* __restrict__ seed_U,
         const int32_t* __restrict__ seed_cnt, int32_t* __restrict__ arena,
-        IT* __restrict__ xlist, int32_t* counter,
-        IT* __restrict__ q_alns, int32_t* __restrict__ q_meta,
-        uint8_t* __restrict__ q_paths) {
-    const int gtid = blockIdx.x * blockDim.x + threadIdx.x;
-    if (gtid % RS_WARP != 0) return;
-    const int lane = gtid / RS_WARP;
-    if (lane >= P.lanes) return;
-
-    IT carr[17];
-#pragma unroll
-    for (int j = 0; j < 17; j++) carr[j] = carr_g[j];
-
-    extern __shared__ int head_smem[];        // [RS_BLOCK_LANES][NB]
-    int* const head = head_smem + (threadIdx.x / RS_WARP) * P.NB;
+        int32_t* counter, IT* __restrict__ q_alns,
+        int32_t* __restrict__ q_meta, uint8_t* __restrict__ q_paths) {
     typedef Layout<IT> LY;
     typedef Alpha<MULTI, LY::NW> AL;
     constexpr int ROWW = AL::ROWW, NSLOT = AL::NSLOT, NC = AL::NC,
                   NW = LY::NW;
+    constexpr uint64_t CODES = AL::codes();
+    constexpr uint32_t NEED0 = AL::need(0), NEED1 = AL::need(1),
+                       NEED2 = AL::need(2), NEED3 = AL::need(3);
+
+    const int t = threadIdx.x & (RS_WARP - 1);
+    const int warp = threadIdx.x / RS_WARP;
+    const int lane = blockIdx.x * (blockDim.x / RS_WARP) + warp;
+    if (lane >= P.lanes) return;              // the whole warp: no lane
+
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    const LaneSmem SL(P.NB, P.Lmax, P.DS, P.XC, (int)sizeof(IT));
+    unsigned char* const sm = smem_raw + (size_t)warp * SL.bytes;
+    IT* const carr = reinterpret_cast<IT*>(sm + SL.carr);
+    IT* const sD = reinterpret_cast<IT*>(sm + SL.D);
+    IT* const sDs = reinterpret_cast<IT*>(sm + SL.Ds);
+    IT* const sX = reinterpret_cast<IT*>(sm + SL.xl);     // [2][XC][L,U]
+    int* const head = reinterpret_cast<int*>(sm + SL.head);
+    int8_t* const sRc = reinterpret_cast<int8_t*>(sm + SL.rc);
+    if (t < 17) carr[t] = carr_g[t];
+
     int32_t* const A = arena + (size_t)lane * P.NFRAME * ROWW;
-    IT* const X = xlist + (size_t)lane * 4 * P.XC;        // [2][XC][L,U]
-    const int NB = P.NB, Lmax = P.Lmax, NROOT = P.NROOT;
+    const int NB = P.NB, Lmax = P.Lmax, NROOT = P.NROOT, DS = P.DS;
     const IT LEN = LY::length(P);
     const bool seeded = seed_cnt != nullptr;
 
-    for (int rid = FIXED ? lane : atomicAdd(counter, 1); rid < P.Q;
-         rid = FIXED ? P.Q : atomicAdd(counter, 1)) {
+    int rid = lane;
+    if (!FIXED) {
+        int r = 0;
+        if (t == 0) r = atomicAdd(counter, 1);
+        rid = __shfl_sync(RS_FULL, r, 0);
+    }
+    while (rid < P.Q) {
+        __syncwarp();                 // the last read's shared state is done
         const int rlen = lens[rid];
-        const int8_t* rcr = rc + (size_t)rid * Lmax;
-        const IT* Dr = D + (size_t)rid * (Lmax + 1) * 2;
-        const IT* Dsr = Ds + (size_t)rid * P.DS * 2;
         IT* oA = q_alns + (size_t)rid * 7 * P.ACAP;
+
+        // stage the read's codes, D and D_seed rows; count its Ns
+        // (inexact_match.c:259-266)
+        int nN = 0;
+        {
+            const int8_t* rcr = rc + (size_t)rid * Lmax;
+            for (int p = t; p < Lmax; p += RS_WARP) {
+                const int8_t v = rcr[p];
+                sRc[p] = v;
+                nN += (p < rlen) & (v > 3);
+            }
+            const IT* Dr = D + (size_t)rid * (Lmax + 1) * 2;
+            for (int p = t; p < (Lmax + 1) * 2; p += RS_WARP) sD[p] = Dr[p];
+            const IT* Dsr = Ds + (size_t)rid * DS * 2;
+            for (int p = t; p < DS * 2; p += RS_WARP) sDs[p] = Dsr[p];
+        }
+        const int n_count = __reduce_add_sync(RS_FULL, nN);
 
         ReadState<IT> S;
         S.n_alns = 0; S.overflow = 0; S.best_score = NB;
         S.max_diff = P.p_maxdiff; S.num_best = 0;
         int work = 0, rank_rows = 0, frame_rd = 0, frame_wr = 0, pf = 0,
             root_rd = 0;
-
-        // up-front N-count discard (inexact_match.c:259-266)
-        int n_count = 0;
-        for (int p = 0; p < Lmax && p < rlen; p++) n_count += rcr[p] > 3;
         bool alive = n_count <= P.p_maxdiff;
 
         // the roots: one, or the read's seed rows chained last-first in
         // bucket 0 (a count above NROOT counts as NROOT)
         int n_open = 1, minb = 0;
         if (seeded) {
-            int scnt = seed_cnt[rid];
+            const int scnt = seed_cnt[rid];
             n_open = scnt < 0 ? 0 : (scnt > NROOT ? NROOT : scnt);
             alive = alive && n_open > 0;       // no seed hit
         }
-        if (alive) {
-            for (int b = 0; b < NB; b++) head[b] = -1;
-            head[0] = n_open - 1;
-        }
+        if (alive)
+            for (int b = t; b < NB; b += RS_WARP)
+                head[b] = b == 0 ? n_open - 1 : -1;
+        __syncwarp();
+
+        // the frame whose slots the threads hold (thread s: slot s)
+        int regf = -1;
+        IT rL = 0, rU = 0;
+        uint32_t rm1 = 0, rm2 = 0;
 
         while (alive) {
             if (!FIXED) {
@@ -410,11 +472,23 @@ __global__ void ring_search_kernel(
                 S.overflow |= OV_WORK;
                 break;
             }
-            // pop: lowest occupied bucket, most recent push (heap_pop)
-            while (minb < NB && head[minb] < 0) minb++;
-            if (minb >= NB) break;
+            // pop: lowest occupied bucket (32 heads a ballot), most recent
+            // push (heap_pop)
+            int node = -1;
+            while (minb < NB) {
+                const int b = minb + t;
+                const int h = b < NB ? head[b] : -1;
+                const unsigned occ = __ballot_sync(RS_FULL, h >= 0);
+                if (occ) {
+                    const int f = __ffs(occ) - 1;
+                    node = __shfl_sync(RS_FULL, h, f);
+                    minb += f;
+                    break;
+                }
+                minb += RS_WARP;
+            }
+            if (node < 0) break;
             const int bucket = minb;
-            const int node = head[bucket];
             IT eL, eU;
             uint32_t m1, m2;
             if (node < NROOT && seeded) {
@@ -428,22 +502,32 @@ __global__ void ring_search_kernel(
                 m1 = pack1(rlen, 0, 0, 0, STATE_M, 0);
                 m2 = 0;
             } else {
-                int nn = node - NROOT;
-                int f = nn / NSLOT, s = nn - f * NSLOT;
-                const int32_t* sp = A + (size_t)f * ROWW + NW * s;
-                if constexpr (LY::X64) {
-                    eL = *reinterpret_cast<const long long*>(sp);
-                    eU = *reinterpret_cast<const long long*>(sp + 2);
-                    const int2 mm = *reinterpret_cast<const int2*>(sp + 4);
-                    m1 = (uint32_t)mm.x; m2 = (uint32_t)mm.y;
+                const int nn = node - NROOT;
+                const int f = nn / NSLOT, s = nn - f * NSLOT;
+                if (f == regf) {
+                    // formed by thread s at the frame's expansion
+                    eL = __shfl_sync(RS_FULL, rL, s);
+                    eU = __shfl_sync(RS_FULL, rU, s);
+                    m1 = __shfl_sync(RS_FULL, rm1, s);
+                    m2 = __shfl_sync(RS_FULL, rm2, s);
                 } else {
-                    int4 v = *reinterpret_cast<const int4*>(sp);
-                    eL = v.x; eU = v.y; m1 = (uint32_t)v.z;
-                    m2 = (uint32_t)v.w;
+                    const int32_t* sp = A + (size_t)f * ROWW + NW * s;
+                    if constexpr (LY::X64) {
+                        eL = *reinterpret_cast<const long long*>(sp);
+                        eU = *reinterpret_cast<const long long*>(sp + 2);
+                        const int2 mm = *reinterpret_cast<const int2*>(sp + 4);
+                        m1 = (uint32_t)mm.x; m2 = (uint32_t)mm.y;
+                    } else {
+                        const int4 v = *reinterpret_cast<const int4*>(sp);
+                        eL = v.x; eU = v.y; m1 = (uint32_t)v.z;
+                        m2 = (uint32_t)v.w;
+                    }
                 }
                 frame_rd++;
             }
-            head[bucket] = (int)((m2 >> 8) & 0xFFFFFFu) - 1;   // 24-bit link
+            if (t == 0)
+                head[bucket] = (int)((m2 >> 8) & 0xFFFFFFu) - 1;  // 24-bit link
+            __syncwarp();
             n_open--;
             work++;
             if (bucket > S.best_score + P.p_mm) break;         // stop
@@ -462,14 +546,14 @@ __global__ void ring_search_kernel(
 
             // prune chain (inexact_match.c:309-328)
             const int diff_left = S.max_diff - emm - ego - ege;
-            auto dclip = [&](int t) { return t < 0 ? 0 : (t > Lmax ? Lmax : t); };
-            auto sclip = [&](int t) {
-                return t < 0 ? 0 : (t > P.DS - 1 ? P.DS - 1 : t);
+            auto dclip = [&](int x) { return x < 0 ? 0 : (x > Lmax ? Lmax : x); };
+            auto sclip = [&](int x) {
+                return x < 0 ? 0 : (x > DS - 1 ? DS - 1 : x);
             };
-            const IT D1n = Dr[dclip(ei - 1) * 2];
+            const IT D1n = sD[dclip(ei - 1) * 2];
             const int dls = P.p_maxdiffseed - emm - ego - ege;
             const int seed_index = ei - (rlen - P.p_seedlen);
-            const IT S1n = Dsr[sclip(seed_index - 1) * 2];
+            const IT S1n = sDs[sclip(seed_index - 1) * 2];
             bool cont = diff_left < 0;
             cont |= (ei > 0) && (diff_left < D1n);
             cont |= (seed_index > 0) && (dls < S1n);
@@ -477,10 +561,10 @@ __global__ void ring_search_kernel(
 
             // hit at i == 0 (inexact_match.c:332-344)
             if (ei == 0) {
-                bool fin = emit_alns(P, S, oA, node, m1, m2, 1, 0,
-                                     [&](int, IT& L, IT& U) {
-                                         L = eL; U = eU;
-                                     });
+                const bool fin = emit_alns(P, S, oA, node, m1, m2, 1, 0, t,
+                                           [&](int, IT& L, IT& U) {
+                                               L = eL; U = eU;
+                                           });
                 if (fin) break;
                 continue;
             }
@@ -495,55 +579,75 @@ __global__ void ring_search_kernel(
                     S.overflow |= OV_FRAMES;
                     break;
                 }
-                IT* cur = X;
-                IT* nxt = X + 2 * P.XC;
-                cur[0] = eL; cur[1] = eU;
+                IT* cur = sX;
+                IT* nxt = sX + 2 * P.XC;
+                if (t == 0) { cur[0] = eL; cur[1] = eU; }
+                __syncwarp();
                 int cnt = 1;
                 int over = 0;
                 for (int j = ei - 1; j >= 0 && cnt > 0; j--) {
                     if (work >= P.max_iters) { over = OV_WORK; break; }
                     work++;
-                    int c = rcr[j < Lmax ? j : Lmax - 1];
+                    const int c = sRc[j < Lmax ? j : Lmax - 1];
                     if (c > 3) { cnt = 0; break; }
-                    const int bm = base_mask(c);
-                    // the codes that contain the base (N excluded); within
-                    // a single genome that is the pure base alone, so the
-                    // list keeps one interval
-                    uint32_t need = 0;
-#pragma unroll
-                    for (int q = 1; q < 16; q++)
-                        if ((gray_val(q) & bm) && !is_order_n(q)
-                                && (MULTI || gray_val(q) == bm))
-                            need |= 1u << q;
+                    // rank rows of every interval of the list
+                    int rr = 0;
+                    for (int e = t; e < cnt; e += RS_WARP)
+                        rr += in_table<IT>(cur[2 * e] - 1, LEN)
+                            + in_table<IT>(cur[2 * e + 1], LEN);
+                    rank_rows += __reduce_add_sync(RS_FULL, rr);
+                    const uint32_t need = c == 0 ? NEED0 : c == 1 ? NEED1
+                                        : c == 2 ? NEED2 : NEED3;
+                    const int nq = __popc(need);
+                    // items (interval e, the qi-th code of `need`) in
+                    // order, 32 a round, one a thread; a run of the output
+                    // list starts at an item unless it follows the previous
+                    // non-empty item's U directly
+                    const int items = cnt * nq;
                     int ncnt = 0;
-                    IT tailU = -2;
-                    for (int s = 0; s < cnt && !over; s++) {
-                        IT occL[16], occU[16];
-                        rank_rows += rank16<false>(table, carr, LEN,
-                                                   cur[2 * s] - 1, 1, need,
-                                                   occL);
-                        rank_rows += rank16<false>(table, carr, LEN,
-                                                   cur[2 * s + 1], 0, need,
-                                                   occU);
-#pragma unroll
-                        for (int q = 1; q < 16; q++) {
-                            if (!((need >> q) & 1u)) continue;
-                            IT L = occL[q], U = occU[q];
-                            if (L > U || over) continue;
-                            if (ncnt > 0 && L == tailU + 1) {
-                                nxt[2 * (ncnt - 1) + 1] = U;
-                            } else if (ncnt >= P.XC) {
-                                over = OV_LIST;
-                            } else {
-                                nxt[2 * ncnt] = L;
-                                nxt[2 * ncnt + 1] = U;
-                                ncnt++;
-                            }
-                            tailU = U;
+                    bool has_tail = false;
+                    IT tailU = 0;
+                    for (int k0 = 0; k0 < items; k0 += RS_WARP) {
+                        const int k = k0 + t;
+                        IT L = 0, U = -1;
+                        if (k < items) {
+                            const int e = k / nq;
+                            uint32_t mq = need;
+                            for (int z = k - e * nq; z > 0; z--) mq &= mq - 1;
+                            const int q = __ffs(mq) - 1;
+                            L = rank_one<false>(table, carr, LEN,
+                                                cur[2 * e] - 1, 1, q);
+                            U = rank_one<false>(table, carr, LEN,
+                                                cur[2 * e + 1], 0, q);
                         }
+                        const bool ne_ = k < items && L <= U;
+                        const unsigned ne = __ballot_sync(RS_FULL, ne_);
+                        const unsigned lower = ne & ((1u << t) - 1u);
+                        const IT pU = __shfl_sync(
+                            RS_FULL, U, lower ? 31 - __clz(lower) : t);
+                        const bool joins = (lower != 0 || has_tail)
+                                           && L == (lower ? pU : tailU) + 1;
+                        const bool start = ne_ && !joins;
+                        const unsigned st = __ballot_sync(RS_FULL, start);
+                        if (ncnt + __popc(st) > P.XC) { over = OV_LIST; break; }
+                        // the run this item belongs to; it ends here if the
+                        // next non-empty item of the round starts a run or
+                        // there is none (then a later round may extend it)
+                        const int ridx = ncnt + __popc(st & ((2u << t) - 1u)) - 1;
+                        const unsigned higher = ne & ~((2u << t) - 1u);
+                        const bool end = ne_ && (higher == 0
+                            || ((st >> (__ffs(higher) - 1)) & 1u));
+                        if (start) nxt[2 * ridx] = L;
+                        if (end) nxt[2 * ridx + 1] = U;
+                        if (ne) {
+                            tailU = __shfl_sync(RS_FULL, U, 31 - __clz(ne));
+                            has_tail = true;
+                        }
+                        ncnt += __popc(st);
+                        __syncwarp();
                     }
                     if (over) break;
-                    IT* t = cur; cur = nxt; nxt = t;
+                    IT* tmp = cur; cur = nxt; nxt = tmp;
                     cnt = ncnt;
                 }
                 if (over) { S.overflow |= over; break; }
@@ -551,31 +655,35 @@ __global__ void ring_search_kernel(
                     // the scan consumed ei chars: the path extends by ei
                     // implicit matches (inexact_match.c:365)
                     const IT* lst = cur;
-                    bool fin = emit_alns(P, S, oA, node, m1, m2, cnt, ei,
-                                         [&](int s, IT& L, IT& U) {
-                                             L = lst[2 * s];
-                                             U = lst[2 * s + 1];
-                                         });
+                    const bool fin = emit_alns(P, S, oA, node, m1, m2, cnt, ei,
+                                               t, [&](int s, IT& L, IT& U) {
+                                                   L = lst[2 * s];
+                                                   U = lst[2 * s + 1];
+                                               });
                     if (fin) break;
                 }
                 continue;
             }
 
             // expansion (inexact_match.c:377-504)
-            // (the DFS rank variant differs from the exact one on skipped
-            // codes only, and a single genome expands none)
-            constexpr uint32_t need_dfs = AL::mask();
-            IT Lv[16], Uv[16];
-            rank_rows += rank16<MULTI>(table, carr, LEN, eL - 1, 1, need_dfs,
-                                       Lv);
-            rank_rows += rank16<MULTI>(table, carr, LEN, eU, 0, need_dfs, Uv);
+            if (eplen + 1 >= P.PATHCAP) { S.overflow |= OV_PATH; break; }
+            const int nplen = eplen + 1;
+            // both rank rows at once: half 0 the row of eL - 1, half 1 that
+            // of eU; thread j of a half forms code j's bound (the DFS rank
+            // differs from the exact one on skipped codes only, and a
+            // single genome expands none)
+            const int half = t >> 4, jc = t & 15;
+            const IT rk = rank_one<MULTI>(table, carr, LEN,
+                                          half ? eU : eL - 1, half ? 0 : 1,
+                                          jc);
+            rank_rows += in_table<IT>(eL - 1, LEN) + in_table<IT>(eU, LEN);
 
-            const IT D2n = Dr[dclip(ei - 2) * 2];
-            const IT D1w = Dr[dclip(ei - 1) * 2 + 1];
-            const IT D2w = Dr[dclip(ei - 2) * 2 + 1];
-            const IT S2n = Dsr[sclip(seed_index - 2) * 2];
-            const IT S1w = Dsr[sclip(seed_index - 1) * 2 + 1];
-            const IT S2w = Dsr[sclip(seed_index - 2) * 2 + 1];
+            const IT D2n = sD[dclip(ei - 2) * 2];
+            const IT D1w = sD[dclip(ei - 1) * 2 + 1];
+            const IT D2w = sD[dclip(ei - 2) * 2 + 1];
+            const IT S2n = sDs[sclip(seed_index - 2) * 2];
+            const IT S1w = sDs[sclip(seed_index - 1) * 2 + 1];
+            const IT S2w = sDs[sclip(seed_index - 2) * 2 + 1];
             bool allow_diff = true, allow_mm = true;
             const bool pm = ei - 1 > 0;
             const bool ad1 = diff_left - 1 < D2n;
@@ -598,117 +706,137 @@ __global__ void ring_search_kernel(
             const bool allow_open = ego < P.p_maxgapo;
             const bool allow_extend = ege < P.p_maxgape;
 
-            int c = rcr[(ei - 1) < Lmax ? (ei - 1) : Lmax - 1];
+            int c = sRc[(ei - 1) < Lmax ? (ei - 1) : Lmax - 1];
             c = c < 0 ? 0 : (c > 4 ? 4 : c);
             const bool is_I = est == STATE_I, is_M = est == STATE_M;
             const bool ind_ok = allow_diff && allow_indels;
-            if (eplen + 1 >= P.PATHCAP) { S.overflow |= OV_PATH; break; }
-            const int nplen = eplen + 1;
 
-            // sequential LIFO push of slots 0..NSLOT-1 into the score
-            // buckets (inexact_match.c:510-610)
-            int32_t* frow = A + (size_t)myf * ROWW;
-            int total = 0;
-            auto push = [&](int s, IT L, IT U, uint32_t cm1, int snp) {
-                int sc = ((cm1 >> 8) & 0x1F) * P.p_mm
-                       + ((cm1 >> 13) & 0x7) * P.p_go
-                       + ((cm1 >> 16) & 0xF) * P.p_ge;
-                int b = sc < 0 ? 0 : (sc > NB - 1 ? NB - 1 : sc);
-                uint32_t cm2 = ((uint32_t)snp & 0xFFu)
-                             | ((uint32_t)(head[b] + 1) << 8);
-                if constexpr (LY::X64) {
-                    int32_t* sp = frow + NW * s;
-                    *reinterpret_cast<long long*>(sp) = L;
-                    *reinterpret_cast<long long*>(sp + 2) = U;
-                    *reinterpret_cast<int2*>(sp + 4) =
-                        make_int2((int)cm1, (int)cm2);
-                } else {
-                    *reinterpret_cast<int4*>(frow + 4 * s) =
-                        make_int4(L, U, (int)cm1, (int)cm2);
-                }
-                head[b] = base + s;
-                if (b < minb) minb = b;
-                total++;
-            };
-
-            // slot 0: insertion (extend if state == I else open if M)
-            if (ind_ok && ((is_I && allow_extend) || (is_M && allow_open)))
-                push(0, eL, eU,
-                     pack1(ei - 1, emm, ego + (is_M ? 1 : 0),
-                           ege + (is_I ? 1 : 0), STATE_I, nplen), esnp);
-            // slots 1..NC: deletions (consume a reference char, keep i)
-            {
+            // thread s forms slot s: 0 the insertion, 1..NC the deletions,
+            // NC+1..2NC the match / mismatch pushes over code q = code(s -
+            // 1) or code(s - 1 - NC), whose bounds threads q and 16 + q hold
+            const int tc = t <= NC ? t - 1 : t - 1 - NC;
+            const int q = (t >= 1 && t < NSLOT)
+                        ? (int)((CODES >> (4 * tc)) & 15) : 0;
+            const IT Lq = __shfl_sync(RS_FULL, rk, q);
+            const IT Uq = __shfl_sync(RS_FULL, rk, 16 + q);
+            bool valid = false;
+            IT sL = eL, sU = eU;
+            uint32_t sm1 = 0;
+            int ssnp = esnp;
+            if (t == 0) {
+                // insertion (extend if state == I else open if M)
+                valid = ind_ok && ((is_I && allow_extend)
+                                   || (is_M && allow_open));
+                sm1 = pack1(ei - 1, emm, ego + (is_M ? 1 : 0),
+                            ege + (is_I ? 1 : 0), STATE_I, nplen);
+            } else if (t <= NC) {
+                // deletion: consumes a reference char, keeps i
                 const bool del_any = ind_ok && !is_I
                     && ((is_M && allow_open) || (!is_M && allow_extend));
-                const uint32_t dm1 = pack1(ei, emm, ego + (is_M ? 1 : 0),
-                                           ege + (is_M ? 0 : 1), STATE_D,
-                                           nplen);
-                static_for(std::make_integer_sequence<int, NC>{},
-                           [&](auto tc) {
-                    constexpr int t = decltype(tc)::value;
-                    constexpr int q = AL::code(t);
-                    if (del_any && Lv[q] <= Uv[q])
-                        push(1 + t, Lv[q], Uv[q], dm1, esnp);
-                });
-            }
-            // slots NC+1..2NC: match / mismatch (or the exact-only
-            // continuation when mismatches are suppressed)
-            {
+                valid = del_any && Lq <= Uq;
+                sL = Lq; sU = Uq;
+                sm1 = pack1(ei, emm, ego + (is_M ? 1 : 0),
+                            ege + (is_M ? 0 : 1), STATE_D, nplen);
+            } else if (t < NSLOT) {
+                // match / mismatch (or the exact-only continuation when
+                // mismatches are suppressed)
                 const bool mm_branch = allow_diff && allow_mm;
                 const int bm = c <= 3 ? base_mask(c) : 0;
-                static_for(std::make_integer_sequence<int, NC>{},
-                           [&](auto tc) {
-                    constexpr int t = decltype(tc)::value;
-                    constexpr int q = AL::code(t);
-                    const bool nonempty = Lv[q] <= Uv[q];
-                    const bool is_match = (c <= 3) && !is_order_n(q)
-                                          && ((gray_val(q) & bm) != 0);
-                    const bool ok_mm = mm_branch && nonempty;
-                    const bool ok_ex = !mm_branch && (c < 4) && is_match
-                                       && nonempty;
-                    if (ok_mm || ok_ex) {
-                        int mmn = emm + ((ok_mm && !is_match) ? 1 : 0);
-                        push(1 + NC + t, Lv[q], Uv[q],
-                             pack1(ei - 1, mmn, ego, ege, STATE_M, nplen),
-                             (esnp + (is_snp(q) ? 1 : 0)) & 0xFF);
-                    }
-                });
+                const bool nonempty = Lq <= Uq;
+                const bool is_match = (c <= 3) && !is_order_n(q)
+                                      && ((gray_val(q) & bm) != 0);
+                const bool ok_mm = mm_branch && nonempty;
+                const bool ok_ex = !mm_branch && (c < 4) && is_match
+                                   && nonempty;
+                valid = ok_mm || ok_ex;
+                sL = Lq; sU = Uq;
+                sm1 = pack1(ei - 1, emm + ((ok_mm && !is_match) ? 1 : 0),
+                            ego, ege, STATE_M, nplen);
+                ssnp = (esnp + (is_snp(q) ? 1 : 0)) & 0xFF;
             }
+            const int sc = ((sm1 >> 8) & 0x1F) * P.p_mm
+                         + ((sm1 >> 13) & 0x7) * P.p_go
+                         + ((sm1 >> 16) & 0xF) * P.p_ge;
+            const int b = sc < 0 ? 0 : (sc > NB - 1 ? NB - 1 : sc);
+
+            // the sequential LIFO push of slots 0..NSLOT-1 into the score
+            // buckets (inexact_match.c:510-610), all slots at once: a slot
+            // links to the highest earlier valid slot of its bucket, else
+            // to the bucket's old head; the last valid slot of a bucket
+            // becomes its head
+            const unsigned vmask = __ballot_sync(RS_FULL, valid);
+            const unsigned grp = __match_any_sync(RS_FULL, valid ? b : -1)
+                               & vmask;
+            const int oldh = valid ? head[b] : 0;
+            __syncwarp();
+            const unsigned below = grp & ((1u << t) - 1u);
+            const int prev = below ? base + (31 - __clz(below)) : oldh;
+            const uint32_t sm2 = ((uint32_t)ssnp & 0xFFu)
+                               | ((uint32_t)(prev + 1) << 8);
+            if (valid && (grp >> t) == 1u) head[b] = base + t;
+            const int bmin = (int)__reduce_min_sync(
+                RS_FULL, valid ? (unsigned)b : (unsigned)INT_MAX);
+            if (bmin < minb) minb = bmin;
+            const int total = __popc(vmask);
             if (total > 0) {
-                frow[AL::PARENT] = node;
+                int32_t* frow = A + (size_t)myf * ROWW;
+                if (valid) {
+                    if constexpr (LY::X64) {
+                        int32_t* sp = frow + NW * t;
+                        *reinterpret_cast<long long*>(sp) = sL;
+                        *reinterpret_cast<long long*>(sp + 2) = sU;
+                        *reinterpret_cast<int2*>(sp + 4) =
+                            make_int2((int)sm1, (int)sm2);
+                    } else {
+                        *reinterpret_cast<int4*>(frow + 4 * t) =
+                            make_int4(sL, sU, (int)sm1, (int)sm2);
+                    }
+                }
+                if (t == NSLOT) frow[AL::PARENT] = node;
                 frame_wr++;
                 n_open += total;
+                regf = myf;
+                rL = sL; rU = sU; rm1 = sm1; rm2 = sm2;
             }
+            __syncwarp();
         }
 
         // walk the parent chains of the reported alignments (the flush-time
-        // walk of switch_step): entry t is the state of the t-th ancestor,
-        // node first, root excluded; 2 bits per state
+        // walk of switch_step), one alignment a thread: entry s is the state
+        // of the s-th ancestor, node first, root excluded; 2 bits per state
+        int frd = 0;
         if (!S.overflow) {
-            for (int k = 0; k < S.n_alns; k++) {
+            for (int k = t; k < S.n_alns; k += RS_WARP) {
                 uint8_t* pp = q_paths + ((size_t)rid * P.ACAP + k) * P.PW;
                 int cur = (int)oA[4 * P.ACAP + k];
-                int t = 0;
+                int s = 0;
                 uint32_t acc = 0;
-                while (t < P.PATHCAP && cur >= NROOT) {
-                    int nn = cur - NROOT;
-                    int f = nn / NSLOT, s = nn - f * NSLOT;
-                    int st = s == 0 ? STATE_I
-                                    : (s <= NC ? STATE_D : STATE_M);
-                    acc |= (uint32_t)st << (2 * (t & 3));
-                    if ((t & 3) == 3) { pp[t >> 2] = (uint8_t)acc; acc = 0; }
+                while (s < P.PATHCAP && cur >= NROOT) {
+                    const int nn = cur - NROOT;
+                    const int f = nn / NSLOT, sl = nn - f * NSLOT;
+                    const int st = sl == 0 ? STATE_I
+                                           : (sl <= NC ? STATE_D : STATE_M);
+                    acc |= (uint32_t)st << (2 * (s & 3));
+                    if ((s & 3) == 3) { pp[s >> 2] = (uint8_t)acc; acc = 0; }
                     cur = A[(size_t)f * ROWW + AL::PARENT];
-                    frame_rd++;
-                    t++;
+                    frd++;
+                    s++;
                 }
-                if (t & 3) pp[t >> 2] = (uint8_t)acc;
+                if (s & 3) pp[s >> 2] = (uint8_t)acc;
             }
         }
+        frame_rd += __reduce_add_sync(RS_FULL, frd);
 
-        int32_t* qm = q_meta + (size_t)rid * RS_NMETA;
-        qm[0] = S.n_alns; qm[1] = S.overflow; qm[2] = lane; qm[3] = work;
-        qm[4] = rank_rows; qm[5] = frame_rd; qm[6] = frame_wr; qm[7] = pf;
-        qm[8] = root_rd;
+        if (t == 0) {
+            int32_t* qm = q_meta + (size_t)rid * RS_NMETA;
+            qm[0] = S.n_alns; qm[1] = S.overflow; qm[2] = lane; qm[3] = work;
+            qm[4] = rank_rows; qm[5] = frame_rd; qm[6] = frame_wr; qm[7] = pf;
+            qm[8] = root_rd;
+        }
+        if (FIXED) break;
+        int r = 0;
+        if (t == 0) r = atomicAdd(counter, 1);
+        rid = __shfl_sync(RS_FULL, r, 0);
     }
 }
 
@@ -718,21 +846,31 @@ extern "C" int ring_search_num_params() {
 
 extern "C" int ring_search_num_meta() { return RS_NMETA; }
 
+// Shared-memory bytes of one lane (engine/kernel.py:lane_smem_bytes).
+extern "C" long long ring_search_lane_smem(int NB, int Lmax, int DS, int XC,
+                                           int x64) {
+    return (long long)LaneSmem(NB, Lmax, DS, XC, x64 ? 8 : 4).bytes;
+}
+
 template <bool MULTI, bool FIXED, typename IT>
-static int launch(const RSParams& P, size_t smem, const void* table,
+static int launch(const RSParams& P, int lpb, size_t smem, const void* table,
                   const void* carr, const void* rc, const void* lens,
                   const void* D, const void* Ds, const void* sL,
-                  const void* sU, const void* scnt, void* arena, void* xlist,
+                  const void* sU, const void* scnt, void* arena,
                   void* counter, void* q_alns, void* q_meta, void* q_paths,
                   void* stream) {
-    const int threads = RS_BLOCK_LANES * RS_WARP;
-    const int blocks = (P.lanes + RS_BLOCK_LANES - 1) / RS_BLOCK_LANES;
-    ring_search_kernel<MULTI, FIXED, IT>
-        <<<blocks, threads, smem, (cudaStream_t)stream>>>(
+    auto kern = ring_search_kernel<MULTI, FIXED, IT>;
+    if (smem > 48 * 1024) {
+        cudaError_t e = cudaFuncSetAttribute(
+            kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (e != cudaSuccess) return (int)e;
+    }
+    const int blocks = (P.lanes + lpb - 1) / lpb;
+    kern<<<blocks, lpb * RS_WARP, smem, (cudaStream_t)stream>>>(
         P, (const int32_t*)table, (const IT*)carr, (const int8_t*)rc,
         (const int32_t*)lens, (const IT*)D, (const IT*)Ds,
         (const IT*)sL, (const IT*)sU, (const int32_t*)scnt,
-        (int32_t*)arena, (IT*)xlist, (int32_t*)counter,
+        (int32_t*)arena, (int32_t*)counter,
         (IT*)q_alns, (int32_t*)q_meta, (uint8_t*)q_paths);
     return (int)cudaGetLastError();
 }
@@ -745,36 +883,40 @@ extern "C" int ring_search_row_words(int multiref, int x64) {
     return multiref ? Alpha<true>::ROWW : Alpha<false>::ROWW;
 }
 
-// Launches on `stream`; returns cudaGetLastError() (0 on success), or -1
-// when the parameter block does not match RSParams, the bucket heads do not
-// fit a block's shared memory, a fixed launch has not one lane per read,
-// the seeds are given in part or with NROOT < 1, or the int64 layout is
-// asked of a ring launch.  `multiref` picks the alphabet, `fixed` the
-// launch mode (`counter` is not read then), `x64` the index layout (carr,
-// D, Ds, the seed intervals, xlist and q_alns are int64 then, the table
-// has 48 words a row); seed_L, seed_U and seed_cnt are all null (one
+// Launches on `stream` with `lpb` lanes (warps) a block and `smem` bytes of
+// dynamic shared memory a block; returns cudaGetLastError() (0 on success),
+// or -1 when the parameter block does not match RSParams, `smem` is not
+// `lpb` lanes' shared memory or exceeds the card's, a fixed launch has not
+// one lane per read, the seeds are given in part or with NROOT < 1, or the
+// int64 layout is asked of a ring launch.  `multiref` picks the alphabet,
+// `fixed` the launch mode (`counter` is not read then), `x64` the index
+// layout (carr, D, Ds, the seed intervals and q_alns are int64 then, the
+// table has 48 words a row); seed_L, seed_U and seed_cnt are all null (one
 // unseeded root, NROOT = 1) or all given ([Q, NROOT], [Q, NROOT], [Q]
 // int32).
 extern "C" int ring_search_launch(
-        const int* hp, int nhp, int multiref, int fixed, int x64,
-        const void* table,
-        const void* carr, const void* rc, const void* lens, const void* D,
-        const void* Ds, const void* seed_L, const void* seed_U,
-        const void* seed_cnt, void* arena, void* xlist, void* counter,
+        const int* hp, int nhp, int multiref, int fixed, int x64, int lpb,
+        long long smem, const void* table, const void* carr, const void* rc,
+        const void* lens, const void* D, const void* Ds, const void* seed_L,
+        const void* seed_U, const void* seed_cnt, void* arena, void* counter,
         void* q_alns, void* q_meta, void* q_paths, void* stream) {
     if (nhp != (int)(sizeof(RSParams) / sizeof(int))) return -1;
     RSParams P;
     memcpy(&P, hp, sizeof(P));
-    const size_t smem = (size_t)RS_BLOCK_LANES * P.NB * sizeof(int);
-    if (P.NB < 1 || smem > 48 * 1024) return -1;
+    if (P.NB < 1 || P.Lmax < 1 || P.DS < 1 || P.XC < 0 || lpb < 1
+            || lpb > RS_MAX_LPB)
+        return -1;
+    const long long lane_bytes = ring_search_lane_smem(P.NB, P.Lmax, P.DS,
+                                                       P.XC, x64);
+    if (smem != lpb * lane_bytes || smem > RS_SMEM_MAX) return -1;
     if (fixed && P.lanes != P.Q) return -1;
     const int nseed = (seed_L != nullptr) + (seed_U != nullptr)
                     + (seed_cnt != nullptr);
     if (nseed == 1 || nseed == 2 || P.NROOT < 1 || (!nseed && P.NROOT != 1))
         return -1;
 #define RS_LAUNCH(M, F, T) launch<M, F, T>(                                 \
-        P, smem, table, carr, rc, lens, D, Ds, seed_L, seed_U, seed_cnt,   \
-        arena, xlist, counter, q_alns, q_meta, q_paths, stream)
+        P, lpb, (size_t)smem, table, carr, rc, lens, D, Ds, seed_L, seed_U, \
+        seed_cnt, arena, counter, q_alns, q_meta, q_paths, stream)
     if (x64) {
         if (!fixed) return -1;
         return multiref ? RS_LAUNCH(true, true, long long)

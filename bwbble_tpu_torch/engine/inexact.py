@@ -456,7 +456,11 @@ def _plain_chunk(didx: DeviceIndex, rc, lengths, D, Ds, params: AlnParams,
         rank_rows[ix] += ((in_table(Ls - 1) + in_table(Us)) * live
                           ).sum(dim=1).to(I32)
         if S.multiref:
-            nL, nU, ncnt, _w, ov = expand_step(didx, Ls, Us, cnt, c)
+            # only the columns that hold live slots are expanded (dead slots
+            # yield no candidates), into lists of the full capacity XC
+            kl = max(1, int(cnt.max()))
+            nL, nU, ncnt, _w, ov = expand_step(didx, Ls[:, :kl], Us[:, :kl],
+                                               cnt, c, cap=XC)
         else:
             # single-interval 1-to-1 scan (exact_match_1to1_bounded)
             gc = gray4_t[c.clamp(0, 4).long()]
@@ -852,7 +856,7 @@ def _search_inputs(didx, rc, lengths, D, Ds, seed_L, seed_U, seed_cnt,
 
 def inexact_search(didx: DeviceIndex, rc, lengths, D, D_seed,
                    params: AlnParams, cfg: EngineConfig, seed_L=None,
-                   seed_U=None, seed_cnt=None, device=None):
+                   seed_U=None, seed_cnt=None, device=None, timer=None):
     """Fixed-batch search: one lane per read; outputs are per-read [B, ...]
     tensors on the device, in read order, plus `paths` (2-bit packed
     reverse-order state walks) and `arena`, the launch's frame rows
@@ -873,6 +877,9 @@ def inexact_search(didx: DeviceIndex, rc, lengths, D, D_seed,
                  index must live there.  On a CUDA device the hand-written
                  kernel is launched; the plain version runs only for CPU
                  tensors.
+      timer:     None, or an object whose `events` a CUDA launch sets to two
+                 CUDA events recorded right around the kernel's launch
+                 (engine/kernel.py); unused on the CPU.
     """
     dev, rc, lengths, D, D_seed, seeds = _search_inputs(
         didx, rc, lengths, D, D_seed, seed_L, seed_U, seed_cnt, device)
@@ -881,13 +888,13 @@ def inexact_search(didx: DeviceIndex, rc, lengths, D, D_seed,
                                   seeds)
     from bwbble_tpu_torch.engine import kernel
     return kernel.fixed_search(didx, rc, lengths, D, D_seed, params, cfg,
-                               seeds)
+                               seeds, timer)
 
 
 def inexact_search_queued(didx: DeviceIndex, rc_all, lengths_all, D_all,
                           Ds_all, params: AlnParams, cfg: EngineConfig,
                           lanes: int, seed_L=None, seed_U=None,
-                          seed_cnt=None, device=None):
+                          seed_cnt=None, device=None, timer=None):
     """Continuous-batching search: `lanes` lanes stream through all NR reads
     (global work queue, queue order = the order given); outputs are per-read
     [NR, ...] tensors on the device.  Arguments as for `inexact_search`.
@@ -903,7 +910,7 @@ def inexact_search_queued(didx: DeviceIndex, rc_all, lengths_all, D_all,
                                  params, cfg, lanes, seeds)
     from bwbble_tpu_torch.engine import kernel
     return kernel.ring_search(didx, rc_all, lengths_all, D_all, Ds_all,
-                              params, cfg, lanes, seeds)
+                              params, cfg, lanes, seeds, timer)
 
 
 def walk_paths(arena: torch.Tensor, lanes: torch.Tensor, nodes: torch.Tensor,

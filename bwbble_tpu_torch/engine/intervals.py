@@ -30,15 +30,19 @@ _NB = C.BASES_PER_NUCLEOTIDE
 
 
 def expand_step(didx: DeviceIndex, Ls: torch.Tensor, Us: torch.Tensor,
-                cnt: torch.Tensor, c: torch.Tensor):
+                cnt: torch.Tensor, c: torch.Tensor, cap: int | None = None):
     """One backward-search step over interval lists.
 
     Args:  Ls/Us [B, K] in the index's type didx.idt; cnt int32 [B]; c
-           int32 [B] nt4 read base.
+           int32 [B] nt4 read base; cap: the new lists' capacity (None: K).
+           A caller may pass only the first columns of its lists, as long
+           as they hold every live slot (cnt <= K), with its capacity as
+           `cap`: the result is the same.
     Returns (newLs, newUs, newcnt, width_sum, overflow_step):
+      newLs/newUs [B, cap];
       width_sum[b] = total width of the candidate intervals (the
       num_matches accumulator of calculate_d, inexact_match.c:226);
-      overflow_step[b] = merged list exceeded K.
+      overflow_step[b] = merged list exceeded cap.
     Lanes with c > 3 (N) produce empty lists (exact_match.c:84-86).
     """
     B, K = Ls.shape
@@ -66,7 +70,7 @@ def expand_step(didx: DeviceIndex, Ls: torch.Tensor, Us: torch.Tensor,
 
     newLs, newUs, newcnt, overflow = merge_compact(
         candL.reshape(B, K * _NB), candU.reshape(B, K * _NB),
-        valid.reshape(B, K * _NB), K)
+        valid.reshape(B, K * _NB), K if cap is None else int(cap))
     return newLs, newUs, newcnt, width_sum, overflow
 
 

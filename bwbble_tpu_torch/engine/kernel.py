@@ -17,6 +17,13 @@ library with a plain C interface under `build/` at the repository root,
 named by a content hash of the source so a stale build is never loaded; the
 library is bound with ctypes.  A build or load failure raises.  Nothing here
 runs when the module is imported.
+
+Shared memory: a lane (a warp) holds its read's small state there
+(`lane_smem_bytes`); `launch_shape` picks the lanes a block and the bytes a
+block asks for, and raises ValueError, before any launch, for a
+configuration past the card's 227 KB a block.  Timing: given a `timer`, a
+launch records two CUDA events on the current stream right around the
+kernel launch itself, so what they time is the kernel's own run.
 """
 
 from __future__ import annotations
@@ -33,8 +40,8 @@ import torch
 from bwbble_tpu_torch.align.params import AlnParams
 from bwbble_tpu_torch.engine.device_index import DeviceIndex
 from bwbble_tpu_torch.engine.inexact import (NMETA, EngineConfig,
-                                             alloc_outputs, result_dict,
-                                             ring_statics)
+                                             RingStatics, alloc_outputs,
+                                             result_dict, ring_statics)
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(os.path.dirname(_HERE), "csrc")
@@ -47,6 +54,16 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "build")
 LAUNCHES = {"ring_search": 0, "fixed_search": 0, "ring_search_seeded": 0,
             "fixed_search_seeded": 0, "fixed_search_i64": 0,
             "fixed_search_seeded_i64": 0}
+
+# dynamic shared memory a block may have on an H100 (227 KB), and the
+# lanes a block: two from BLOCK2_LANES lanes on (more warps an SM than one a
+# block allows), else one (the lanes spread over as many SMs as they can)
+SMEM_MAX = 232448
+BLOCK2_LANES = 2048
+
+# the launch shapes run in this process: (entry, NB, Lmax, DS, XC, lanes a
+# block) -> shared bytes a block
+SMEM_SEEN: dict[tuple, int] = {}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -84,8 +101,11 @@ def build(name: str = "ring_search") -> str:
 
 def _bind_ring_search(lib: ctypes.CDLL) -> None:
     vp = ctypes.c_void_p
-    lib.ring_search_launch.argtypes = [vp] + [ctypes.c_int] * 4 + [vp] * 16
+    lib.ring_search_launch.argtypes = ([vp] + [ctypes.c_int] * 5
+                                       + [ctypes.c_longlong] + [vp] * 15)
     lib.ring_search_launch.restype = ctypes.c_int
+    lib.ring_search_lane_smem.argtypes = [ctypes.c_int] * 5
+    lib.ring_search_lane_smem.restype = ctypes.c_longlong
     lib.ring_search_row_words.argtypes = [ctypes.c_int] * 2
     lib.ring_search_row_words.restype = ctypes.c_int
     lib.ring_search_num_params.argtypes = []
@@ -138,35 +158,68 @@ def param_block(params: AlnParams, S, Q: int, Lmax: int, length: int,
          int(length) >> 32], dtype=np.int32)
 
 
+def lane_smem_bytes(S: RingStatics) -> int:
+    """Shared-memory bytes of one lane (csrc/ring_search.cu LaneSmem):
+    C [17], D [(Lmax + 1) * 2], D_seed [DS * 2] and the two exact-completion
+    lists [2, XC, 2] in the index's type, the NB bucket heads (int32) and
+    the read's codes (int8), each rounded up to 16 bytes."""
+    it = 8 if S.x64 else 4
+
+    def up(n: int) -> int:
+        return (n + 15) // 16 * 16
+    return (up(17 * it) + up((S.Lmax + 1) * 2 * it) + up(S.DS * 2 * it)
+            + up(4 * S.XC * it) + up(S.NB * 4) + up(S.Lmax))
+
+
+def launch_shape(S: RingStatics, lanes: int) -> tuple[int, int]:
+    """(lanes a block, shared bytes a block) of a launch of `lanes` lanes;
+    raises ValueError when one lane's shared memory exceeds a block's."""
+    lane = lane_smem_bytes(S)
+    if lane > SMEM_MAX:
+        raise ValueError(
+            f"search kernel: a lane needs {lane} bytes of shared memory "
+            f"(NB={S.NB}, Lmax={S.Lmax}, DS={S.DS}, XC={S.XC}, "
+            f"{'int64' if S.x64 else 'int32'}); a block has {SMEM_MAX}")
+    lpb = 2 if lanes >= BLOCK2_LANES and 2 * lane <= SMEM_MAX else 1
+    return lpb, lpb * lane
+
+
 def _launch(entry: str, didx: DeviceIndex, rc_all: torch.Tensor,
             lengths_all: torch.Tensor, D_all: torch.Tensor,
             Ds_all: torch.Tensor, params: AlnParams, cfg: EngineConfig,
-            lanes: int | None, seeds):
+            lanes: int | None, seeds, timer=None):
     """Check the arguments, allocate outputs and scratch, launch one
     instantiation of the kernel (`lanes` None: fixed mode, one lane per
     read; `seeds` None or (seed_L, seed_U, seed_cnt)) and count the launch.
-    Returns (q_alns, q_meta, q_paths, arena).  Does not synchronise."""
+    Given a `timer`, sets `timer.events` to two CUDA events recorded on the
+    current stream right before and after the launch.  Returns (q_alns,
+    q_meta, q_paths, arena).  Does not synchronise."""
     fixed = lanes is None
+    idt = didx.idt
+    x64 = idt == torch.int64
+    if rc_all.dim() != 2 or (seeds is not None and seeds[0].dim() != 2):
+        raise ValueError(f"{entry}: rc must be [Q, Lmax] and seed_L [Q, S]")
+    Q, Lmax = rc_all.shape
+    nseed = 0 if seeds is None else seeds[0].shape[1]
+    S = ring_statics(params, cfg, Lmax, Ds_all.shape[1], fixed=fixed,
+                     seed_slots=nseed, x64=x64)
+    lanes = Q if fixed else max(1, min(int(lanes), Q))
+    lpb, smem = launch_shape(S, lanes)
     dev = didx.table.device
     if dev.type != "cuda":
         raise ValueError(f"{entry} launches a CUDA kernel: the index lives "
                          f"on {dev}")
-    idt = didx.idt
-    x64 = idt == torch.int64
     _check(didx.table, "table", torch.int32, 2, dev)
     _check(didx.Carr, "Carr", idt, 1, dev)
     _check(rc_all, "rc", torch.int8, 2, dev)
     _check(lengths_all, "lengths", torch.int32, 1, dev)
     _check(D_all, "D", idt, 3, dev)
     _check(Ds_all, "Ds", idt, 3, dev)
-    Q, Lmax = rc_all.shape
-    nseed = 0
     if seeds is not None:
         sL, sU, scnt = seeds
         _check(sL, "seed_L", idt, 2, dev)
         _check(sU, "seed_U", idt, 2, dev)
         _check(scnt, "seed_cnt", torch.int32, 1, dev)
-        nseed = sL.shape[1]
         if (sL.shape[0] != Q or nseed < 1 or sU.shape != sL.shape
                 or scnt.shape[0] != Q):
             raise ValueError(f"{entry}: inconsistent seed shapes")
@@ -179,34 +232,41 @@ def _launch(entry: str, didx: DeviceIndex, rc_all: torch.Tensor,
         raise ValueError(f"{entry}: inconsistent input shapes")
     if int(didx.length) < 2 or Q < 1:
         raise ValueError(f"{entry}: empty index or read set")
-    S = ring_statics(params, cfg, Lmax, Ds_all.shape[1], fixed=fixed,
-                     seed_slots=nseed, x64=x64)
     if x64:
         entry += "_i64"
-    lanes = Q if fixed else max(1, min(int(lanes), Q))
+    SMEM_SEEN[(entry, S.NB, S.Lmax, S.DS, S.XC, lpb)] = smem
     lib = _load()
     hp = param_block(params, S, Q, Lmax, int(didx.length), lanes)
     if (hp.size != lib.ring_search_num_params()
             or S.ROWW != lib.ring_search_row_words(int(S.multiref),
                                                    int(x64))
-            or NMETA != lib.ring_search_num_meta()):
-        raise RuntimeError(f"{entry}: parameter block, frame-row width or "
-                           "result columns out of date")
+            or NMETA != lib.ring_search_num_meta()
+            or lane_smem_bytes(S) != lib.ring_search_lane_smem(
+                S.NB, S.Lmax, S.DS, S.XC, int(x64))):
+        raise RuntimeError(f"{entry}: parameter block, frame-row width, "
+                           "result columns or shared-memory layout out of "
+                           "date")
     sp = [x.data_ptr() for x in seeds] if seeds is not None else [None] * 3
 
     with torch.cuda.device(dev):
         q_alns, q_meta, q_paths = alloc_outputs(Q, S, dev)
         arena = torch.empty((lanes, S.NFRAME, S.ROWW), dtype=torch.int32,
                             device=dev)
-        xlist = torch.empty((lanes, 2, S.XC, 2), dtype=idt, device=dev)
         counter = torch.zeros((1,), dtype=torch.int32, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
+        ev = None if timer is None else tuple(
+            torch.cuda.Event(enable_timing=True) for _ in range(2))
+        if ev is not None:
+            ev[0].record()
         rc = lib.ring_search_launch(
             hp.ctypes.data, hp.size, int(S.multiref), int(fixed), int(x64),
-            didx.table.data_ptr(), didx.Carr.data_ptr(), rc_all.data_ptr(),
-            lengths_all.data_ptr(), D_all.data_ptr(), Ds_all.data_ptr(),
-            *sp, arena.data_ptr(), xlist.data_ptr(), counter.data_ptr(),
+            lpb, smem, didx.table.data_ptr(), didx.Carr.data_ptr(),
+            rc_all.data_ptr(), lengths_all.data_ptr(), D_all.data_ptr(),
+            Ds_all.data_ptr(), *sp, arena.data_ptr(), counter.data_ptr(),
             q_alns.data_ptr(), q_meta.data_ptr(), q_paths.data_ptr(), stream)
+        if ev is not None:
+            ev[1].record()
+            timer.events = ev
     count_launch(LAUNCHES, entry, rc)
     # the scratch tensors stay referenced by the caching allocator's stream
     # ordering: later allocations on this stream cannot reuse them before
@@ -217,25 +277,26 @@ def _launch(entry: str, didx: DeviceIndex, rc_all: torch.Tensor,
 def ring_search(didx: DeviceIndex, rc_all: torch.Tensor,
                 lengths_all: torch.Tensor, D_all: torch.Tensor,
                 Ds_all: torch.Tensor, params: AlnParams, cfg: EngineConfig,
-                lanes: int, seeds=None) -> dict:
+                lanes: int, seeds=None, timer=None) -> dict:
     """Launch the ring-queue search on CUDA tensors: `lanes` lanes (at most
     one per read) stream through the reads; `seeds` None, or (seed_L [Q, S],
-    seed_U [Q, S], seed_cnt [Q]) int32 for a seeded search with NROOT = S.
+    seed_U [Q, S], seed_cnt [Q]) int32 for a seeded search with NROOT = S;
+    `timer` None, or an object whose `events` the launch sets (`_launch`).
     Returns the per-read result dict (engine/inexact.py:result_dict) of
     device tensors.  Does not synchronise.  Raises for anything the kernel
     does not take — there is no fallback to the plain version."""
     q_alns, q_meta, q_paths, _arena = _launch(
         "ring_search", didx, rc_all, lengths_all, D_all, Ds_all, params,
-        cfg, lanes, seeds)
+        cfg, lanes, seeds, timer)
     return result_dict(q_alns, q_meta, q_paths)
 
 
 def fixed_search(didx: DeviceIndex, rc: torch.Tensor, lengths: torch.Tensor,
                  D: torch.Tensor, Ds: torch.Tensor, params: AlnParams,
-                 cfg: EngineConfig, seeds=None) -> dict:
+                 cfg: EngineConfig, seeds=None, timer=None) -> dict:
     """Launch the fixed-batch search on CUDA tensors: lane b runs read b
     and nothing else, so there is a lane, and an arena column, for exactly
-    the reads given; `seeds` as for `ring_search`.  On the int64 index
+    the reads given; `seeds` and `timer` as for `ring_search`.  On the int64 index
     layout D, Ds and the seed intervals are int64, and so are the reported
     L/U.  Returns the per-read
     result dict in read order plus `arena`, the launch's frame rows
@@ -243,5 +304,6 @@ def fixed_search(didx: DeviceIndex, rc: torch.Tensor, lengths: torch.Tensor,
     Does not synchronise.  Raises for anything the kernel does not take —
     there is no fallback to the plain version."""
     q_alns, q_meta, q_paths, arena = _launch(
-        "fixed_search", didx, rc, lengths, D, Ds, params, cfg, None, seeds)
+        "fixed_search", didx, rc, lengths, D, Ds, params, cfg, None, seeds,
+        timer)
     return dict(result_dict(q_alns, q_meta, q_paths), arena=arena)

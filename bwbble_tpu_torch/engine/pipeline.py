@@ -397,29 +397,30 @@ def _assemble(host: dict, pathcap: int, root_plen: int) -> list:
 
 
 class _LaunchTimer:
-    """Device time of one launch: CUDA events around it on a CUDA device
-    (recording does not synchronise), the host clock on the CPU."""
+    """Time of one search launch.  On a CUDA device the kernel's wrapper
+    sets `events` to two CUDA events it records on the stream right around
+    the kernel's launch (engine/kernel.py:_launch), so the time is the
+    kernel's own, without the host work of the search call; on the CPU it
+    is the host clock from construction to `stop()`."""
 
     def __init__(self, dev):
+        self._cuda = dev.type == "cuda"
+        self.events = None
         self._t0 = _tm.time()
-        self._ev = None
-        if dev.type == "cuda":
-            self._ev = (torch.cuda.Event(enable_timing=True),
-                        torch.cuda.Event(enable_timing=True))
-            self._ev[0].record()
+        self._sec = 0.0
 
     def stop(self) -> None:
-        if self._ev is not None:
-            self._ev[1].record()
-        else:
-            self._sec = _tm.time() - self._t0
+        self._sec = _tm.time() - self._t0
 
     def seconds(self) -> float:
         """Blocks until the launch has finished."""
-        if self._ev is not None:
-            self._ev[1].synchronize()
-            return self._ev[0].elapsed_time(self._ev[1]) / 1e3
-        return self._sec
+        if not self._cuda:
+            return self._sec
+        if self.events is None:
+            raise RuntimeError("a search launch on a CUDA device recorded "
+                               "no events")
+        self.events[1].synchronize()
+        return self.events[0].elapsed_time(self.events[1]) / 1e3
 
 
 def _lookup_seeds(precalc, rc: np.ndarray, lengths: np.ndarray,
@@ -557,7 +558,7 @@ def align_reads_device(idx: FMIndex, didx: DeviceIndex, reads: Reads,
             kw = {} if seeds is None else dict(
                 seed_L=seeds[0], seed_U=seeds[1], seed_cnt=seeds[2])
             res = inexact_search(didx, rc, lengths, Dsel, Dssel, params,
-                                 tier_cfg, device=dev, **kw)
+                                 tier_cfg, device=dev, timer=timer, **kw)
             timer.stop()
             # the pipeline reads the packed paths; the arena goes back to
             # the allocator here, and the next launch on this stream may
@@ -805,7 +806,7 @@ def align_reads_device(idx: FMIndex, didx: DeviceIndex, reads: Reads,
     finally:
         if pool is not None:
             pool.terminate()
-    counters["t_search"] = round(t_launch[0], 3)
+    counters["t_search"] = t_launch[0]
     # in the streamed branch the D scan and the launches overlap, so the
     # parts can add up to more than the wall time
     counters["t_host"] = round(max(_tm.time() - t_start
@@ -987,7 +988,7 @@ def _align_queued(idx, didx, reads: Reads, params: AlnParams,
                 res = inexact_search_queued(
                     didx, rc_d[cs:ce], len_d[cs:ce], D_s[cs:ce],
                     Ds_s[cs:ce], params, cfg_r, lanes=lanes_p, device=dev,
-                    **kw)
+                    timer=timer, **kw)
                 timer.stop()
                 return dict(cs=cs, nb=ce - cs, res=res, timer=timer)
 
@@ -1076,7 +1077,7 @@ def _align_queued(idx, didx, reads: Reads, params: AlnParams,
         stats.update(fallback_reads=n_fallback, retried_reads=n_retry,
                      prerouted=int(routed.sum()),
                      t_dbounds=round(t_dbounds, 3),
-                     t_search=round(t_search, 3),
+                     t_search=t_search,
                      t_host=round(_tm.time() - t_start - t_dbounds
                                   - t_search, 3),
                      tiers=pass_log, **counters)

@@ -43,9 +43,15 @@ the launch counts are set to 0 and after it they are read: a path that did
 not launch its kernel fails.
 
 The plain versions (one lockstep iteration per pop of a comparison's
-longest read, bound by the host's dispatch of small ops) run one after
-another in this process after the last timed section, so no timed section
-shares the card or the host with them.
+longest read, bound by the dispatch of small ops) run on host copies of the
+comparisons' inputs, on the CPU, in spawned worker processes side by side,
+after the last timed section, so no timed section shares the card or the
+host with them.  Search launches are timed by CUDA events that the kernel's
+wrapper records right around each launch (`t_search`); the probe kernels
+K5 and K6 and their library calls by replays of a CUDA graph of many calls.
+The build phase prints what `-Xptxas -v` says of each instantiation
+(registers, stack, spills); main_path.profile is one try of torch.profiler
+over the main path's call (the card's own busy share).
 """
 
 from __future__ import annotations
@@ -106,6 +112,73 @@ def _gold_job(bwt: str, params, seq, rc, lengths, entries) -> list:
                             precalc=rows) for i in range(len(lengths))]
 
 
+_PLAIN_INDEX: dict = {}
+
+
+def _plain_job(index_file: str, host_in: list, seeds, params, cfg,
+               fixed: bool):
+    """One comparison's plain version in a worker process, on the CPU, on
+    host copies of its inputs (the index from `index_file`, kept for the
+    worker's later jobs): (milliseconds, its per-read outputs as numpy)."""
+    import torch
+    sys.path.insert(0, ROOT)
+    torch.set_num_threads(1)
+    from bwbble_tpu_torch.engine.device_index import DeviceIndex
+    from bwbble_tpu_torch.engine.inexact import (fixed_search_plain,
+                                                 ring_search_plain)
+    didx = _PLAIN_INDEX.get(index_file)
+    if didx is None:
+        didx = _PLAIN_INDEX[index_file] = DeviceIndex(**torch.load(
+            index_file))
+    a = [torch.from_numpy(x) for x in host_in]
+    sd = None if seeds is None else tuple(torch.from_numpy(x) for x in seeds)
+    t0 = time.time()
+    if fixed:
+        ref = fixed_search_plain(didx, *a, params, cfg, sd)
+    else:
+        # per-read results do not depend on the lane that serves a read,
+        # so the plain version runs all reads as one lockstep chunk
+        ref = ring_search_plain(didx, *a, params, cfg, a[0].shape[0], sd)
+    ms = (time.time() - t0) * 1e3
+    # which lane served a read is free; the arena is walked on the card
+    return ms, {k: v.numpy() for k, v in ref.items()
+                if k not in ("o_lane", "arena")}
+
+
+def _ptxas_report(lines: list[str]) -> list[dict]:
+    """Registers, stack and spills of each ring_search_kernel instantiation
+    from nvcc's `-Xptxas -v` report."""
+    import re
+    names = {"1": "multiref", "0": "single"}
+    out, cur = [], None
+    for ln in lines:
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            k = re.search(r"ring_search_kernelILb([01])ELb([01])E([ix])E",
+                          m.group(1))
+            cur = None if k is None else {
+                "instantiation": f"<{names[k.group(1)]}, "
+                f"{'fixed' if k.group(2) == '1' else 'ring'}, "
+                f"{'i64' if k.group(3) == 'x' else 'i32'}>"}
+            if cur is not None:
+                out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m:
+            cur.update(stack_bytes=int(m.group(1)),
+                       spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            cur["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", ln)
+            cur["static_smem_bytes"] = int(m.group(1)) if m else 0
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--genome-bp", type=int, default=GENOME_BP)
@@ -139,11 +212,8 @@ def main() -> int:
     from bwbble_tpu_torch.align.precalc import (build_precalc_device,
                                                 build_precalc_gold, load_pre,
                                                 read_indices, store_pre)
-    from bwbble_tpu_torch.engine.inexact import (EngineConfig,
-                                                 fixed_search_plain,
-                                                 ring_search_plain,
-                                                 ring_statics, unpack_paths,
-                                                 walk_paths)
+    from bwbble_tpu_torch.engine.inexact import (EngineConfig, ring_statics,
+                                                 unpack_paths, walk_paths)
     from bwbble_tpu_torch.engine.pipeline import (LADDER, _calc_d_chunk,
                                                   align_reads_device,
                                                   deep_tier_cfg,
@@ -195,8 +265,14 @@ def main() -> int:
             ptxas[name] = [ln.strip().replace("ptxas info    : ", "")
                            for ln in f if "Compiling entry" in ln
                            or "registers" in ln or "stack frame" in ln]
+    regs = _ptxas_report(ptxas["ring_search"])
     emit("build", ok=True, seconds=round(time.time() - t, 1),
          kernel_libs=libs, ptxas=ptxas)
+    for r in regs:
+        emit("build.ptxas", kernel="ring_search_kernel", **r)
+    if len(regs) != 6:
+        fail("build", f"ring_search: not six instantiations in the ptxas "
+                      f"report: {regs}")
 
     # --------------------------------------------------------------- kernels
     def exact_d(idx, rd, params):
@@ -212,7 +288,22 @@ def main() -> int:
         return D, Ds
 
     cmps: list[dict] = []       # every comparison, for the `kernels` line
+    PLAIN_PIECE = 128           # reads a piece of a plain version's run
     os.makedirs(args.workdir, exist_ok=True)
+    plain_index: dict = {}      # id(index) -> (its host copy's file, index)
+
+    def index_file(didx) -> str:
+        """A host copy of `didx`, written once, for the plain versions'
+        workers."""
+        if id(didx) not in plain_index:
+            path = os.path.join(args.workdir,
+                                f"plain_index_{len(plain_index)}.pt")
+            torch.save(dict(table=didx.table.cpu(), Carr=didx.Carr.cpu(),
+                            sa_samples=didx.sa_samples.cpu(),
+                            length=int(didx.length), sa0=int(didx.sa0)),
+                       path)
+            plain_index[id(didx)] = (path, didx)
+        return plain_index[id(didx)][0]
 
     def device_d(didx, rd, params, K):
         """D bounds of all of `rd` from one device pass at list width K."""
@@ -228,8 +319,8 @@ def main() -> int:
         """One kernel entry on the card (`lanes` None: the fixed-batch
         search, else the ring search at that many lanes; `seeds`: None, or
         (seed_L, seed_U, seed_cnt) numpy arrays of a seeded search), timed
-        after a warm-up; its plain version runs in `resolve_plain`, after
-        the last timed section.  Every per-read output, path, overflow flag,
+        after a warm-up; its plain version runs in `resolve_plain`, on host
+        copies of the inputs, after the last timed section.  Every per-read output, path, overflow flag,
         reason and counter must then be equal (integers: tolerance zero),
         and for a fixed batch `walk_paths` over the returned arena must give
         the in-kernel walk.  Returns the comparison's record; `over` (the
@@ -305,6 +396,8 @@ def main() -> int:
         rec = dict(ms=ms, io_bytes=io_bytes, reads=n, x64=x64,
                    lane_work_max=lane_work_max, **tot)
         b_ms, b_by = bound_ms(rec)
+        lpb, smem = kernel.launch_shape(S, n if lanes is None else
+                                        min(lanes, n))
         line = dict(
             world=name, entry=entry,
             alphabet=16 if params.is_multiref else 4, reads=n,
@@ -313,17 +406,11 @@ def main() -> int:
             cap=cfg.cap, acap=cfg.acap, xc=cfg.xcap or cfg.kx,
             finished_share=1.0 - tot["overflow"] / n, kernel_ms=ms,
             bound_ms=b_ms, bound_by=b_by, lane_work_max=lane_work_max,
+            smem_block_bytes=smem, lanes_per_block=lpb,
             walk_paths_equal=walked, **roots)
-        if lanes is None:
-            def run_plain():
-                return fixed_search_plain(didx, *a, params, cfg, sd)
-        else:
-            # per-read results do not depend on the lane that serves a
-            # read, so the plain version runs all reads as one lockstep
-            # chunk
-            def run_plain():
-                return ring_search_plain(didx, *a, params, cfg, n, sd)
-        rec.update(line=line, run_plain=run_plain, totals=tot, walked=walked,
+        rec.update(line=line, totals=tot, walked=walked,
+                   plain_job=(index_file(didx), host_in, sd_host, params,
+                              cfg, lanes is None),
                    got={k: v.cpu().numpy() for k, v in got.items()
                         if k != "arena"},
                    over=got["overflow"].cpu().numpy())
@@ -333,38 +420,82 @@ def main() -> int:
                             f"walk: {entry} on {name}")
         return rec
 
+    def plain_pieces(i: int) -> list:
+        """Comparison i's plain job cut into read ranges of at most
+        PLAIN_PIECE reads (at most eight): (cost, i, first read, job).  A
+        read's plain result does not depend on the reads beside it, so the
+        pieces' outputs, joined in order, are the whole comparison's; the
+        cost (the longest read's work units, one lockstep iteration each,
+        times the lanes) orders them, the costliest first."""
+        c = cmps[i]
+        f_idx, host_in, sd, params_, cfg_, fixed = c.pop("plain_job")
+        n = host_in[0].shape[0]
+        k = min(8, -(-n // PLAIN_PIECE))
+        step = -(-n // k)
+        work = c["got"]["n_work"]
+        out = []
+        for s0 in range(0, n, step):
+            s1 = min(n, s0 + step)
+            job = (f_idx, [x[s0:s1] for x in host_in],
+                   None if sd is None else [x[s0:s1] for x in sd],
+                   params_, cfg_, fixed)
+            out.append((int(work[s0:s1].max()) * (1 + (s1 - s0) / 512), i,
+                        s0, job))
+        return out
+
     def resolve_plain() -> None:
-        """Run every comparison's plain version, one after another, timed,
-        and hold each kernel result against it."""
+        """Run every comparison's plain version on host copies of its
+        inputs, cut into pieces, in `threads` spawned worker processes side
+        by side (the costliest pieces first), and hold each kernel result
+        against it."""
         t = time.time()
-        for c in cmps:
-            torch.cuda.synchronize()
-            t0 = time.time()
-            ref = c.pop("run_plain")()
-            torch.cuda.synchronize()
-            plain_ms = (time.time() - t0) * 1e3
-            bad, err = [], 0
-            for k, v in ref.items():
-                if k in ("o_lane", "arena"):   # which lane served a read:
-                    continue                    # free; the arena: walked
-                d = np.abs(v.cpu().numpy().astype(np.int64)
-                           - c["got"][k].astype(np.int64))
-                if d.size and int(d.max()) != 0:
-                    bad.append(k)
-                    err = max(err, int(d.max()))
-            del ref
-            c.update(plain_ms=plain_ms, err=err, equal=not bad)
-            c["line"].update(equal_to_plain=not bad, plain_ms=plain_ms,
-                             latency_bound_ms=latency_ms(
-                                 c["lane_work_max"]))
-            emit("kernels.compare", mismatched=bad, **c["line"],
-                 **c["totals"])
-            if bad:
-                fail("kernels", f"{c['line']['entry']} != plain version on "
-                                f"{c['line']['world']}: {bad}")
-        emit("kernels.plain", comparisons=len(cmps),
+        pieces = sorted((p for i in range(len(cmps))
+                         for p in plain_pieces(i)), key=lambda p: -p[0])
+        wrong, piece_max = [], 0.0
+        with ProcessPoolExecutor(
+                threads,
+                mp_context=multiprocessing.get_context("spawn")) as ex:
+            futs: dict = {}
+            for _cost, i, s0, job in pieces:
+                futs.setdefault(i, []).append(
+                    (s0, ex.submit(_plain_job, *job)))
+            for i, c in enumerate(cmps):
+                parts = [(s0, f.result()) for s0, f in sorted(
+                    futs.pop(i), key=lambda x: x[0])]
+                plain_ms = sum(r[0] for _s0, r in parts)
+                piece_max = max([piece_max] + [r[0] for _s0, r in parts])
+                ref = {k: np.concatenate([r[1][k] for _s0, r in parts])
+                       for k in parts[0][1][1]}
+                n_pieces = len(parts)
+                del parts
+                bad, err = [], 0
+                for k, v in ref.items():
+                    d = np.abs(v.astype(np.int64)
+                               - c["got"][k].astype(np.int64))
+                    if d.size and int(d.max()) != 0:
+                        bad.append(k)
+                        err = max(err, int(d.max()))
+                del ref
+                lat = latency_ms(c["lane_work_max"])
+                c.update(plain_ms=plain_ms, err=err, equal=not bad)
+                c["line"].update(equal_to_plain=not bad, plain_ms=plain_ms,
+                                 plain_pieces=n_pieces,
+                                 latency_bound_ms=lat,
+                                 time_over_latency_bound=c["ms"] / lat
+                                 if lat else None)
+                emit("kernels.compare", mismatched=bad, **c["line"],
+                     **c["totals"])
+                if bad:
+                    wrong.append(f"{c['line']['entry']} on "
+                                 f"{c['line']['world']}: {bad}")
+        emit("kernels.plain", comparisons=len(cmps), pieces=len(pieces),
+             workers=threads,
              seconds=round(time.time() - t, 1),
-             plain_ms_sum=sum(c["plain_ms"] for c in cmps))
+             plain_ms_sum=sum(c["plain_ms"] for c in cmps),
+             plain_ms_max=max(c["plain_ms"] for c in cmps),
+             piece_ms_max=piece_max)
+        if wrong:
+            fail("kernels", "kernel != plain version: " + "; ".join(wrong))
 
     def timed_cli(argv):
         """One CLI call: (exit code, seconds)."""
@@ -565,6 +696,43 @@ def main() -> int:
                           "CLI's")
     if main_launches == 0 or stats.get("launches") != main_launches:
         fail("main_path", "the main path did not launch ring_search")
+
+    # one try of torch.profiler over the same call: the ring kernel's
+    # device time and the card's own busy share of the call (the union of
+    # the device activities' intervals over the call's wall time, profiler
+    # overhead included)
+    try:
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t = time.time()
+            align_reads_device(idx, didx, reads, params, cfg, d_cap=64,
+                               queued=True, qchunk=16, stats={}, device=dev)
+            torch.cuda.synchronize()
+            wall = time.time() - t
+        spans, ring_us = [], 0.0
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                spans.append((e.time_range.start, e.time_range.end))
+                if "ring_search_kernel" in e.name:
+                    ring_us += e.time_range.elapsed_us()
+        busy_us, end = 0.0, None
+        for a_, b_ in sorted(spans):
+            if end is None or a_ > end:
+                busy_us += b_ - a_
+                end = b_
+            elif b_ > end:
+                busy_us += b_ - end
+                end = b_
+        emit("main_path.profile", ok=True, device_events=len(spans),
+             ring_kernel_device_ms=ring_us / 1e3 if spans else None,
+             device_busy_ms=busy_us / 1e3 if spans else None,
+             wall_seconds=wall,
+             device_busy_share=busy_us / 1e6 / wall if spans else None,
+             t_search_of_timed_run=stats.get("t_search"), card=card)
+    except Exception as ex:                      # report it, and go on
+        emit("main_path.profile", ok=False, error=repr(ex)[:500])
 
     def path_line(n_reads, dt, stats, launches, **extra):
         """The common numbers of one driven path."""
@@ -1012,12 +1180,15 @@ def main() -> int:
 
     pcmps: dict = {"dma_wave": [], "digest_consume": [], "row_gather": []}
 
-    def probe_compare(name, fn, plain, sets, nbytes, library=None, **what):
+    def probe_compare(name, fn, plain, sets, nbytes, library=None,
+                      graph=False, **what):
         """One probe kernel on the card against its plain version on host
         copies of the first of `sets` (argument tuples of distinct inputs);
         kernel and library call timed with CUDA events, one call on each
-        other set after a warm-up on the last, the plain version on the
-        host clock."""
+        other set after a warm-up on the last (`graph`: GRAPH_CALLS calls
+        over the other sets in one CUDA graph, replayed between the events,
+        so the host's dispatch is not timed), the plain version on the host
+        clock."""
         got = fn(*sets[0]).cpu()
         host = [x.cpu() if torch.is_tensor(x) else x for x in sets[0]]
         t0 = time.time()
@@ -1025,10 +1196,15 @@ def main() -> int:
         plain_ms = (time.time() - t0) * 1e3
         err = int((got.to(torch.int64) - ref.to(torch.int64)).abs().max())
         n_t = len(sets) - 1
-        line = dict(ms=probe_k.time_calls(fn, sets, n_t),
+        timer = probe_k.time_calls
+        if graph:
+            n_t, timer = GRAPH_CALLS, probe_k.time_graph
+        line = dict(ms=timer(fn, sets, n_t),
                     plain_ms=plain_ms,
                     library_ms=None if library is None else
-                    probe_k.time_calls(library, sets, n_t),
+                    timer(library, sets, n_t), timed_by=(
+                        f"CUDA graph of {n_t} calls" if graph else
+                        f"{n_t} calls between two events"),
                     bound_ms=nbytes / PEAK_BYTES_S * 1e3, bound_by="bytes",
                     max_abs_err=err, equal_to_plain=err == 0, **what)
         pcmps[name].append(line)
@@ -1037,8 +1213,10 @@ def main() -> int:
             fail("probes", f"{name} {what} != its plain version")
         return line
 
-    # every comparison is timed over SETS distinct input sets, one warms up
+    # every comparison is timed over SETS distinct input sets, one warms up;
+    # K5 and K6 (a few microseconds a call) in a graph of GRAPH_CALLS calls
     SETS = 21
+    GRAPH_CALLS = 200
     # K4: the probe's table (N rows of 512 bytes), B0 = 128 lanes for 16
     # waves, and the main path's 512 lanes for 256 waves, both variants.
     # Its bytes: of each row fetched, the words the output depends on (8
@@ -1072,7 +1250,7 @@ def main() -> int:
                 x_, l, r, B_),
             sets, rq * B_ * 8 * 4 + 8 * B_ * 4,
             library=lambda x_, l=layout, r=rq: probe_k.digest_view(
-                x_, l, r, B_).sum(dim=0, dtype=torch.int32),
+                x_, l, r, B_).sum(dim=0, dtype=torch.int32), graph=True,
             variant=variant, layout=layout, RQ=rq, B=B_)
         del tb, k0, sets
     # K6: both N, every variant; the library call is index_select
@@ -1088,7 +1266,7 @@ def main() -> int:
                     probe_k.row_gather_plain(t_, k_, m, u, b),
                 [(tb, k) for k in ks], n_ * 128 * 2 + n_ * 4,
                 library=lambda t_, k_: t_.index_select(0, k_.long()),
-                variant=variant, N=n_, NBLK=gather_bench.NBLK)
+                graph=True, variant=variant, N=n_, NBLK=gather_bench.NBLK)
         del tb, ks
     # an index outside the table is refused on the card, before a launch
     tb = torch.zeros((16, 128), dtype=torch.int32, device=dev)
@@ -1213,6 +1391,21 @@ def main() -> int:
                              root_rd=st.get("root_rows", 0),
                              pops=st["pops"], x64=x64))[0]
 
+    emit("kernels.smem", launch_shapes=[
+        dict(entry=k[0], NB=k[1], Lmax=k[2], DS=k[3], XC=k[4],
+             lanes_per_block=k[5], smem_block_bytes=v)
+        for k, v in sorted(kernel.SMEM_SEEN.items())],
+        max_block_bytes=max(kernel.SMEM_SEEN.values()),
+        limit_block_bytes=kernel.SMEM_MAX)
+
+    def regs_of(*names):
+        return {r["instantiation"]: r.get("registers") for r in regs
+                if r["instantiation"] in names}
+
+    def over_latency(ms, chain_work):
+        lat = latency_ms(chain_work)
+        return ms / lat if lat else None
+
     b_ms, b_by = bound_ms(c)
     fb_ms, fb_by = bound_ms(cf)
     sb_ms, sb_by = bound_ms(c3)
@@ -1265,6 +1458,9 @@ def main() -> int:
         "main_path_ms": stats.get("t_search", 0.0) * 1e3,
         "main_path_bound_ms": path_bound(stats),
         "main_path_latency_bound_ms": latency_ms(stats["chain_work"]),
+        "main_path_time_over_latency_bound": over_latency(
+            stats.get("t_search", 0.0) * 1e3, stats["chain_work"]),
+        "registers": regs_of("<multiref, ring, i32>", "<single, ring, i32>"),
         # the 4-letter instantiation over the queued run of the single path
         "single_path_launches": q_launches["ring_search"],
         "single_path_ms": q_stats.get("t_search", 0.0) * 1e3,
@@ -1288,6 +1484,11 @@ def main() -> int:
         "fixed_path_ms": f_stats.get("t_search", 0.0) * 1e3,
         "fixed_path_bound_ms": path_bound(f_stats),
         "fixed_path_latency_bound_ms": latency_ms(f_stats["chain_work"]),
+        "fixed_path_time_over_latency_bound": over_latency(
+            f_stats.get("t_search", 0.0) * 1e3, f_stats["chain_work"]),
+        "easy_path_time_over_latency_bound": over_latency(
+            e_stats.get("t_search", 0.0) * 1e3, e_stats["chain_work"]),
+        "registers": regs_of("<multiref, fixed, i32>", "<single, fixed, i32>"),
         "easy_path_launches": e_launches["fixed_search"],
         "easy_path_ms": e_stats.get("t_search", 0.0) * 1e3,
         "easy_path_bound_ms": path_bound(e_stats),
@@ -1313,6 +1514,10 @@ def main() -> int:
             "int64_path_ms": i_stats.get("t_search", 0.0) * 1e3,
             "int64_path_bound_ms": path_bound(i_stats, x64=True),
             "int64_path_latency_bound_ms": latency_ms(i_stats["chain_work"]),
+            "int64_path_time_over_latency_bound": over_latency(
+                i_stats.get("t_search", 0.0) * 1e3, i_stats["chain_work"]),
+            "registers": regs_of("<multiref, fixed, i64>",
+                                 "<single, fixed, i64>"),
             "comparisons": i64_lines},
     }, {
         # K3's work: seeded roots in both entries of the same template
