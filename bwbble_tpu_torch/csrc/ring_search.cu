@@ -44,10 +44,12 @@
 // - A warp per lane, all 32 threads at work, control flow uniform across
 //   the warp: decisions are made once and shared with ballots, match and
 //   reduce intrinsics and shuffles; no thread leaves early.
-// - Both rank rows of a pop in one step: half-warp 0 reads the row of
-//   L - 1, half-warp 1 that of U; thread j of a half forms code j's bound,
-//   so the 16 codes of both ends come out together, and the slot threads
-//   take theirs with two shuffles.
+// - Both rank rows of a pop in one step, asked for as soon as the popped
+//   node is known: half-warp 0 reads the row of L - 1, half-warp 1 that of
+//   U, and the pop's bookkeeping, prune and allow decisions run while the
+//   rows are in flight; thread j of a half then forms code j's bound, so
+//   the 16 codes of both ends come out together, and the slot threads take
+//   theirs with two shuffles.
 // - The expansion in parallel: thread s forms slot s; the sequential LIFO
 //   push becomes a match over the slots' buckets (a slot links to the
 //   highest earlier valid slot of its bucket, else to the bucket's old
@@ -61,8 +63,8 @@
 //   codes, its D and D_seed rows, the two exact-completion lists, beside
 //   the bucket heads; the lowest occupied bucket is a ballot over 32 heads.
 // - The exact completion across the warp: a character's (interval, code)
-//   items go to threads, 32 at a time, each reading its two rows, so up to
-//   32 independent row pairs are in flight; the sequential merge (an item
+//   items go to threads, 32 at a time, each reading its two rows at once,
+//   so up to 32 independent row pairs are in flight; the sequential merge (an item
 //   joins the previous run iff L == U_prev + 1, U_prev the previous
 //   non-empty item's U) becomes ballots and a prefix count.  The duplicate
 //   check of an emit is spread over the threads (the emits stay in order),
@@ -256,50 +258,67 @@ __device__ __forceinline__ UT warp_sum(UT v) {
     return v;
 }
 
-// Occurrence bound C[j] + O(j, i) + inc of one code j (engine/rank.py:
-// _rank_all); 0 for j == 0.  DFS = the inexact-search variant: skipped
-// codes take C + inc - first_dec without in-block counts (quirk Q1).  On
-// the edge paths (i < 0, i == LEN - 1) no table row is read.  Every thread
-// of a half-warp that asks for the same i reads the same 64 plane bytes
-// (one request) and its own count word.
-template <bool DFS, typename IT>
-__device__ __forceinline__ IT rank_one(const int32_t* __restrict__ table,
-                                       const IT* carr, IT LEN, IT i,
-                                       int inc, int j) {
+// A rank's table row (engine/rank.py:_rank_all), split from the count so
+// that the loads can be issued early and their latency overlapped with
+// other work: `edge` 1 for i == LEN - 1, 2 for i < 0 (no row is read),
+// else 0 with the 16 plane words, code j's checkpoint count and the offset
+// in the block.  Every thread of a half-warp that asks for the same i reads
+// the same 64 plane bytes (one request) and its own count word.
+template <typename IT>
+struct Row {
+    int4 p0, p1, p2, p3;
+    IT ck;
+    int off, edge;
+};
+
+template <typename IT>
+__device__ __forceinline__ Row<IT> load_row(const int32_t* __restrict__ table,
+                                            IT LEN, IT i, int j) {
+    Row<IT> r;
     const IT len_m1 = LEN - 1;
-    if (j == 0) return 0;
-    if (i == len_m1) return carr[j + 1] + inc;
-    if (i < 0) return carr[j] + inc;
+    r.edge = i == len_m1 ? 1 : (i < 0 ? 2 : 0);
+    if (r.edge) return r;
     const IT hi = len_m1 - 1 > 0 ? len_m1 - 1 : 0;
     const IT ic = i < hi ? i : hi;
     const int32_t* row = table + (size_t)(ic >> 7) * Layout<IT>::TW;
-    const int off = (int)(ic & 127);
+    r.off = (int)(ic & 127);
     const int4* r4 = reinterpret_cast<const int4*>(row);
-    const int4 p0 = __ldg(r4), p1 = __ldg(r4 + 1), p2 = __ldg(r4 + 2),
-               p3 = __ldg(r4 + 3);
-    IT ck;
+    r.p0 = __ldg(r4); r.p1 = __ldg(r4 + 1); r.p2 = __ldg(r4 + 2);
+    r.p3 = __ldg(r4 + 3);
     if constexpr (Layout<IT>::X64)
-        ck = ((IT)__ldg(row + 32 + j) << 32) | (uint32_t)__ldg(row + 16 + j);
+        r.ck = ((IT)__ldg(row + 32 + j) << 32) | (uint32_t)__ldg(row + 16 + j);
     else
-        ck = __ldg(row + 16 + j);
-    const int first = (p0.x & 1) | ((p1.x & 1) << 1) | ((p2.x & 1) << 2)
-                    | ((p3.x & 1) << 3);
+        r.ck = __ldg(row + 16 + j);
+    return r;
+}
+
+// Occurrence bound C[j] + O(j, i) + inc of code j from its row; 0 for j ==
+// 0.  DFS = the inexact-search variant: skipped codes take C + inc -
+// first_dec without in-block counts (quirk Q1).
+template <bool DFS, typename IT>
+__device__ __forceinline__ IT count_row(const Row<IT>& r, const IT* carr,
+                                        int inc, int j) {
+    if (j == 0) return 0;
+    if (r.edge == 1) return carr[j + 1] + inc;
+    if (r.edge == 2) return carr[j] + inc;
+    const int first = (r.p0.x & 1) | ((r.p1.x & 1) << 1)
+                    | ((r.p2.x & 1) << 2) | ((r.p3.x & 1) << 3);
     const IT val = carr[j] + inc - (first == j ? 1 : 0);
     if (DFS && is_skipped(j)) return val;
     // plane t's word, or its complement where bit t of j is clear
     const uint32_t s0 = (j & 1) ? 0u : RS_FULL, s1 = (j & 2) ? 0u : RS_FULL,
                    s2 = (j & 4) ? 0u : RS_FULL, s3 = (j & 8) ? 0u : RS_FULL;
     auto word = [&](uint32_t a, uint32_t b, uint32_t c, uint32_t d, int w) {
-        const int nbits = off + 1 - 32 * w;
+        const int nbits = r.off + 1 - 32 * w;
         const uint32_t m = nbits >= 32 ? RS_FULL
                          : (nbits <= 0 ? 0u : ((1u << nbits) - 1u));
         return __popc(m & (a ^ s0) & (b ^ s1) & (c ^ s2) & (d ^ s3));
     };
-    const int cnt = word(p0.x, p1.x, p2.x, p3.x, 0)
-                  + word(p0.y, p1.y, p2.y, p3.y, 1)
-                  + word(p0.z, p1.z, p2.z, p3.z, 2)
-                  + word(p0.w, p1.w, p2.w, p3.w, 3);
-    return val + ck + cnt;
+    const int cnt = word(r.p0.x, r.p1.x, r.p2.x, r.p3.x, 0)
+                  + word(r.p0.y, r.p1.y, r.p2.y, r.p3.y, 1)
+                  + word(r.p0.z, r.p1.z, r.p2.z, r.p3.z, 2)
+                  + word(r.p0.w, r.p1.w, r.p2.w, r.p3.w, 3);
+    return val + r.ck + cnt;
 }
 
 // Per-read search state that emission updates (the same in every thread).
@@ -525,6 +544,14 @@ ring_search_kernel(
                 }
                 frame_rd++;
             }
+            // the rows an expansion of this node ranks at, asked for now so
+            // that the fetch overlaps the pop's bookkeeping and its prune,
+            // allow and slot decisions: half 0 the row of eL - 1, half 1
+            // that of eU; thread j of a half forms code j's bound (unused
+            // when the pop does not expand)
+            const int half = t >> 4, jc = t & 15;
+            const Row<IT> row = load_row<IT>(table, LEN, half ? eU : eL - 1,
+                                             jc);
             if (t == 0)
                 head[bucket] = (int)((m2 >> 8) & 0xFFFFFFu) - 1;  // 24-bit link
             __syncwarp();
@@ -615,10 +642,12 @@ ring_search_kernel(
                             uint32_t mq = need;
                             for (int z = k - e * nq; z > 0; z--) mq &= mq - 1;
                             const int q = __ffs(mq) - 1;
-                            L = rank_one<false>(table, carr, LEN,
-                                                cur[2 * e] - 1, 1, q);
-                            U = rank_one<false>(table, carr, LEN,
-                                                cur[2 * e + 1], 0, q);
+                            const Row<IT> rl = load_row<IT>(
+                                table, LEN, cur[2 * e] - 1, q);
+                            const Row<IT> ru = load_row<IT>(
+                                table, LEN, cur[2 * e + 1], q);
+                            L = count_row<false>(rl, carr, 1, q);
+                            U = count_row<false>(ru, carr, 0, q);
                         }
                         const bool ne_ = k < items && L <= U;
                         const unsigned ne = __ballot_sync(RS_FULL, ne_);
@@ -668,14 +697,6 @@ ring_search_kernel(
             // expansion (inexact_match.c:377-504)
             if (eplen + 1 >= P.PATHCAP) { S.overflow |= OV_PATH; break; }
             const int nplen = eplen + 1;
-            // both rank rows at once: half 0 the row of eL - 1, half 1 that
-            // of eU; thread j of a half forms code j's bound (the DFS rank
-            // differs from the exact one on skipped codes only, and a
-            // single genome expands none)
-            const int half = t >> 4, jc = t & 15;
-            const IT rk = rank_one<MULTI>(table, carr, LEN,
-                                          half ? eU : eL - 1, half ? 0 : 1,
-                                          jc);
             rank_rows += in_table<IT>(eL - 1, LEN) + in_table<IT>(eU, LEN);
 
             const IT D2n = sD[dclip(ei - 2) * 2];
@@ -710,6 +731,10 @@ ring_search_kernel(
             c = c < 0 ? 0 : (c > 4 ? 4 : c);
             const bool is_I = est == STATE_I, is_M = est == STATE_M;
             const bool ind_ok = allow_diff && allow_indels;
+            // the bounds from the rows asked for at the pop (the DFS rank
+            // differs from the exact one on skipped codes only, and a
+            // single genome expands none)
+            const IT rk = count_row<MULTI>(row, carr, half ? 0 : 1, jc);
 
             // thread s forms slot s: 0 the insertion, 1..NC the deletions,
             // NC+1..2NC the match / mismatch pushes over code q = code(s -
