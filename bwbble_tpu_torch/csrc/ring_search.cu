@@ -63,12 +63,14 @@
 //   codes, its D and D_seed rows, the two exact-completion lists, beside
 //   the bucket heads; the lowest occupied bucket is a ballot over 32 heads.
 // - The exact completion across the warp: a character's (interval, code)
-//   items go to threads, 32 at a time, each reading its two rows at once,
-//   so up to 32 independent row pairs are in flight; the sequential merge (an item
-//   joins the previous run iff L == U_prev + 1, U_prev the previous
-//   non-empty item's U) becomes ballots and a prefix count.  The duplicate
-//   check of an emit is spread over the threads (the emits stay in order),
-//   and the path walk takes one alignment a thread.
+//   items go to threads, 32 at a time, each ranking its two ends, so up to
+//   32 independent items are in flight (an item's two rows one after the
+//   other: asked for together they cost registers and spills, and ran
+//   slower); the sequential merge (an item joins the previous run iff L ==
+//   U_prev + 1, U_prev the previous non-empty item's U) becomes ballots and
+//   a prefix count.  The duplicate check of an emit is spread over the
+//   threads (the emits stay in order), and the path walk takes one
+//   alignment a thread.
 //
 // The alphabet is a compile-time parameter: NC = 11 codes, NSLOT = 23 and
 // 128-word frame rows for a multi-genome; NC = 4, NSLOT = 9 and 40-word rows
@@ -292,33 +294,67 @@ __device__ __forceinline__ Row<IT> load_row(const int32_t* __restrict__ table,
     return r;
 }
 
-// Occurrence bound C[j] + O(j, i) + inc of code j from its row; 0 for j ==
-// 0.  DFS = the inexact-search variant: skipped codes take C + inc -
-// first_dec without in-block counts (quirk Q1).
+// C[j] + O(j, off) + inc of code j from a row's 16 plane words and its
+// checkpoint count.  DFS = the inexact-search variant: skipped codes take C
+// + inc - first_dec without in-block counts (quirk Q1).
 template <bool DFS, typename IT>
-__device__ __forceinline__ IT count_row(const Row<IT>& r, const IT* carr,
-                                        int inc, int j) {
-    if (j == 0) return 0;
-    if (r.edge == 1) return carr[j + 1] + inc;
-    if (r.edge == 2) return carr[j] + inc;
-    const int first = (r.p0.x & 1) | ((r.p1.x & 1) << 1)
-                    | ((r.p2.x & 1) << 2) | ((r.p3.x & 1) << 3);
+__device__ __forceinline__ IT count_code(int4 p0, int4 p1, int4 p2, int4 p3,
+                                         IT ck, int off, const IT* carr,
+                                         int inc, int j) {
+    const int first = (p0.x & 1) | ((p1.x & 1) << 1) | ((p2.x & 1) << 2)
+                    | ((p3.x & 1) << 3);
     const IT val = carr[j] + inc - (first == j ? 1 : 0);
     if (DFS && is_skipped(j)) return val;
     // plane t's word, or its complement where bit t of j is clear
     const uint32_t s0 = (j & 1) ? 0u : RS_FULL, s1 = (j & 2) ? 0u : RS_FULL,
                    s2 = (j & 4) ? 0u : RS_FULL, s3 = (j & 8) ? 0u : RS_FULL;
     auto word = [&](uint32_t a, uint32_t b, uint32_t c, uint32_t d, int w) {
-        const int nbits = r.off + 1 - 32 * w;
+        const int nbits = off + 1 - 32 * w;
         const uint32_t m = nbits >= 32 ? RS_FULL
                          : (nbits <= 0 ? 0u : ((1u << nbits) - 1u));
         return __popc(m & (a ^ s0) & (b ^ s1) & (c ^ s2) & (d ^ s3));
     };
-    const int cnt = word(r.p0.x, r.p1.x, r.p2.x, r.p3.x, 0)
-                  + word(r.p0.y, r.p1.y, r.p2.y, r.p3.y, 1)
-                  + word(r.p0.z, r.p1.z, r.p2.z, r.p3.z, 2)
-                  + word(r.p0.w, r.p1.w, r.p2.w, r.p3.w, 3);
-    return val + r.ck + cnt;
+    const int cnt = word(p0.x, p1.x, p2.x, p3.x, 0)
+                  + word(p0.y, p1.y, p2.y, p3.y, 1)
+                  + word(p0.z, p1.z, p2.z, p3.z, 2)
+                  + word(p0.w, p1.w, p2.w, p3.w, 3);
+    return val + ck + cnt;
+}
+
+// Occurrence bound C[j] + O(j, i) + inc of code j from its row (load_row);
+// 0 for j == 0.
+template <bool DFS, typename IT>
+__device__ __forceinline__ IT count_row(const Row<IT>& r, const IT* carr,
+                                        int inc, int j) {
+    if (j == 0) return 0;
+    if (r.edge == 1) return carr[j + 1] + inc;
+    if (r.edge == 2) return carr[j] + inc;
+    return count_code<DFS>(r.p0, r.p1, r.p2, r.p3, r.ck, r.off, carr, inc,
+                           j);
+}
+
+// The same bound, its row read right here: an exact-completion item ranks
+// its two ends one after the other, which keeps the kernel's registers
+// down.
+template <bool DFS, typename IT>
+__device__ __forceinline__ IT rank_one(const int32_t* __restrict__ table,
+                                       const IT* carr, IT LEN, IT i,
+                                       int inc, int j) {
+    const IT len_m1 = LEN - 1;
+    if (j == 0) return 0;
+    if (i == len_m1) return carr[j + 1] + inc;
+    if (i < 0) return carr[j] + inc;
+    const IT hi = len_m1 - 1 > 0 ? len_m1 - 1 : 0;
+    const IT ic = i < hi ? i : hi;
+    const int32_t* row = table + (size_t)(ic >> 7) * Layout<IT>::TW;
+    const int4* r4 = reinterpret_cast<const int4*>(row);
+    IT ck;
+    if constexpr (Layout<IT>::X64)
+        ck = ((IT)__ldg(row + 32 + j) << 32) | (uint32_t)__ldg(row + 16 + j);
+    else
+        ck = __ldg(row + 16 + j);
+    return count_code<DFS>(__ldg(r4), __ldg(r4 + 1), __ldg(r4 + 2),
+                           __ldg(r4 + 3), ck, (int)(ic & 127), carr, inc, j);
 }
 
 // Per-read search state that emission updates (the same in every thread).
@@ -642,12 +678,10 @@ ring_search_kernel(
                             uint32_t mq = need;
                             for (int z = k - e * nq; z > 0; z--) mq &= mq - 1;
                             const int q = __ffs(mq) - 1;
-                            const Row<IT> rl = load_row<IT>(
-                                table, LEN, cur[2 * e] - 1, q);
-                            const Row<IT> ru = load_row<IT>(
-                                table, LEN, cur[2 * e + 1], q);
-                            L = count_row<false>(rl, carr, 1, q);
-                            U = count_row<false>(ru, carr, 0, q);
+                            L = rank_one<false>(table, carr, LEN,
+                                                cur[2 * e] - 1, 1, q);
+                            U = rank_one<false>(table, carr, LEN,
+                                                cur[2 * e + 1], 0, q);
                         }
                         const bool ne_ = k < items && L <= U;
                         const unsigned ne = __ballot_sync(RS_FULL, ne_);
