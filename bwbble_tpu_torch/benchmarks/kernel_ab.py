@@ -37,6 +37,31 @@ from bwbble_tpu_torch.formats.fastq import read_fastq
 from bwbble_tpu_torch.index.fmindex import FMIndex
 
 
+def main_world_inputs(genome_bp: int, workdir: str, n_reads: int, dev):
+    """The main-path world as chip_smoke.py builds it (`worlds.chr21_world`
+    under `workdir`, indexed once) and the search inputs of its first
+    `n_reads` reads on `dev`, D bounds from the native scan: (index on the
+    device, params, [rc, lengths, D, Ds])."""
+    build_native.build(verbose=False)
+    wdir = os.path.join(workdir, f"chr21_{genome_bp}")
+    fa, fq_all = worlds.chr21_world(wdir, genome_bp=genome_bp,
+                                    num_reads=16_384, log=lambda m: None)
+    if not os.path.exists(fa + ".bwt") and cli.main(["index", fa]) != 0:
+        raise RuntimeError("index failed")
+    idx = FMIndex.load(fa + ".bwt", load_sa=False)
+    rd = worlds.head_reads(read_fastq(fq_all), n_reads)
+    params = AlnParams(max_diff=4, batch_size=512, n_threads=8)
+    D = np.zeros((rd.count, rd.max_len + 1, 2), dtype=np.int32)
+    Ds = np.zeros((rd.count, int(params.seed_length) + 1, 2),
+                  dtype=np.int32)
+    for gi, Dch, Dsch, _z in native_scan_chunks(idx, rd, params, 512):
+        D[gi[0]:gi[-1] + 1], Ds[gi[0]:gi[-1] + 1] = Dch, Dsch
+    inputs = [torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in (
+        np.asarray(rd.rc, dtype=np.int8), rd.lengths.astype(np.int32), D,
+        Ds)]
+    return from_fmindex(idx, device=dev), params, inputs
+
+
 def main(argv: list[str]) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("sources", nargs="+")
@@ -56,25 +81,8 @@ def main(argv: list[str]) -> dict:
              "-std=c++17", "-O3", "--expt-relaxed-constexpr", "-shared",
              "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", so, src],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
-    build_native.build(verbose=False)
-    dev = torch.device("cuda")
-    wdir = os.path.join(args.workdir, f"chr21_{args.genome_bp}")
-    fa, fq_all = worlds.chr21_world(wdir, genome_bp=args.genome_bp,
-                                    num_reads=16_384, log=lambda m: None)
-    if not os.path.exists(fa + ".bwt") and cli.main(["index", fa]) != 0:
-        raise RuntimeError("index failed")
-    idx = FMIndex.load(fa + ".bwt", load_sa=False)
-    rd = worlds.head_reads(read_fastq(fq_all), 8192)
-    didx = from_fmindex(idx, device=dev)
-    params = AlnParams(max_diff=4, batch_size=512, n_threads=8)
-    D = np.zeros((rd.count, rd.max_len + 1, 2), dtype=np.int32)
-    Ds = np.zeros((rd.count, int(params.seed_length) + 1, 2),
-                  dtype=np.int32)
-    for gi, Dch, Dsch, _z in native_scan_chunks(idx, rd, params, 512):
-        D[gi[0]:gi[-1] + 1], Ds[gi[0]:gi[-1] + 1] = Dch, Dsch
-    inputs = [torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in (
-        np.asarray(rd.rc, dtype=np.int8), rd.lengths.astype(np.int32), D,
-        Ds)]
+    didx, params, inputs = main_world_inputs(
+        args.genome_bp, args.workdir, 8192, torch.device("cuda"))
 
     def head(n):
         return [x[:n] for x in inputs]

@@ -29,19 +29,13 @@ import json
 import os
 import subprocess
 import sys
-import time
 
 import numpy as np
 import torch
 
-from bwbble_tpu_torch import build_native, cli, worlds
-from bwbble_tpu_torch.align.params import AlnParams
+from bwbble_tpu_torch.benchmarks.kernel_ab import main_world_inputs
 from bwbble_tpu_torch.engine import kernel
-from bwbble_tpu_torch.engine.device_index import from_fmindex
 from bwbble_tpu_torch.engine.inexact import EngineConfig
-from bwbble_tpu_torch.engine.pipeline import native_scan_chunks
-from bwbble_tpu_torch.formats.fastq import read_fastq
-from bwbble_tpu_torch.index.fmindex import FMIndex
 
 PHASES = ("stage", "scan", "fetch", "prune", "emit", "exact", "allow",
           "rank", "slots", "link", "walk")
@@ -147,28 +141,9 @@ def main(argv: list[str]) -> list[dict]:
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("kernel_phases runs on a CUDA device only")
-    dev = torch.device("cuda")
     lib = build_trace()
-    build_native.build(verbose=False)
-    wdir = os.path.join(args.workdir, f"chr21_{args.genome_bp}")
-    t = time.time()
-    fa, fq_all = worlds.chr21_world(wdir, genome_bp=args.genome_bp,
-                                    num_reads=16_384, log=lambda m: None)
-    if not os.path.exists(fa + ".bwt") and cli.main(["index", fa]) != 0:
-        raise RuntimeError("index failed")
-    print(f"world and index: {time.time() - t:.1f} s", flush=True)
-    idx = FMIndex.load(fa + ".bwt", load_sa=False)
-    rd = worlds.head_reads(read_fastq(fq_all), args.reads)
-    didx = from_fmindex(idx, device=dev)
-    params = AlnParams(max_diff=4, batch_size=512, n_threads=8)
-    D = np.zeros((rd.count, rd.max_len + 1, 2), dtype=np.int32)
-    Ds = np.zeros((rd.count, int(params.seed_length) + 1, 2),
-                  dtype=np.int32)
-    for gi, Dch, Dsch, _z in native_scan_chunks(idx, rd, params, 512):
-        D[gi[0]:gi[-1] + 1], Ds[gi[0]:gi[-1] + 1] = Dch, Dsch
-    a = [torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in (
-        np.asarray(rd.rc, dtype=np.int8), rd.lengths.astype(np.int32), D,
-        Ds)]
+    didx, params, a = main_world_inputs(args.genome_bp, args.workdir,
+                                        args.reads, torch.device("cuda"))
     runs = (("ring, 512 lanes", lambda: kernel.ring_search(
                 didx, *a, params, EngineConfig(cap=65536, acap=24, kx=2,
                                                max_iters=500_000, xcap=128),
@@ -193,7 +168,8 @@ def main(argv: list[str]) -> list[dict]:
             lib.ring_search_phase_clocks(buf.ctypes.data)
             pops = int(got["pops"].sum())
             cyc = buf[:len(PHASES)].astype(np.float64)
-            row = dict(run=name, reads=rd.count, ms=ev0.elapsed_time(ev1),
+            row = dict(run=name, reads=a[0].shape[0],
+                       ms=ev0.elapsed_time(ev1),
                        pops=pops, work=int(got["n_work"].sum()),
                        cycles_per_pop=float(cyc.sum() / pops),
                        phases={p: float(c / pops)
