@@ -97,11 +97,12 @@
 // with no alignment and no overflow.  Without seeds (null pointers, NROOT =
 // 1) the one root is the whole SA range at i = len, formed in registers.
 //
-// Memory.  Shared memory holds, for each lane (warp) of a block, C, the
+// Memory.  A block is one lane (one warp).  Its shared memory holds C, the
 // read's D and D_seed rows, the two exact-completion lists (XC entries
 // each), the NB bucket heads and the read's codes (ring_search_lane_smem
-// gives the bytes; the wrapper asks for more than 48 KB a block where it
-// needs it, and refuses a configuration past the card's 227 KB).  The frame
+// gives the bytes; the launch asks for more than 48 KB a block where it
+// needs it, and the wrapper refuses a configuration past the card's 227
+// KB).  The frame
 // arena is per-lane global scratch.  Reported alignments are written
 // straight into the per-read output slab, which also serves the duplicate
 // check.  The kernel allocates nothing and runs on the stream it is given.
@@ -113,7 +114,6 @@
 #include <type_traits>
 
 #define RS_WARP 32           // threads per lane: each lane owns a warp
-#define RS_MAX_LPB 2         // lanes (warps) a block at most
 #define RS_NMETA 9           // q_meta columns (engine/inexact.py META_*)
 #define RS_SMEM_MAX 232448   // dynamic shared memory a block may have (H100)
 #define RS_FULL 0xFFFFFFFFu
@@ -423,7 +423,7 @@ __device__ __forceinline__ bool emit_alns(const RSParams& P, ReadState<IT>& S,
 }
 
 template <bool MULTI, bool FIXED, typename IT>
-__global__ void __launch_bounds__(RS_WARP * RS_MAX_LPB)
+__global__ void __launch_bounds__(RS_WARP)
 ring_search_kernel(
         RSParams P, const int32_t* __restrict__ table,
         const IT* __restrict__ carr_g, const int8_t* __restrict__ rc,
@@ -441,14 +441,12 @@ ring_search_kernel(
     constexpr uint32_t NEED0 = AL::need(0), NEED1 = AL::need(1),
                        NEED2 = AL::need(2), NEED3 = AL::need(3);
 
-    const int t = threadIdx.x & (RS_WARP - 1);
-    const int warp = threadIdx.x / RS_WARP;
-    const int lane = blockIdx.x * (blockDim.x / RS_WARP) + warp;
-    if (lane >= P.lanes) return;              // the whole warp: no lane
+    const int t = threadIdx.x;
+    const int lane = blockIdx.x;
 
     extern __shared__ __align__(16) unsigned char smem_raw[];
     const LaneSmem SL(P.NB, P.Lmax, P.DS, P.XC, (int)sizeof(IT));
-    unsigned char* const sm = smem_raw + (size_t)warp * SL.bytes;
+    unsigned char* const sm = smem_raw;
     IT* const carr = reinterpret_cast<IT*>(sm + SL.carr);
     IT* const sD = reinterpret_cast<IT*>(sm + SL.D);
     IT* const sDs = reinterpret_cast<IT*>(sm + SL.Ds);
@@ -912,7 +910,7 @@ extern "C" long long ring_search_lane_smem(int NB, int Lmax, int DS, int XC,
 }
 
 template <bool MULTI, bool FIXED, typename IT>
-static int launch(const RSParams& P, int lpb, size_t smem, const void* table,
+static int launch(const RSParams& P, size_t smem, const void* table,
                   const void* carr, const void* rc, const void* lens,
                   const void* D, const void* Ds, const void* sL,
                   const void* sU, const void* scnt, void* arena,
@@ -924,8 +922,7 @@ static int launch(const RSParams& P, int lpb, size_t smem, const void* table,
             kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
         if (e != cudaSuccess) return (int)e;
     }
-    const int blocks = (P.lanes + lpb - 1) / lpb;
-    kern<<<blocks, lpb * RS_WARP, smem, (cudaStream_t)stream>>>(
+    kern<<<P.lanes, RS_WARP, smem, (cudaStream_t)stream>>>(
         P, (const int32_t*)table, (const IT*)carr, (const int8_t*)rc,
         (const int32_t*)lens, (const IT*)D, (const IT*)Ds,
         (const IT*)sL, (const IT*)sU, (const int32_t*)scnt,
@@ -942,39 +939,36 @@ extern "C" int ring_search_row_words(int multiref, int x64) {
     return multiref ? Alpha<true>::ROWW : Alpha<false>::ROWW;
 }
 
-// Launches on `stream` with `lpb` lanes (warps) a block and `smem` bytes of
-// dynamic shared memory a block; returns cudaGetLastError() (0 on success),
-// or -1 when the parameter block does not match RSParams, `smem` is not
-// `lpb` lanes' shared memory or exceeds the card's, a fixed launch has not
-// one lane per read, the seeds are given in part or with NROOT < 1, or the
-// int64 layout is asked of a ring launch.  `multiref` picks the alphabet,
+// Launches on `stream`, one lane (one warp) a block; returns
+// cudaGetLastError() (0 on success), or -1 when the parameter block does
+// not match RSParams, a lane's shared memory exceeds the card's, a fixed
+// launch has not one lane per read, the seeds are given in part or with
+// NROOT < 1, or the int64 layout is asked of a ring launch.  `multiref` picks the alphabet,
 // `fixed` the launch mode (`counter` is not read then), `x64` the index
 // layout (carr, D, Ds, the seed intervals and q_alns are int64 then, the
 // table has 48 words a row); seed_L, seed_U and seed_cnt are all null (one
 // unseeded root, NROOT = 1) or all given ([Q, NROOT], [Q, NROOT], [Q]
 // int32).
 extern "C" int ring_search_launch(
-        const int* hp, int nhp, int multiref, int fixed, int x64, int lpb,
-        long long smem, const void* table, const void* carr, const void* rc,
+        const int* hp, int nhp, int multiref, int fixed, int x64,
+        const void* table, const void* carr, const void* rc,
         const void* lens, const void* D, const void* Ds, const void* seed_L,
         const void* seed_U, const void* seed_cnt, void* arena, void* counter,
         void* q_alns, void* q_meta, void* q_paths, void* stream) {
     if (nhp != (int)(sizeof(RSParams) / sizeof(int))) return -1;
     RSParams P;
     memcpy(&P, hp, sizeof(P));
-    if (P.NB < 1 || P.Lmax < 1 || P.DS < 1 || P.XC < 0 || lpb < 1
-            || lpb > RS_MAX_LPB)
-        return -1;
-    const long long lane_bytes = ring_search_lane_smem(P.NB, P.Lmax, P.DS,
-                                                       P.XC, x64);
-    if (smem != lpb * lane_bytes || smem > RS_SMEM_MAX) return -1;
+    if (P.NB < 1 || P.Lmax < 1 || P.DS < 1 || P.XC < 0) return -1;
+    const long long smem = ring_search_lane_smem(P.NB, P.Lmax, P.DS, P.XC,
+                                                 x64);
+    if (smem > RS_SMEM_MAX) return -1;
     if (fixed && P.lanes != P.Q) return -1;
     const int nseed = (seed_L != nullptr) + (seed_U != nullptr)
                     + (seed_cnt != nullptr);
     if (nseed == 1 || nseed == 2 || P.NROOT < 1 || (!nseed && P.NROOT != 1))
         return -1;
-#define RS_LAUNCH(M, F, T) launch<M, F, T>(                                 \
-        P, lpb, (size_t)smem, table, carr, rc, lens, D, Ds, seed_L, seed_U, \
+#define RS_LAUNCH(M, F, T) launch<M, F, T>(                           \
+        P, (size_t)smem, table, carr, rc, lens, D, Ds, seed_L, seed_U, \
         seed_cnt, arena, counter, q_alns, q_meta, q_paths, stream)
     if (x64) {
         if (!fixed) return -1;

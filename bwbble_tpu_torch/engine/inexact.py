@@ -456,9 +456,11 @@ def _plain_chunk(didx: DeviceIndex, rc, lengths, D, Ds, params: AlnParams,
         rank_rows[ix] += ((in_table(Ls - 1) + in_table(Us)) * live
                           ).sum(dim=1).to(I32)
         if S.multiref:
-            # only the columns that hold live slots are expanded (dead slots
-            # yield no candidates), into lists of the full capacity XC
-            kl = max(1, int(cnt.max()))
+            # on the CPU only the columns that hold live slots are expanded
+            # (dead slots yield no candidates), into lists of the full
+            # capacity XC; on a card, reading the live width would add a
+            # host sync an iteration, so all XC columns are expanded
+            kl = max(1, int(cnt.max())) if dev.type == "cpu" else XC
             nL, nU, ncnt, _w, ov = expand_step(didx, Ls[:, :kl], Us[:, :kl],
                                                cnt, c, cap=XC)
         else:

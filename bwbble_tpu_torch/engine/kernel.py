@@ -18,10 +18,10 @@ named by a content hash of the source so a stale build is never loaded; the
 library is bound with ctypes.  A build or load failure raises.  Nothing here
 runs when the module is imported.
 
-Shared memory: a lane (a warp) holds its read's small state there
-(`lane_smem_bytes`); `launch_shape` picks the lanes a block and the bytes a
-block asks for, and raises ValueError, before any launch, for a
-configuration past the card's 227 KB a block.  Timing: given a `timer`, a
+Shared memory: a block is one lane (one warp), which holds its read's
+small state there (`lane_smem_bytes`); `block_smem_bytes` raises
+ValueError, before any launch, for a configuration past the card's 227 KB
+a block.  Timing: given a `timer`, a
 launch records two CUDA events on the current stream right around the
 kernel launch itself, so what they time is the kernel's own run.
 """
@@ -55,15 +55,8 @@ LAUNCHES = {"ring_search": 0, "fixed_search": 0, "ring_search_seeded": 0,
             "fixed_search_seeded": 0, "fixed_search_i64": 0,
             "fixed_search_seeded_i64": 0}
 
-# dynamic shared memory a block may have on an H100 (227 KB), and the
-# lanes a block: two from BLOCK2_LANES lanes on (more warps an SM than one a
-# block allows), else one (the lanes spread over as many SMs as they can)
+# dynamic shared memory a block may have on an H100 (227 KB)
 SMEM_MAX = 232448
-BLOCK2_LANES = 2048
-
-# the launch shapes run in this process: (entry, NB, Lmax, DS, XC, lanes a
-# block) -> shared bytes a block
-SMEM_SEEN: dict[tuple, int] = {}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -101,8 +94,7 @@ def build(name: str = "ring_search") -> str:
 
 def _bind_ring_search(lib: ctypes.CDLL) -> None:
     vp = ctypes.c_void_p
-    lib.ring_search_launch.argtypes = ([vp] + [ctypes.c_int] * 5
-                                       + [ctypes.c_longlong] + [vp] * 15)
+    lib.ring_search_launch.argtypes = [vp] + [ctypes.c_int] * 4 + [vp] * 15
     lib.ring_search_launch.restype = ctypes.c_int
     lib.ring_search_lane_smem.argtypes = [ctypes.c_int] * 5
     lib.ring_search_lane_smem.restype = ctypes.c_longlong
@@ -171,17 +163,16 @@ def lane_smem_bytes(S: RingStatics) -> int:
             + up(4 * S.XC * it) + up(S.NB * 4) + up(S.Lmax))
 
 
-def launch_shape(S: RingStatics, lanes: int) -> tuple[int, int]:
-    """(lanes a block, shared bytes a block) of a launch of `lanes` lanes;
-    raises ValueError when one lane's shared memory exceeds a block's."""
+def block_smem_bytes(S: RingStatics) -> int:
+    """Shared bytes a block (one lane) of a launch asks for; raises
+    ValueError when they exceed what a block may have."""
     lane = lane_smem_bytes(S)
     if lane > SMEM_MAX:
         raise ValueError(
             f"search kernel: a lane needs {lane} bytes of shared memory "
             f"(NB={S.NB}, Lmax={S.Lmax}, DS={S.DS}, XC={S.XC}, "
             f"{'int64' if S.x64 else 'int32'}); a block has {SMEM_MAX}")
-    lpb = 2 if lanes >= BLOCK2_LANES and 2 * lane <= SMEM_MAX else 1
-    return lpb, lpb * lane
+    return lane
 
 
 def _launch(entry: str, didx: DeviceIndex, rc_all: torch.Tensor,
@@ -204,7 +195,7 @@ def _launch(entry: str, didx: DeviceIndex, rc_all: torch.Tensor,
     S = ring_statics(params, cfg, Lmax, Ds_all.shape[1], fixed=fixed,
                      seed_slots=nseed, x64=x64)
     lanes = Q if fixed else max(1, min(int(lanes), Q))
-    lpb, smem = launch_shape(S, lanes)
+    smem = block_smem_bytes(S)
     dev = didx.table.device
     if dev.type != "cuda":
         raise ValueError(f"{entry} launches a CUDA kernel: the index lives "
@@ -234,14 +225,13 @@ def _launch(entry: str, didx: DeviceIndex, rc_all: torch.Tensor,
         raise ValueError(f"{entry}: empty index or read set")
     if x64:
         entry += "_i64"
-    SMEM_SEEN[(entry, S.NB, S.Lmax, S.DS, S.XC, lpb)] = smem
     lib = _load()
     hp = param_block(params, S, Q, Lmax, int(didx.length), lanes)
     if (hp.size != lib.ring_search_num_params()
             or S.ROWW != lib.ring_search_row_words(int(S.multiref),
                                                    int(x64))
             or NMETA != lib.ring_search_num_meta()
-            or lane_smem_bytes(S) != lib.ring_search_lane_smem(
+            or smem != lib.ring_search_lane_smem(
                 S.NB, S.Lmax, S.DS, S.XC, int(x64))):
         raise RuntimeError(f"{entry}: parameter block, frame-row width, "
                            "result columns or shared-memory layout out of "
@@ -260,7 +250,7 @@ def _launch(entry: str, didx: DeviceIndex, rc_all: torch.Tensor,
             ev[0].record()
         rc = lib.ring_search_launch(
             hp.ctypes.data, hp.size, int(S.multiref), int(fixed), int(x64),
-            lpb, smem, didx.table.data_ptr(), didx.Carr.data_ptr(),
+            didx.table.data_ptr(), didx.Carr.data_ptr(),
             rc_all.data_ptr(), lengths_all.data_ptr(), D_all.data_ptr(),
             Ds_all.data_ptr(), *sp, arena.data_ptr(), counter.data_ptr(),
             q_alns.data_ptr(), q_meta.data_ptr(), q_paths.data_ptr(), stream)

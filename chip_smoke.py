@@ -59,6 +59,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import filecmp
+import gc
 import json
 import multiprocessing
 import os
@@ -80,6 +81,28 @@ PEAK_OPS_S = 67e12
 # on 8 spawned workers beside an H100, so four times as many fit easily
 PRE_GOLD_READS = 4096
 T0 = time.time()
+GC_SECONDS = [0.0, 0.0]     # seconds in Python's collector so far; start
+
+
+def _gc_clock(phase: str, _info) -> None:
+    if phase == "start":
+        GC_SECONDS[1] = time.time()
+    else:
+        GC_SECONDS[0] += time.time() - GC_SECONDS[1]
+
+
+def host_mark() -> tuple:
+    """The process's CPU seconds, its collector's seconds and the host's
+    load average, now."""
+    return time.process_time(), GC_SECONDS[0], os.getloadavg()[0]
+
+
+def host_since(mark: tuple) -> dict:
+    """Where a timed call's host time went since `mark`: the process's CPU
+    seconds (all its threads), the seconds in Python's garbage collector,
+    and the host's one-minute load average at the start."""
+    return dict(cpu_seconds=time.process_time() - mark[0],
+                gc_seconds=GC_SECONDS[0] - mark[1], loadavg_1min=mark[2])
 
 
 def emit(phase: str, **kw) -> None:
@@ -227,6 +250,7 @@ def main() -> int:
     from bwbble_tpu_torch.native import get_native
 
     dev = torch.device("cuda")
+    gc.callbacks.append(_gc_clock)
 
     # ---------------------------------------------------------------- device
     smi = subprocess.run(
@@ -396,8 +420,7 @@ def main() -> int:
         rec = dict(ms=ms, io_bytes=io_bytes, reads=n, x64=x64,
                    lane_work_max=lane_work_max, **tot)
         b_ms, b_by = bound_ms(rec)
-        lpb, smem = kernel.launch_shape(S, n if lanes is None else
-                                        min(lanes, n))
+        smem = kernel.block_smem_bytes(S)
         line = dict(
             world=name, entry=entry,
             alphabet=16 if params.is_multiref else 4, reads=n,
@@ -406,9 +429,9 @@ def main() -> int:
             cap=cfg.cap, acap=cfg.acap, xc=cfg.xcap or cfg.kx,
             finished_share=1.0 - tot["overflow"] / n, kernel_ms=ms,
             bound_ms=b_ms, bound_by=b_by, lane_work_max=lane_work_max,
-            smem_block_bytes=smem, lanes_per_block=lpb,
-            walk_paths_equal=walked, **roots)
+            smem_block_bytes=smem, walk_paths_equal=walked, **roots)
         rec.update(line=line, totals=tot, walked=walked,
+                   shape=(entry, S.NB, S.Lmax, S.DS, S.XC, smem),
                    plain_job=(index_file(didx), host_in, sd_host, params,
                               cfg, lanes is None),
                    got={k: v.cpu().numpy() for k, v in got.items()
@@ -651,12 +674,14 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernel.LAUNCHES["ring_search"] = 0
+    mark = host_mark()
     t = time.time()
     alns = align_reads_device(idx, didx, reads, params, cfg, d_cap=64,
                               queued=True, qchunk=16, stats=stats,
                               device=dev)
     torch.cuda.synchronize()
     dt = time.time() - t
+    host = host_since(mark)
     main_launches = kernel.LAUNCHES["ring_search"]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     dev_aln = os.path.join(wdir, "device.aln")
@@ -679,7 +704,7 @@ def main() -> int:
         t_host=stats.get("t_host"),
         fallback_reads=stats.get("fallback_reads"),
         retried_reads=stats.get("retried_reads"),
-        prerouted=stats.get("prerouted"), launches=main_launches,
+        prerouted=stats.get("prerouted"), launches=main_launches, **host,
         n_work=stats.get("work_units"), pops=stats.get("pops"),
         rank_rows=stats.get("rank_rows"),
         frame_rd_rows=stats.get("frame_rd_rows"),
@@ -745,6 +770,8 @@ def main() -> int:
             fallback_reads=stats.get("fallback_reads"),
             retried_reads=stats.get("retried_reads"),
             prerouted=stats.get("prerouted"), launches=launches,
+            **{k: stats.get(k) for k in ("cpu_seconds", "gc_seconds",
+                                         "loadavg_1min")},
             n_work=stats.get("work_units"), pops=stats.get("pops"),
             rank_rows=stats.get("rank_rows"),
             frame_rd_rows=stats.get("frame_rd_rows"),
@@ -762,11 +789,14 @@ def main() -> int:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         zero_launches()
+        mark = host_mark()
         t0 = time.time()
         out = align_reads_device(idx_, didx_, reads_, params_, cfg_,
                                  stats=st, device=dev, **kw)
         torch.cuda.synchronize()
-        return (out, time.time() - t0, st, dict(kernel.LAUNCHES),
+        dt = time.time() - t0
+        st.update(host_since(mark))
+        return (out, dt, st, dict(kernel.LAUNCHES),
                 torch.cuda.max_memory_allocated() / 1e9)
 
     # ------------------------------------------------------------ fixed path
@@ -952,6 +982,7 @@ def main() -> int:
          queued_t_search=q_stats.get("t_search"),
          queued_launches=q_launches["ring_search"],
          queued_fallback_reads=q_stats.get("fallback_reads"),
+         queued_cpu_seconds=q_stats.get("cpu_seconds"),
          **path_line(ereads.count, s_dt, s_stats,
                      s_launches["fixed_search"]))
     if not s_ok:
@@ -1391,11 +1422,13 @@ def main() -> int:
                              root_rd=st.get("root_rows", 0),
                              pops=st["pops"], x64=x64))[0]
 
+    # the comparisons run every path's settings: their shapes are the
+    # shapes the paths launch (a block is one lane)
+    shapes = sorted({x["shape"] for x in cmps})
     emit("kernels.smem", launch_shapes=[
-        dict(entry=k[0], NB=k[1], Lmax=k[2], DS=k[3], XC=k[4],
-             lanes_per_block=k[5], smem_block_bytes=v)
-        for k, v in sorted(kernel.SMEM_SEEN.items())],
-        max_block_bytes=max(kernel.SMEM_SEEN.values()),
+        dict(entry=e, NB=nb, Lmax=lm, DS=ds, XC=xc, smem_block_bytes=b)
+        for e, nb, lm, ds, xc, b in shapes],
+        max_block_bytes=max(x[-1] for x in shapes),
         limit_block_bytes=kernel.SMEM_MAX)
 
     def regs_of(*names):

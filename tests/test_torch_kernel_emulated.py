@@ -70,8 +70,7 @@ def _emulated(lib, didx, rc, ln, D, Ds, params, cfg, lanes, seeds):
                      seed_slots=0 if seeds is None else seeds[0].shape[1],
                      x64=x64)
     lanes = Q if fixed else max(1, min(int(lanes), Q))
-    lpb, smem = kernel.launch_shape(S, lanes)
-    assert kernel.lane_smem_bytes(S) == lib.ring_search_lane_smem(
+    assert kernel.block_smem_bytes(S) == lib.ring_search_lane_smem(
         S.NB, S.Lmax, S.DS, S.XC, int(x64))
     hp = kernel.param_block(params, S, Q, Lmax, int(didx.length), lanes)
     q_alns, q_meta, q_paths = alloc_outputs(Q, S, "cpu")
@@ -79,8 +78,8 @@ def _emulated(lib, didx, rc, ln, D, Ds, params, cfg, lanes, seeds):
     counter = torch.zeros((1,), dtype=torch.int32)
     sp = [x.data_ptr() for x in seeds] if seeds is not None else [None] * 3
     rc_ = lib.ring_search_launch(
-        hp.ctypes.data, hp.size, int(S.multiref), int(fixed), int(x64), lpb,
-        smem, didx.table.data_ptr(), didx.Carr.data_ptr(), rc.data_ptr(),
+        hp.ctypes.data, hp.size, int(S.multiref), int(fixed), int(x64),
+        didx.table.data_ptr(), didx.Carr.data_ptr(), rc.data_ptr(),
         ln.data_ptr(), D.data_ptr(), Ds.data_ptr(), *sp, arena.data_ptr(),
         counter.data_ptr(), q_alns.data_ptr(), q_meta.data_ptr(),
         q_paths.data_ptr(), None)
@@ -107,25 +106,23 @@ CFG = EngineConfig(cap=4096, acap=24, kx=2, max_iters=20_000, xcap=128)
 # small capacities: list, ACAP, work and frame overflows
 TIGHT = EngineConfig(cap=400, acap=3, kx=2, max_iters=300, xcap=2)
 
-# (name, world, params, cfg, lanes or None, seeded, int64, lanes a block 2)
+# (name, world, params, cfg, lanes or None, seeded, int64)
 CASES = [
-    ("ring", "mixed", P3, CFG, 4, False, False, False),
-    ("fixed two lanes a block", "mixed", P3, CFG, None, False, False, True),
-    ("seeded ring", "mixed", P3S, CFG, 4, True, False, False),
-    ("seeded fixed int64", "mixed", P3S, CFG, None, True, True, False),
-    ("tight fixed", "mixed", P3, TIGHT, None, False, False, False),
+    ("ring", "mixed", P3, CFG, 4, False, False),
+    ("fixed", "mixed", P3, CFG, None, False, False),
+    ("seeded ring", "mixed", P3S, CFG, 4, True, False),
+    ("seeded fixed int64", "mixed", P3S, CFG, None, True, True),
+    ("tight fixed", "mixed", P3, TIGHT, None, False, False),
     ("single ring", "single", PS, EngineConfig(cap=4096, kx=4), 4, False,
-     False, False),
+     False),
     ("single fixed int64", "single", PS, EngineConfig(cap=4096, kx=4), None,
-     False, True, False),
+     False, True),
 ]
 
 
 @pytest.mark.parametrize("case", CASES, ids=lambda c: c[0])
-def test_emulated_kernel_equals_plain_version(emu_lib, case, monkeypatch):
-    _name, world, p, cfg, lanes, seeded, x64, two = case
-    if two:
-        monkeypatch.setattr(kernel, "BLOCK2_LANES", 1)
+def test_emulated_kernel_equals_plain_version(emu_lib, case):
+    _name, world, p, cfg, lanes, seeded, x64 = case
     make = worlds.mixed_world if world == "mixed" else \
         worlds.single_genome_world
     idx, rd = make(n_reads=8)

@@ -102,13 +102,11 @@ def test_shared_memory_covers_every_chip_smoke_configuration(conf):
     _name, p, cfg, lmax, ds, lanes, slots, x64 = conf
     S = ring_statics(p, cfg, lmax, ds, fixed=lanes is None,
                      seed_slots=slots, x64=x64)
-    n = 8192 if lanes is None else lanes
-    lpb, smem = kernel.launch_shape(S, n)
+    smem = kernel.block_smem_bytes(S)
     lane = kernel.lane_smem_bytes(S)
     assert _raw_bytes(S) <= lane < _raw_bytes(S) + 6 * 16
     assert lane % 16 == 0
-    assert lpb in (1, 2) and smem == lpb * lane <= kernel.SMEM_MAX
-    assert lpb == (2 if n >= kernel.BLOCK2_LANES else 1)
+    assert smem == lane <= kernel.SMEM_MAX
 
 
 def test_over_size_configuration_raises_before_any_launch():
@@ -118,13 +116,13 @@ def test_over_size_configuration_raises_before_any_launch():
                      fixed=True, x64=True)
     assert kernel.lane_smem_bytes(S) > kernel.SMEM_MAX
     with pytest.raises(ValueError, match="shared memory"):
-        kernel.launch_shape(S, 16)
-    # two lanes a block that do not fit fall back to one lane a block
+        kernel.block_smem_bytes(S)
+    # the largest list that fits a block is taken
     S1 = ring_statics(P4, EngineConfig(cap=32768, xcap=4000), L100, DS,
                       fixed=True, x64=True)
     lane = kernel.lane_smem_bytes(S1)
     assert lane <= kernel.SMEM_MAX < 2 * lane
-    assert kernel.launch_shape(S1, 8192) == (1, lane)
+    assert kernel.block_smem_bytes(S1) == lane
     idx, reads = worlds.mixed_world(n_reads=4)
     d64 = from_fmindex(idx, use_int64=True, device="cpu")
     rc = torch.from_numpy(np.asarray(reads.rc, dtype=np.int8))

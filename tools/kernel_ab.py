@@ -1,7 +1,7 @@
 """Time versions of the search kernel's source against each other, in one
 process on one card.
 
-    python -m bwbble_tpu_torch.benchmarks.kernel_ab SRC.cu [SRC.cu ...]
+    python3 tools/kernel_ab.py SRC.cu [SRC.cu ...]
         [--genome-bp N] [--workdir DIR] [--repeats R]
 
 Builds each source (nvcc, as engine/kernel.py:build does; one process a
@@ -27,6 +27,8 @@ import sys
 import numpy as np
 import torch
 
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
 from bwbble_tpu_torch import build_native, cli, worlds
 from bwbble_tpu_torch.align.params import AlnParams
 from bwbble_tpu_torch.engine import kernel

@@ -1,7 +1,7 @@
 """Where the search kernel's cycles go, phase by phase, on the card.
 
-    python -m bwbble_tpu_torch.benchmarks.kernel_phases [--genome-bp N]
-        [--workdir DIR] [--reads N]
+    python3 tools/kernel_phases.py [--genome-bp N] [--workdir DIR]
+        [--reads N]
 
 Builds a trace copy of csrc/ring_search.cu with clock64() probes at the
 phase boundaries of a pop (the library the port loads has none), runs it
@@ -17,7 +17,10 @@ whole exact completion), allow (D reads and the allow decisions, while the
 rows are in flight), rank (counting the rows: waits for them), slots, link
 (push, heads, frame row), walk (paths and per-read outputs).  The probes
 cost cycles of their own (a clock read and an add each); compare phases
-within a run.  Fails on a card-less machine.
+within a run.  The anchors below are lines of the kernel's source: an
+edit of one of them is an edit of this file too
+(tests/test_torch_kernel_tools.py checks that each is found once).  Fails
+on a card-less machine.
 """
 
 from __future__ import annotations
@@ -33,8 +36,10 @@ import sys
 import numpy as np
 import torch
 
-from bwbble_tpu_torch.benchmarks.kernel_ab import main_world_inputs
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
 from bwbble_tpu_torch.engine import kernel
+from kernel_ab import main_world_inputs
 from bwbble_tpu_torch.engine.inexact import EngineConfig
 
 PHASES = ("stage", "scan", "fetch", "prune", "emit", "exact", "allow",
@@ -60,8 +65,7 @@ extern "C" int ring_search_phase_reset() {
 # (anchor, text, put the text after the anchor); each anchor must occur once
 _PROBES = (
     ("#define OV_WORK 16\n", _DECL, True),
-    ("    if (lane >= P.lanes) return;              // the whole warp: no "
-     "lane\n",
+    ("    const int lane = blockIdx.x;\n",
      "    long long ph[NPH];\n    for (int k = 0; k < NPH; k++) ph[k] = 0;\n"
      "    long long ph_last = clock64();\n", True),
     ("                head[b] = b == 0 ? n_open - 1 : -1;\n"
