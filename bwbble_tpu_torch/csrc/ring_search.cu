@@ -915,11 +915,16 @@ static int launch(const RSParams& P, size_t smem, const void* table,
                   const void* D, const void* Ds, const void* sL,
                   const void* sU, const void* scnt, void* arena,
                   void* counter, void* q_alns, void* q_meta, void* q_paths,
-                  void* stream) {
+                  void* stream, void* ev0, void* ev1) {
     auto kern = ring_search_kernel<MULTI, FIXED, IT>;
     if (smem > 48 * 1024) {
         cudaError_t e = cudaFuncSetAttribute(
             kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (e != cudaSuccess) return (int)e;
+    }
+    // the launch's own events, recorded right around it on its stream
+    if (ev0) {
+        cudaError_t e = cudaEventRecord((cudaEvent_t)ev0, (cudaStream_t)stream);
         if (e != cudaSuccess) return (int)e;
     }
     kern<<<P.lanes, RS_WARP, smem, (cudaStream_t)stream>>>(
@@ -928,7 +933,38 @@ static int launch(const RSParams& P, size_t smem, const void* table,
         (const IT*)sL, (const IT*)sU, (const int32_t*)scnt,
         (int32_t*)arena, (int32_t*)counter,
         (IT*)q_alns, (int32_t*)q_meta, (uint8_t*)q_paths);
-    return (int)cudaGetLastError();
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess || !ev1) return (int)e;
+    return (int)cudaEventRecord((cudaEvent_t)ev1, (cudaStream_t)stream);
+}
+
+// Blocks of an instantiation that an SM holds at once with `smem` bytes of
+// dynamic shared memory a block (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
+// or minus the CUDA error.
+template <bool MULTI, bool FIXED, typename IT>
+static int occupancy(long long smem) {
+    auto kern = ring_search_kernel<MULTI, FIXED, IT>;
+    cudaError_t e = cudaSuccess;
+    if (smem > 48 * 1024)
+        e = cudaFuncSetAttribute(
+            kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    int n = 0;
+    if (e == cudaSuccess)
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kern, RS_WARP,
+                                                          (size_t)smem);
+    return e == cudaSuccess ? n : -(int)e;
+}
+
+extern "C" int ring_search_occupancy(int multiref, int fixed, int x64,
+                                     long long smem) {
+    if (x64)
+        return multiref ? occupancy<true, true, long long>(smem)
+                        : occupancy<false, true, long long>(smem);
+    if (multiref)
+        return fixed ? occupancy<true, true, int>(smem)
+                     : occupancy<true, false, int>(smem);
+    return fixed ? occupancy<false, true, int>(smem)
+                 : occupancy<false, false, int>(smem);
 }
 
 // Frame-row width in int32 words for an alphabet and an index layout, for
@@ -939,8 +975,10 @@ extern "C" int ring_search_row_words(int multiref, int x64) {
     return multiref ? Alpha<true>::ROWW : Alpha<false>::ROWW;
 }
 
-// Launches on `stream`, one lane (one warp) a block; returns
-// cudaGetLastError() (0 on success), or -1 when the parameter block does
+// Launches on `stream`, one lane (one warp) a block, between the records of
+// the CUDA events `ev0` and `ev1` on the same stream (either may be null: no
+// record); returns the first CUDA error of the records and the launch (0 on
+// success), or -1 when the parameter block does
 // not match RSParams, a lane's shared memory exceeds the card's, a fixed
 // launch has not one lane per read, the seeds are given in part or with
 // NROOT < 1, or the int64 layout is asked of a ring launch.  `multiref` picks the alphabet,
@@ -954,7 +992,8 @@ extern "C" int ring_search_launch(
         const void* table, const void* carr, const void* rc,
         const void* lens, const void* D, const void* Ds, const void* seed_L,
         const void* seed_U, const void* seed_cnt, void* arena, void* counter,
-        void* q_alns, void* q_meta, void* q_paths, void* stream) {
+        void* q_alns, void* q_meta, void* q_paths, void* stream, void* ev0,
+        void* ev1) {
     if (nhp != (int)(sizeof(RSParams) / sizeof(int))) return -1;
     RSParams P;
     memcpy(&P, hp, sizeof(P));
@@ -969,7 +1008,7 @@ extern "C" int ring_search_launch(
         return -1;
 #define RS_LAUNCH(M, F, T) launch<M, F, T>(                           \
         P, (size_t)smem, table, carr, rc, lens, D, Ds, seed_L, seed_U, \
-        seed_cnt, arena, counter, q_alns, q_meta, q_paths, stream)
+        seed_cnt, arena, counter, q_alns, q_meta, q_paths, stream, ev0, ev1)
     if (x64) {
         if (!fixed) return -1;
         return multiref ? RS_LAUNCH(true, true, long long)

@@ -26,9 +26,12 @@ struct alignas(16) int4 { int x, y, z, w; };
 inline int2 make_int2(int a, int b) { return {a, b}; }
 inline int4 make_int4(int a, int b, int c, int d) { return {a, b, c, d}; }
 typedef void* cudaStream_t;
+typedef void* cudaEvent_t;
 typedef int cudaError_t;
 enum { cudaSuccess = 0, cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 inline int cudaGetLastError() { return 0; }
+inline int cudaEventRecord(cudaEvent_t, cudaStream_t) { return 0; }
+template <class F> int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int, size_t) { *n = 1; return 0; }
 template <class F> int cudaFuncSetAttribute(F, int, int) { return 0; }
 template <class T> inline T __ldg(const T* p) { return *p; }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }

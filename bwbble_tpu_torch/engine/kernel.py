@@ -21,9 +21,9 @@ runs when the module is imported.
 Shared memory: a block is one lane (one warp), which holds its read's
 small state there (`lane_smem_bytes`); `block_smem_bytes` raises
 ValueError, before any launch, for a configuration past the card's 227 KB
-a block.  Timing: given a `timer`, a
-launch records two CUDA events on the current stream right around the
-kernel launch itself, so what they time is the kernel's own run.
+a block.  Timing: given a `timer`, the C launch itself records two CUDA
+events on the current stream right before and after the kernel launch, with
+no Python between them, so what they time is the kernel's own run.
 """
 
 from __future__ import annotations
@@ -94,12 +94,15 @@ def build(name: str = "ring_search") -> str:
 
 def _bind_ring_search(lib: ctypes.CDLL) -> None:
     vp = ctypes.c_void_p
-    lib.ring_search_launch.argtypes = [vp] + [ctypes.c_int] * 4 + [vp] * 15
+    lib.ring_search_launch.argtypes = [vp] + [ctypes.c_int] * 4 + [vp] * 17
     lib.ring_search_launch.restype = ctypes.c_int
     lib.ring_search_lane_smem.argtypes = [ctypes.c_int] * 5
     lib.ring_search_lane_smem.restype = ctypes.c_longlong
     lib.ring_search_row_words.argtypes = [ctypes.c_int] * 2
     lib.ring_search_row_words.restype = ctypes.c_int
+    lib.ring_search_occupancy.argtypes = [ctypes.c_int] * 3 + [
+        ctypes.c_longlong]
+    lib.ring_search_occupancy.restype = ctypes.c_int
     lib.ring_search_num_params.argtypes = []
     lib.ring_search_num_params.restype = ctypes.c_int
     lib.ring_search_num_meta.argtypes = []
@@ -124,6 +127,19 @@ def count_launch(launches: dict, entry: str, rc: int) -> None:
     if rc != 0:
         raise RuntimeError(f"{entry}: launch failed with CUDA error {rc}")
     launches[entry] += 1
+
+
+def launch_events() -> tuple:
+    """Two timing events for `ring_search_launch` to record in C right
+    around its kernel launch.  torch creates an event's CUDA handle at its
+    first record, so each is recorded once on the current stream here, which
+    the launch's own record then replaces."""
+    ev = tuple(torch.cuda.Event(enable_timing=True) for _ in range(2))
+    for e in ev:
+        e.record()
+        if not e.cuda_event:
+            raise RuntimeError("a CUDA event has no handle after its record")
+    return ev
 
 
 def _check(t: torch.Tensor, name: str, dtype, ndim: int, dev) -> None:
@@ -175,6 +191,17 @@ def block_smem_bytes(S: RingStatics) -> int:
     return lane
 
 
+def resident_lanes(S: RingStatics, fixed: bool) -> int:
+    """Lanes of a launch of this configuration that one SM holds at once:
+    the blocks an SM takes (cudaOccupancyMaxActiveBlocksPerMultiprocessor,
+    at the launch's shared memory a block) times the lanes a block."""
+    n = _load().ring_search_occupancy(int(S.multiref), int(fixed),
+                                      int(S.x64), block_smem_bytes(S))
+    if n < 0:
+        raise RuntimeError(f"occupancy query failed with CUDA error {-n}")
+    return n
+
+
 def _launch(entry: str, didx: DeviceIndex, rc_all: torch.Tensor,
             lengths_all: torch.Tensor, D_all: torch.Tensor,
             Ds_all: torch.Tensor, params: AlnParams, cfg: EngineConfig,
@@ -182,8 +209,9 @@ def _launch(entry: str, didx: DeviceIndex, rc_all: torch.Tensor,
     """Check the arguments, allocate outputs and scratch, launch one
     instantiation of the kernel (`lanes` None: fixed mode, one lane per
     read; `seeds` None or (seed_L, seed_U, seed_cnt)) and count the launch.
-    Given a `timer`, sets `timer.events` to two CUDA events recorded on the
-    current stream right before and after the launch.  Returns (q_alns,
+    Given a `timer`, sets `timer.events` to two CUDA events that
+    `ring_search_launch` records on the current stream right before and after
+    the kernel launch.  Returns (q_alns,
     q_meta, q_paths, arena).  Does not synchronise."""
     fixed = lanes is None
     idt = didx.idt
@@ -244,18 +272,16 @@ def _launch(entry: str, didx: DeviceIndex, rc_all: torch.Tensor,
                             device=dev)
         counter = torch.zeros((1,), dtype=torch.int32, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        ev = None if timer is None else tuple(
-            torch.cuda.Event(enable_timing=True) for _ in range(2))
-        if ev is not None:
-            ev[0].record()
+        ev = None if timer is None else launch_events()
+        evp = [None] * 2 if ev is None else [e.cuda_event for e in ev]
         rc = lib.ring_search_launch(
             hp.ctypes.data, hp.size, int(S.multiref), int(fixed), int(x64),
             didx.table.data_ptr(), didx.Carr.data_ptr(),
             rc_all.data_ptr(), lengths_all.data_ptr(), D_all.data_ptr(),
             Ds_all.data_ptr(), *sp, arena.data_ptr(), counter.data_ptr(),
-            q_alns.data_ptr(), q_meta.data_ptr(), q_paths.data_ptr(), stream)
+            q_alns.data_ptr(), q_meta.data_ptr(), q_paths.data_ptr(), stream,
+            *evp)
         if ev is not None:
-            ev[1].record()
             timer.events = ev
     count_launch(LAUNCHES, entry, rc)
     # the scratch tensors stay referenced by the caching allocator's stream

@@ -398,10 +398,10 @@ def _assemble(host: dict, pathcap: int, root_plen: int) -> list:
 
 class _LaunchTimer:
     """Time of one search launch.  On a CUDA device the kernel's wrapper
-    sets `events` to two CUDA events it records on the stream right around
-    the kernel's launch (engine/kernel.py:_launch), so the time is the
-    kernel's own, without the host work of the search call; on the CPU it
-    is the host clock from construction to `stop()`."""
+    sets `events` to two CUDA events that its C launch records on the stream
+    right before and after the kernel's launch (engine/kernel.py:_launch),
+    so the time is the kernel's own, without the host work of the search
+    call; on the CPU it is the host clock from construction to `stop()`."""
 
     def __init__(self, dev):
         self._cuda = dev.type == "cuda"

@@ -82,7 +82,7 @@ def _emulated(lib, didx, rc, ln, D, Ds, params, cfg, lanes, seeds):
         didx.table.data_ptr(), didx.Carr.data_ptr(), rc.data_ptr(),
         ln.data_ptr(), D.data_ptr(), Ds.data_ptr(), *sp, arena.data_ptr(),
         counter.data_ptr(), q_alns.data_ptr(), q_meta.data_ptr(),
-        q_paths.data_ptr(), None)
+        q_paths.data_ptr(), None, None, None)
     assert rc_ == 0
     return dict(result_dict(q_alns, q_meta, q_paths), arena=arena), S
 

@@ -31,10 +31,13 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 from bwbble_tpu_torch import build_native, cli, worlds
 from bwbble_tpu_torch.align.params import AlnParams
+from bwbble_tpu_torch.align.precalc import (build_precalc_device, load_pre,
+                                            read_indices, store_pre)
 from bwbble_tpu_torch.engine import kernel
 from bwbble_tpu_torch.engine.device_index import from_fmindex
 from bwbble_tpu_torch.engine.inexact import EngineConfig
-from bwbble_tpu_torch.engine.pipeline import native_scan_chunks
+from bwbble_tpu_torch.engine.pipeline import (_calc_d_chunk,
+                                              native_scan_chunks)
 from bwbble_tpu_torch.formats.fastq import read_fastq
 from bwbble_tpu_torch.index.fmindex import FMIndex
 
@@ -62,6 +65,42 @@ def main_world_inputs(genome_bp: int, workdir: str, n_reads: int, dev):
         np.asarray(rd.rc, dtype=np.int8), rd.lengths.astype(np.int32), D,
         Ds)]
     return from_fmindex(idx, device=dev), params, inputs
+
+
+def easy_world_inputs(workdir: str, n_reads: int, dev, seeded: bool):
+    """The easy world as chip_smoke.py builds it (`worlds.easy_world` under
+    `workdir`/easy, indexed once) and the search inputs of its first
+    `n_reads` reads on `dev` at pre_path's settings: D bounds from the
+    device pass (lists of 16); with `seeded`, their seeds from the k = 12
+    table (`bench.fa.pre` there, as chip_smoke.py writes it, else built on
+    the card and written), 32 slots.  Returns (index on the device, params,
+    [rc, lengths, D, Ds], (seed_L, seed_U, seed_cnt) or None)."""
+    edir = os.path.join(workdir, "easy")
+    fa, fq = worlds.easy_world(edir, num_reads=16_384)
+    if not os.path.exists(fa + ".bwt") and cli.main(["index", fa]) != 0:
+        raise RuntimeError("index failed")
+    idx = FMIndex.load(fa + ".bwt", load_sa=False)
+    didx = from_fmindex(idx, device=dev)
+    rd = worlds.head_reads(read_fastq(fq), n_reads)
+    params = AlnParams(max_diff=4, batch_size=8192, use_precalc=seeded)
+    ln = rd.lengths.astype(np.int32)
+    D, Ds, _over = _calc_d_chunk(didx, np.asarray(rd.seq, dtype=np.int8),
+                                 ln, ln, params, 16)
+    rc = np.asarray(rd.rc, dtype=np.int8)
+    inputs = [torch.from_numpy(x).to(dev) for x in (rc, ln)] + [
+        D.contiguous(), Ds.contiguous()]
+    if not seeded:
+        return didx, params, inputs, None
+    k = int(params.precalc_len)
+    if os.path.exists(fa + ".pre"):
+        table = load_pre(fa + ".pre", num_entries=4 ** k)
+    else:
+        table = build_precalc_device(idx, didx, params, k=k, device=dev)
+        store_pre(fa + ".pre", table)
+    sL, sU, scnt, _ = table.lookup_batch(read_indices(rc, ln, k=k), 32)
+    seeds = tuple(torch.from_numpy(x.astype(np.int32)).to(dev)
+                  for x in (sL, sU, scnt))
+    return didx, params, inputs, seeds
 
 
 def main(argv: list[str]) -> dict:
