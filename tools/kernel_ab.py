@@ -6,13 +6,19 @@ process on one card.
 
 Builds each source (nvcc, as engine/kernel.py:build does; one process a
 source, started together), prints what `-Xptxas -v` says of each
-instantiation, and times each version, loaded as the search library, on the
-same main-path world inputs (`worlds.chr21_world` as chip_smoke.py builds
-it, D bounds from the native scan): the ring search of 768 reads at 512
-lanes (comparison A), of 8 192 reads at 512 lanes (the main path's first
-launch), and fixed batches of 2 048 (the fixed path's tier 1) and 8 192
-reads.  The versions take turns, in alternating order, R times (3).  Each
-source must keep the kernel's C interface.  Fails on a card-less machine.
+instantiation (registers, stack, spills), and times each version, loaded as
+the search library, at each lane width of --widths (32: one warp a lane),
+on the main-path world's inputs (`worlds.chr21_world` as chip_smoke.py
+builds it, D bounds from the native scan): the ring search of 768 reads at
+512 lanes (comparison A), of 8 192 reads at 512 lanes (the main path's
+first launch), fixed batches of 2 048 (the fixed path's tier 1) and 8 192
+reads; and on the easy world's (`easy_world_inputs`): fixed batches of
+8 192 reads unseeded and seeded (comparison (c)), and 1 024 reads at 512
+lanes unseeded and seeded.  Each launch is timed by the events its C
+launch records; the (source, width) pairs take turns, in alternating
+order, R times (3), and every result must equal the first pair's.  It
+prints the lanes an SM holds for each.  Each source must keep the kernel's
+C interface.  Fails on a card-less machine.
 """
 
 from __future__ import annotations
@@ -35,11 +41,12 @@ from bwbble_tpu_torch.align.precalc import (build_precalc_device, load_pre,
                                             read_indices, store_pre)
 from bwbble_tpu_torch.engine import kernel
 from bwbble_tpu_torch.engine.device_index import from_fmindex
-from bwbble_tpu_torch.engine.inexact import EngineConfig
+from bwbble_tpu_torch.engine.inexact import EngineConfig, ring_statics
 from bwbble_tpu_torch.engine.pipeline import (_calc_d_chunk,
                                               native_scan_chunks)
 from bwbble_tpu_torch.formats.fastq import read_fastq
 from bwbble_tpu_torch.index.fmindex import FMIndex
+from chip_smoke import ptxas_report
 
 
 def main_world_inputs(genome_bp: int, workdir: str, n_reads: int, dev):
@@ -103,14 +110,39 @@ def easy_world_inputs(workdir: str, n_reads: int, dev, seeded: bool):
     return didx, params, inputs, seeds
 
 
+class _Events:
+    """A search launch's timer: the wrapper sets `events` to the two CUDA
+    events its C launch records right around the kernel."""
+    events = None
+
+
+def kernel_ms(fn) -> tuple:
+    """Call fn(timer) (one search launch) and wait for it: (its result, the
+    milliseconds between the events the launch recorded)."""
+    tm = _Events()
+    out = fn(tm)
+    torch.cuda.synchronize()
+    return out, tm.events[0].elapsed_time(tm.events[1])
+
+
+def same_results(a: dict, b: dict) -> bool:
+    """Two launches' per-read results equal (the lane that served a read,
+    and the arena, excepted)."""
+    return all(torch.equal(v, b[k]) for k, v in a.items()
+               if k not in ("o_lane", "arena"))
+
+
 def main(argv: list[str]) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("sources", nargs="+")
+    ap.add_argument("--widths", default="32",
+                    help="lane widths to time each source at, e.g. 32,8")
     ap.add_argument("--genome-bp", type=int, default=46_700_000)
     ap.add_argument("--workdir", default=os.path.join(
         os.path.dirname(kernel.BUILD_DIR), ".bench_torch"))
     ap.add_argument("--repeats", type=int, default=3)
     args = ap.parse_args(argv)
+    widths = [int(w) for w in args.widths.split(",")]
     if not torch.cuda.is_available():
         raise RuntimeError("kernel_ab runs on a CUDA device only")
     os.makedirs(kernel.BUILD_DIR, exist_ok=True)
@@ -122,51 +154,91 @@ def main(argv: list[str]) -> dict:
              "-std=c++17", "-O3", "--expt-relaxed-constexpr", "-shared",
              "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", so, src],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
-    didx, params, inputs = main_world_inputs(
-        args.genome_bp, args.workdir, 8192, torch.device("cuda"))
+    dev = torch.device("cuda")
+    didx, params, inputs = main_world_inputs(args.genome_bp, args.workdir,
+                                             8192, dev)
+    edidx, p_easy, e_in, _ = easy_world_inputs(args.workdir, 8192, dev,
+                                               seeded=False)
+    _, p_pre, _, sd = easy_world_inputs(args.workdir, 8192, dev,
+                                        seeded=True)
 
-    def head(n):
-        return [x[:n] for x in inputs]
+    def head(x, n):
+        return [v[:n] for v in x]
     ring = EngineConfig(cap=65536, acap=24, kx=2, max_iters=500_000,
                         xcap=128)
     tier1 = EngineConfig(cap=32768, xcap=128)
-    runs = (("ring 768 reads, 512 lanes", lambda: kernel.ring_search(
-                didx, *head(768), params, ring, 512)),
-            ("ring 8192 reads, 512 lanes", lambda: kernel.ring_search(
-                didx, *head(8192), params, ring, 512)),
-            ("fixed 2048", lambda: kernel.fixed_search(
-                didx, *head(2048), params, tier1)),
-            ("fixed 8192", lambda: kernel.fixed_search(
-                didx, *head(8192), params, tier1)))
+    easy = EngineConfig(cap=32768, acap=24, kx=2, max_iters=500_000,
+                        xcap=128)
+    def st(p, cfg, a, seeds, fixed):
+        return ring_statics(p, cfg, a[0].shape[1], a[3].shape[1],
+                            fixed=fixed, seed_slots=0 if seeds is None
+                            else seeds[0].shape[1])
+    # (name, statics, run(timer, width))
+    runs = (
+        ("main ring 768 reads, 512 lanes (A)",
+         st(params, ring, inputs, None, False),
+         lambda tm, w: kernel.ring_search(didx, *head(inputs, 768), params,
+                                          ring, 512, timer=tm, width=w)),
+        ("main ring 8192 reads, 512 lanes",
+         st(params, ring, inputs, None, False),
+         lambda tm, w: kernel.ring_search(didx, *inputs, params, ring, 512,
+                                          timer=tm, width=w)),
+        ("main fixed 2048 (tier 1)", st(params, tier1, inputs, None, True),
+         lambda tm, w: kernel.fixed_search(didx, *head(inputs, 2048), params,
+                                           tier1, timer=tm, width=w)),
+        ("main fixed 8192", st(params, tier1, inputs, None, True),
+         lambda tm, w: kernel.fixed_search(didx, *inputs, params, tier1,
+                                           timer=tm, width=w)),
+        ("easy fixed 8192", st(p_easy, easy, e_in, None, True),
+         lambda tm, w: kernel.fixed_search(edidx, *e_in, p_easy, easy,
+                                           timer=tm, width=w)),
+        ("easy seeded fixed 8192 (c)", st(p_pre, easy, e_in, sd, True),
+         lambda tm, w: kernel.fixed_search(edidx, *e_in, p_pre, easy, sd,
+                                           timer=tm, width=w)),
+        ("easy ring 1024 reads, 512 lanes", st(p_easy, easy, e_in, None,
+                                               False),
+         lambda tm, w: kernel.ring_search(edidx, *head(e_in, 1024), p_easy,
+                                          easy, 512, timer=tm, width=w)),
+        ("easy seeded ring 1024 reads, 512 lanes",
+         st(p_pre, easy, e_in, sd, False),
+         lambda tm, w: kernel.ring_search(
+             edidx, *head(e_in, 1024), p_pre, easy, 512,
+             tuple(x[:1024] for x in sd), timer=tm, width=w)),
+    )
     libs = {}
     for src, (so, proc) in builds.items():
         _out, err = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {src}:\n{err[-3000:]}")
-        print(json.dumps({"source": src, "ptxas": [
-            ln.split("ptxas info    : ")[-1].strip() for ln in
-            err.splitlines() if "registers" in ln or "spill" in ln]}),
-            flush=True)
+        print(json.dumps({"source": src, "ptxas": ptxas_report(
+            err.splitlines())}), flush=True)
         libs[src] = ctypes.CDLL(so)
         kernel._bind_ring_search(libs[src])
     saved = kernel._libs.get("ring_search")
     ms: dict = {}
+    ref: dict = {}
+    occ: dict = {}
     try:
         for rep in range(args.repeats):
-            order = args.sources if rep % 2 == 0 else args.sources[::-1]
-            for src in order:
+            order = [(s, w) for s in args.sources for w in widths]
+            if rep % 2:
+                order = order[::-1]
+            for src, w in order:
                 kernel._libs["ring_search"] = libs[src]
-                for name, fn in runs:
-                    fn()
+                for name, S, fn in runs:
+                    fn(None, w)
                     torch.cuda.synchronize()
-                    ev0 = torch.cuda.Event(enable_timing=True)
-                    ev1 = torch.cuda.Event(enable_timing=True)
-                    ev0.record()
-                    fn()
-                    ev1.record()
-                    torch.cuda.synchronize()
-                    ms.setdefault(name, {}).setdefault(src, []).append(
-                        ev0.elapsed_time(ev1))
+                    got, t = kernel_ms(lambda tm: fn(tm, w))
+                    key = f"{os.path.basename(src)} lw={w}"
+                    ms.setdefault(name, {}).setdefault(key, []).append(t)
+                    if name not in ref:
+                        ref[name] = got
+                    elif not same_results(ref[name], got):
+                        raise RuntimeError(f"{key}: {name} differs from "
+                                           "the first version's results")
+                    if rep == 0:
+                        occ.setdefault(name, {})[key] = \
+                            kernel.resident_lanes(S, S.fixed, w)
     finally:
         if saved is None:
             kernel._libs.pop("ring_search", None)
@@ -174,7 +246,8 @@ def main(argv: list[str]) -> dict:
             kernel._libs["ring_search"] = saved
     out = dict(card=torch.cuda.get_device_name(0), ms=ms)
     for name in ms:
-        print(json.dumps({"run": name, "ms": ms[name]}), flush=True)
+        print(json.dumps({"run": name, "ms": ms[name],
+                          "resident_lanes_per_sm": occ[name]}), flush=True)
     return out
 
 
