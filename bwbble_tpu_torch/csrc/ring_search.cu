@@ -1,9 +1,8 @@
 // ring_search.cu — the inexact search as one CUDA kernel, in two launch
 // modes (ring queue, fixed batch), for two alphabets (the 16-letter
 // multi-genome, the 4-letter single genome of `-S`) and for two index
-// layouts (int32; int64, the whole-genome layout, in fixed mode only), in
-// lanes of two widths (a warp; a narrow width): six instantiations of one
-// template a width.
+// layouts (int32; int64, the whole-genome layout, in fixed mode only): six
+// instantiations of one template.
 //
 // Replaces: bwbble_tpu/engine/kernel.py:_resident_kernel, in ring mode
 // (driven by run_loop_resident_queued) and in fixed-batch mode (driven by
@@ -42,48 +41,36 @@
 // units times the latency of one round of fetches (`dma_wave` in
 // csrc/probes.cu measures that latency), and the card's memory rate is far
 // from reached.  What this design does about it:
-// - A lane of LW threads (a template parameter: 32, a whole warp, or a
-//   narrow width, 32 / LW lanes a warp), all at work, control flow uniform
-//   across the lane: decisions are made once and shared with ballots,
-//   match and reduce intrinsics and shuffles on the lane's mask (ballots
-//   shifted to the lane's bits, shuffles of width LW); no intrinsic mixes
-//   two lanes, which diverge freely (Hopper schedules threads
-//   independently).  Why narrow lanes: a short lane (a seeded read, an
-//   easy read) runs about a hundred pops, and a fixed batch of 8 192 such
-//   lanes at one warp each needs 4 waves of the 20 lanes an SM holds; at
-//   LW = 8 an SM holds four lanes a warp (engine/kernel.py states the rule
-//   that picks the width of a launch).
+// - A warp per lane, all 32 threads at work, control flow uniform across
+//   the warp: decisions are made once and shared with ballots, match and
+//   reduce intrinsics and shuffles; no thread leaves early.
 // - Both rank rows of a pop in one step, asked for as soon as the popped
-//   node is known, and the pop's bookkeeping, prune and allow decisions
-//   run while the rows are in flight: at LW = 32 half-warp 0 reads the row
-//   of L - 1, half-warp 1 that of U, and thread j of a half forms code j's
-//   bound; a narrower lane reads both rows in every thread, and thread j
-//   forms codes j, j + LW, ... of both ends.  The slot threads take theirs
-//   with shuffles.
-// - The expansion in parallel: slot s is formed by thread s % LW in round
-//   s / LW; the sequential LIFO push becomes, in each round, a match over
-//   the slots' buckets (a slot links to the highest earlier valid slot of
-//   its bucket in its round, else to the bucket's head as the earlier
-//   rounds left it; the last valid slot of a bucket in a round becomes its
-//   head), a minimum and a popcount; the slot threads write the frame row.
-// - Pops from registers: a thread keeps the slots it formed last, one a
-//   round; a pop of a node of that frame (often the next pop) takes it
-//   with a shuffle instead of a dependent read of the arena.  The counters
-//   still count the algorithm's frame reads, not the cache's.
+//   node is known: half-warp 0 reads the row of L - 1, half-warp 1 that of
+//   U, and the pop's bookkeeping, prune and allow decisions run while the
+//   rows are in flight; thread j of a half then forms code j's bound, so
+//   the 16 codes of both ends come out together, and the slot threads take
+//   theirs with two shuffles.
+// - The expansion in parallel: thread s forms slot s; the sequential LIFO
+//   push becomes a match over the slots' buckets (a slot links to the
+//   highest earlier valid slot of its bucket, else to the bucket's old
+//   head; the last valid slot of a bucket becomes its head), a warp minimum
+//   and a popcount; the slot threads write the frame row in one store.
+// - Pops from registers: thread s keeps the slot it formed last; a pop of a
+//   node of that frame (often the next pop) takes it with a shuffle instead
+//   of a dependent read of the arena.  The counters still count the
+//   algorithm's frame reads, not the cache's.
 // - A read's small state in shared memory, staged once per read: its
-//   codes, its D and D_seed bounds (and of their interval widths only
-//   whether neighbouring rows are equal), the two exact-completion lists,
-//   beside the bucket heads; the lowest occupied bucket is a ballot over
-//   LW heads.
-// - The exact completion across the lane: a character's (interval, code)
-//   items go to threads, LW at a time, each ranking its two ends, so up to
-//   LW independent items are in flight (an item's two rows one after the
+//   codes, its D and D_seed rows, the two exact-completion lists, beside
+//   the bucket heads; the lowest occupied bucket is a ballot over 32 heads.
+// - The exact completion across the warp: a character's (interval, code)
+//   items go to threads, 32 at a time, each ranking its two ends, so up to
+//   32 independent items are in flight (an item's two rows one after the
 //   other: asked for together they cost registers and spills, and ran
 //   slower); the sequential merge (an item joins the previous run iff L ==
 //   U_prev + 1, U_prev the previous non-empty item's U) becomes ballots and
 //   a prefix count.  The duplicate check of an emit is spread over the
 //   threads (the emits stay in order), and the path walk takes one
-//   alignment a thread; a ring lane asks for its next read before it.
+//   alignment a thread.
 //
 // The alphabet is a compile-time parameter: NC = 11 codes, NSLOT = 23 and
 // 128-word frame rows for a multi-genome; NC = 4, NSLOT = 9 and 40-word rows
@@ -110,13 +97,13 @@
 // with no alignment and no overflow.  Without seeds (null pointers, NROOT =
 // 1) the one root is the whole SA range at i = len, formed in registers.
 //
-// Memory.  A block is one warp: one lane, or 32 / LW narrow lanes.  Each
-// lane's shared memory holds C, the read's D and D_seed bounds and width
-// flags, the two exact-completion lists (XC entries each), the NB bucket
-// heads and the read's codes (ring_search_lane_smem gives the bytes; a
-// block has those of its lanes; the launch asks for more than 48 KB a
-// block where it needs it, and the wrapper refuses a configuration past
-// the card's 227 KB).  The frame arena is per-lane global scratch.  Reported alignments are written
+// Memory.  A block is one lane (one warp).  Its shared memory holds C, the
+// read's D and D_seed rows, the two exact-completion lists (XC entries
+// each), the NB bucket heads and the read's codes (ring_search_lane_smem
+// gives the bytes; the launch asks for more than 48 KB a block where it
+// needs it, and the wrapper refuses a configuration past the card's 227
+// KB).  The frame
+// arena is per-lane global scratch.  Reported alignments are written
 // straight into the per-read output slab, which also serves the duplicate
 // check.  The kernel allocates nothing and runs on the stream it is given.
 
@@ -126,7 +113,7 @@
 #include <string.h>
 #include <type_traits>
 
-#define RS_WARP 32           // threads a block: one warp
+#define RS_WARP 32           // threads per lane: each lane owns a warp
 #define RS_NMETA 9           // q_meta columns (engine/inexact.py META_*)
 #define RS_SMEM_MAX 232448   // dynamic shared memory a block may have (H100)
 #define RS_FULL 0xFFFFFFFFu
@@ -166,27 +153,22 @@ struct Layout {
 };
 
 // A lane's shared memory, byte offsets of each array (16-byte aligned):
-// C [17], the D bounds [Lmax + 1] and D_seed bounds [DS] (column 0 of D and
-// D_seed), the two exact-completion lists [2][XC][L, U] (IT each), the
-// bucket heads [NB] (int32), the read's codes [Lmax] and, for D and D_seed,
-// whether row i's column 1 (an interval width) equals row i - 1's [Lmax +
-// 1], [DS] (int8): the kernel only tests two neighbouring rows' widths for
-// equality.  engine/kernel.py:lane_smem_bytes mirrors it.
+// C [17], D [(Lmax + 1) * 2], D_seed [DS * 2], the two exact-completion
+// lists [2][XC][L, U] (IT each), the bucket heads [NB] (int32), the read's
+// codes [Lmax] (int8).  engine/kernel.py:lane_smem_bytes mirrors it.
 struct LaneSmem {
-    size_t carr, D, Ds, xl, head, rc, Dq, Dsq, bytes;
+    size_t carr, D, Ds, xl, head, rc, bytes;
     __host__ __device__ static size_t up16(size_t x) {
         return (x + 15) & ~(size_t)15;
     }
     __host__ __device__ LaneSmem(int NB, int Lmax, int DS, int XC, int it) {
         size_t o = 0;
         carr = o; o += up16(17 * (size_t)it);
-        D = o;    o += up16((size_t)(Lmax + 1) * it);
-        Ds = o;   o += up16((size_t)DS * it);
+        D = o;    o += up16((size_t)(Lmax + 1) * 2 * it);
+        Ds = o;   o += up16((size_t)DS * 2 * it);
         xl = o;   o += up16((size_t)4 * XC * it);
         head = o; o += up16((size_t)NB * 4);
         rc = o;   o += up16((size_t)Lmax);
-        Dq = o;   o += up16((size_t)Lmax + 1);
-        Dsq = o;  o += up16((size_t)DS);
         bytes = o;
     }
 };
@@ -270,33 +252,31 @@ __device__ __forceinline__ int in_table(IT i, IT LEN) {
     return (i >= 0 && i != LEN - 1) ? 1 : 0;
 }
 
-// wrapping sum of an unsigned value over a lane's LW threads (mask M)
-template <int LW, typename UT>
-__device__ __forceinline__ UT lane_sum(UT v, unsigned M) {
+// warp-wide wrapping sum of an unsigned value
+template <typename UT>
+__device__ __forceinline__ UT warp_sum(UT v) {
 #pragma unroll
-    for (int o = LW / 2; o > 0; o >>= 1) v += __shfl_xor_sync(M, v, o, LW);
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(RS_FULL, v, o);
     return v;
 }
 
 // A rank's table row (engine/rank.py:_rank_all), split from the count so
 // that the loads can be issued early and their latency overlapped with
 // other work: `edge` 1 for i == LEN - 1, 2 for i < 0 (no row is read),
-// else 0 with the 16 plane words, the checkpoint counts of codes j, j +
-// step, ..., (K of them) and the offset in the block.  Every thread of a
-// lane that asks for the same i reads the same 64 plane bytes (one request)
-// and its own count words.
-template <typename IT, int K = 1>
+// else 0 with the 16 plane words, code j's checkpoint count and the offset
+// in the block.  Every thread of a half-warp that asks for the same i reads
+// the same 64 plane bytes (one request) and its own count word.
+template <typename IT>
 struct Row {
     int4 p0, p1, p2, p3;
-    IT ck[K];
+    IT ck;
     int off, edge;
 };
 
-template <typename IT, int K = 1>
-__device__ __forceinline__ Row<IT, K> load_row(
-        const int32_t* __restrict__ table, IT LEN, IT i, int j,
-        int step = 0) {
-    Row<IT, K> r;
+template <typename IT>
+__device__ __forceinline__ Row<IT> load_row(const int32_t* __restrict__ table,
+                                            IT LEN, IT i, int j) {
+    Row<IT> r;
     const IT len_m1 = LEN - 1;
     r.edge = i == len_m1 ? 1 : (i < 0 ? 2 : 0);
     if (r.edge) return r;
@@ -307,15 +287,10 @@ __device__ __forceinline__ Row<IT, K> load_row(
     const int4* r4 = reinterpret_cast<const int4*>(row);
     r.p0 = __ldg(r4); r.p1 = __ldg(r4 + 1); r.p2 = __ldg(r4 + 2);
     r.p3 = __ldg(r4 + 3);
-#pragma unroll
-    for (int k = 0; k < K; k++) {
-        const int jk = j + k * step;
-        if constexpr (Layout<IT>::X64)
-            r.ck[k] = ((IT)__ldg(row + 32 + jk) << 32)
-                    | (uint32_t)__ldg(row + 16 + jk);
-        else
-            r.ck[k] = __ldg(row + 16 + jk);
-    }
+    if constexpr (Layout<IT>::X64)
+        r.ck = ((IT)__ldg(row + 32 + j) << 32) | (uint32_t)__ldg(row + 16 + j);
+    else
+        r.ck = __ldg(row + 16 + j);
     return r;
 }
 
@@ -346,16 +321,16 @@ __device__ __forceinline__ IT count_code(int4 p0, int4 p1, int4 p2, int4 p3,
     return val + ck + cnt;
 }
 
-// Occurrence bound C[j] + O(j, i) + inc of code j from its row (load_row)
-// and its k-th count word; 0 for j == 0.
-template <bool DFS, typename IT, int K>
-__device__ __forceinline__ IT count_row(const Row<IT, K>& r, const IT* carr,
-                                        int inc, int j, int k) {
+// Occurrence bound C[j] + O(j, i) + inc of code j from its row (load_row);
+// 0 for j == 0.
+template <bool DFS, typename IT>
+__device__ __forceinline__ IT count_row(const Row<IT>& r, const IT* carr,
+                                        int inc, int j) {
     if (j == 0) return 0;
     if (r.edge == 1) return carr[j + 1] + inc;
     if (r.edge == 2) return carr[j] + inc;
-    return count_code<DFS>(r.p0, r.p1, r.p2, r.p3, r.ck[k], r.off, carr,
-                           inc, j);
+    return count_code<DFS>(r.p0, r.p1, r.p2, r.p3, r.ck, r.off, carr, inc,
+                           j);
 }
 
 // The same bound, its row read right here: an exact-completion item ranks
@@ -391,17 +366,16 @@ struct ReadState {
 
 // emit_alns of engine/inexact.py (inexact_match.c:331-375 and
 // add_alignment's gap dedup, align.c:271-298) for `cnt` intervals read
-// through get(s, L, U), the same for every thread of the lane (its LW
-// threads, mask M; t is the thread's index in the lane).  The intervals are
+// through get(s, L, U), the same for every thread.  The intervals are
 // emitted in order; each one's duplicate check is spread over the threads
-// (thread t takes earlier alignments t, t + LW, ...), and its seven fields
+// (thread t takes earlier alignments t, t + 32, ...), and its seven fields
 // are written by threads 0-6.  Returns true when the read is finished
 // (max_best stop or ACAP overflow).
-template <int LW, typename IT, typename GetLU>
+template <typename IT, typename GetLU>
 __device__ __forceinline__ bool emit_alns(const RSParams& P, ReadState<IT>& S,
                                           IT* oA, int node, uint32_t m1,
                                           uint32_t m2, int cnt, int extra_m,
-                                          int t, unsigned M, GetLU get) {
+                                          int t, GetLU get) {
     const int mm = (m1 >> 8) & 0x1F, go = (m1 >> 13) & 0x7,
               ge = (m1 >> 16) & 0xF, plen = (m1 >> 22) & 0x1FF;
     const int snp = m2 & 0xFF;
@@ -415,12 +389,12 @@ __device__ __forceinline__ bool emit_alns(const RSParams& P, ReadState<IT>& S,
     // int32 sum does)
     typedef typename std::make_unsigned<IT>::type UT;
     UT width = 0;
-    for (int s = t; s < cnt; s += LW) {
+    for (int s = t; s < cnt; s += RS_WARP) {
         IT L, U;
         get(s, L, U);
         width += (UT)(U - L + 1);
     }
-    width = lane_sum<LW>(width, M);
+    width = warp_sum(width);
     const bool is_best = score == S.best_score;
     const IT old_nb = S.num_best;
     if (is_best) S.num_best = (IT)((UT)S.num_best + width);
@@ -431,9 +405,9 @@ __device__ __forceinline__ bool emit_alns(const RSParams& P, ReadState<IT>& S,
         get(s, L, U);
         if (go > 0) {
             bool dup = false;
-            for (int k = t; k < S.n_alns; k += LW)
+            for (int k = t; k < S.n_alns; k += RS_WARP)
                 dup |= (oA[k] == L) & (oA[A + k] == U);
-            if (__any_sync(M, dup)) continue;
+            if (__any_sync(RS_FULL, dup)) continue;
         }
         if (S.n_alns >= A) { S.overflow |= OV_ACAP; return true; }
         const int k = S.n_alns++;
@@ -443,12 +417,12 @@ __device__ __forceinline__ bool emit_alns(const RSParams& P, ReadState<IT>& S,
                        : t == 5 ? (IT)(int)m1 : (IT)snp;
             oA[t * A + k] = v;
         }
-        __syncwarp(M);
+        __syncwarp();
     }
     return false;
 }
 
-template <bool MULTI, bool FIXED, typename IT, int LW>
+template <bool MULTI, bool FIXED, typename IT>
 __global__ void __launch_bounds__(RS_WARP)
 ring_search_kernel(
         RSParams P, const int32_t* __restrict__ table,
@@ -466,39 +440,20 @@ ring_search_kernel(
     constexpr uint64_t CODES = AL::codes();
     constexpr uint32_t NEED0 = AL::need(0), NEED1 = AL::need(1),
                        NEED2 = AL::need(2), NEED3 = AL::need(3);
-    static_assert(LW == 8 || LW == 16 || LW == 32, "a lane is 8, 16 or 32 "
-                  "threads");
-    // a pop's 32 bounds (end e, code j: bound 16 e + j): thread t forms
-    // bounds t, t + LW, ...; with LW = 32 from the one row of its end, else
-    // from both rows, KPR codes of each (j = t, t + LW, ...)
-    constexpr int NRW = LW == 32 ? 1 : 2;
-    constexpr int KPR = LW == 32 ? 1 : 16 / LW;
-    constexpr int CPT = NRW * KPR;
-    // the expansion's slots in rounds of LW (slot s: round s / LW, thread
-    // s % LW)
-    constexpr int NRND = (NSLOT + LW - 1) / LW;
 
-    // (constants for a one-warp lane)
-    const int tw = threadIdx.x;              // thread of the warp
-    const int g = LW == 32 ? 0 : tw / LW;    // the lane's place in the warp
-    const int t = tw - g * LW;               // thread of the lane
-    const int sh = g * LW;                   // the lane's first bit
-    const unsigned M = LW == 32 ? RS_FULL : ((1u << (LW & 31)) - 1u) << sh;
-    const int lane = blockIdx.x * (RS_WARP / LW) + g;
-    if (lane >= P.lanes) return;
+    const int t = threadIdx.x;
+    const int lane = blockIdx.x;
 
     extern __shared__ __align__(16) unsigned char smem_raw[];
     const LaneSmem SL(P.NB, P.Lmax, P.DS, P.XC, (int)sizeof(IT));
-    unsigned char* const sm = smem_raw + (size_t)g * SL.bytes;
+    unsigned char* const sm = smem_raw;
     IT* const carr = reinterpret_cast<IT*>(sm + SL.carr);
     IT* const sD = reinterpret_cast<IT*>(sm + SL.D);
     IT* const sDs = reinterpret_cast<IT*>(sm + SL.Ds);
     IT* const sX = reinterpret_cast<IT*>(sm + SL.xl);     // [2][XC][L,U]
     int* const head = reinterpret_cast<int*>(sm + SL.head);
     int8_t* const sRc = reinterpret_cast<int8_t*>(sm + SL.rc);
-    int8_t* const sDq = reinterpret_cast<int8_t*>(sm + SL.Dq);
-    int8_t* const sDsq = reinterpret_cast<int8_t*>(sm + SL.Dsq);
-    for (int k = t; k < 17; k += LW) carr[k] = carr_g[k];
+    if (t < 17) carr[t] = carr_g[t];
 
     int32_t* const A = arena + (size_t)lane * P.NFRAME * ROWW;
     const int NB = P.NB, Lmax = P.Lmax, NROOT = P.NROOT, DS = P.DS;
@@ -509,10 +464,10 @@ ring_search_kernel(
     if (!FIXED) {
         int r = 0;
         if (t == 0) r = atomicAdd(counter, 1);
-        rid = __shfl_sync(M, r, 0, LW);
+        rid = __shfl_sync(RS_FULL, r, 0);
     }
     while (rid < P.Q) {
-        __syncwarp(M);                // the last read's shared state is done
+        __syncwarp();                 // the last read's shared state is done
         const int rlen = lens[rid];
         IT* oA = q_alns + (size_t)rid * 7 * P.ACAP;
 
@@ -521,23 +476,17 @@ ring_search_kernel(
         int nN = 0;
         {
             const int8_t* rcr = rc + (size_t)rid * Lmax;
-            for (int p = t; p < Lmax; p += LW) {
+            for (int p = t; p < Lmax; p += RS_WARP) {
                 const int8_t v = rcr[p];
                 sRc[p] = v;
                 nN += (p < rlen) & (v > 3);
             }
             const IT* Dr = D + (size_t)rid * (Lmax + 1) * 2;
-            for (int p = t; p <= Lmax; p += LW) {
-                sD[p] = Dr[2 * p];
-                sDq[p] = p > 0 && Dr[2 * p + 1] == Dr[2 * p - 1];
-            }
+            for (int p = t; p < (Lmax + 1) * 2; p += RS_WARP) sD[p] = Dr[p];
             const IT* Dsr = Ds + (size_t)rid * DS * 2;
-            for (int p = t; p < DS; p += LW) {
-                sDs[p] = Dsr[2 * p];
-                sDsq[p] = p > 0 && Dsr[2 * p + 1] == Dsr[2 * p - 1];
-            }
+            for (int p = t; p < DS * 2; p += RS_WARP) sDs[p] = Dsr[p];
         }
-        const int n_count = __reduce_add_sync(M, nN);
+        const int n_count = __reduce_add_sync(RS_FULL, nN);
 
         ReadState<IT> S;
         S.n_alns = 0; S.overflow = 0; S.best_score = NB;
@@ -555,15 +504,14 @@ ring_search_kernel(
             alive = alive && n_open > 0;       // no seed hit
         }
         if (alive)
-            for (int b = t; b < NB; b += LW)
+            for (int b = t; b < NB; b += RS_WARP)
                 head[b] = b == 0 ? n_open - 1 : -1;
-        __syncwarp(M);
+        __syncwarp();
 
-        // the frame whose slots the threads hold (thread t: slot r * LW + t
-        // in its r-th registers)
+        // the frame whose slots the threads hold (thread s: slot s)
         int regf = -1;
-        IT rL[NRND], rU[NRND];
-        uint32_t rm1[NRND], rm2[NRND];
+        IT rL = 0, rU = 0;
+        uint32_t rm1 = 0, rm2 = 0;
 
         while (alive) {
             if (!FIXED) {
@@ -577,20 +525,20 @@ ring_search_kernel(
                 S.overflow |= OV_WORK;
                 break;
             }
-            // pop: lowest occupied bucket (LW heads a ballot), most recent
+            // pop: lowest occupied bucket (32 heads a ballot), most recent
             // push (heap_pop)
             int node = -1;
             while (minb < NB) {
                 const int b = minb + t;
                 const int h = b < NB ? head[b] : -1;
-                const unsigned occ = __ballot_sync(M, h >= 0) >> sh;
+                const unsigned occ = __ballot_sync(RS_FULL, h >= 0);
                 if (occ) {
                     const int f = __ffs(occ) - 1;
-                    node = __shfl_sync(M, h, f, LW);
+                    node = __shfl_sync(RS_FULL, h, f);
                     minb += f;
                     break;
                 }
-                minb += LW;
+                minb += RS_WARP;
             }
             if (node < 0) break;
             const int bucket = minb;
@@ -610,21 +558,11 @@ ring_search_kernel(
                 const int nn = node - NROOT;
                 const int f = nn / NSLOT, s = nn - f * NSLOT;
                 if (f == regf) {
-                    // formed by thread s % LW in round s / LW of the
-                    // frame's expansion (the round is the same for the
-                    // whole lane)
-                    const int rr = s / LW;
-                    IT xL = rL[0], xU = rU[0];
-                    uint32_t x1 = rm1[0], x2 = rm2[0];
-#pragma unroll
-                    for (int k = 1; k < NRND; k++)
-                        if (rr == k) {
-                            xL = rL[k]; xU = rU[k]; x1 = rm1[k]; x2 = rm2[k];
-                        }
-                    eL = __shfl_sync(M, xL, s - rr * LW, LW);
-                    eU = __shfl_sync(M, xU, s - rr * LW, LW);
-                    m1 = __shfl_sync(M, x1, s - rr * LW, LW);
-                    m2 = __shfl_sync(M, x2, s - rr * LW, LW);
+                    // formed by thread s at the frame's expansion
+                    eL = __shfl_sync(RS_FULL, rL, s);
+                    eU = __shfl_sync(RS_FULL, rU, s);
+                    m1 = __shfl_sync(RS_FULL, rm1, s);
+                    m2 = __shfl_sync(RS_FULL, rm2, s);
                 } else {
                     const int32_t* sp = A + (size_t)f * ROWW + NW * s;
                     if constexpr (LY::X64) {
@@ -642,22 +580,15 @@ ring_search_kernel(
             }
             // the rows an expansion of this node ranks at, asked for now so
             // that the fetch overlaps the pop's bookkeeping and its prune,
-            // allow and slot decisions: the row of eL - 1 (end 0) and that
-            // of eU (end 1); with LW = 32 half 0 of the warp reads the
-            // first and half 1 the second, thread j of a half forms code
-            // j's bound; narrower lanes read both rows in every thread
-            // (unused when the pop does not expand)
-            const int jc = LW == 32 ? (t & 15) : t;
-            Row<IT, KPR> row[NRW];
-#pragma unroll
-            for (int w = 0; w < NRW; w++) {
-                const int end = LW == 32 ? (t >> 4) : w;
-                row[w] = load_row<IT, KPR>(table, LEN, end ? eU : eL - 1, jc,
-                                           LW);
-            }
+            // allow and slot decisions: half 0 the row of eL - 1, half 1
+            // that of eU; thread j of a half forms code j's bound (unused
+            // when the pop does not expand)
+            const int half = t >> 4, jc = t & 15;
+            const Row<IT> row = load_row<IT>(table, LEN, half ? eU : eL - 1,
+                                             jc);
             if (t == 0)
                 head[bucket] = (int)((m2 >> 8) & 0xFFFFFFu) - 1;  // 24-bit link
-            __syncwarp(M);
+            __syncwarp();
             n_open--;
             work++;
             if (bucket > S.best_score + P.p_mm) break;         // stop
@@ -680,10 +611,10 @@ ring_search_kernel(
             auto sclip = [&](int x) {
                 return x < 0 ? 0 : (x > DS - 1 ? DS - 1 : x);
             };
-            const IT D1n = sD[dclip(ei - 1)];
+            const IT D1n = sD[dclip(ei - 1) * 2];
             const int dls = P.p_maxdiffseed - emm - ego - ege;
             const int seed_index = ei - (rlen - P.p_seedlen);
-            const IT S1n = sDs[sclip(seed_index - 1)];
+            const IT S1n = sDs[sclip(seed_index - 1) * 2];
             bool cont = diff_left < 0;
             cont |= (ei > 0) && (diff_left < D1n);
             cont |= (seed_index > 0) && (dls < S1n);
@@ -691,10 +622,10 @@ ring_search_kernel(
 
             // hit at i == 0 (inexact_match.c:332-344)
             if (ei == 0) {
-                const bool fin = emit_alns<LW>(P, S, oA, node, m1, m2, 1, 0, t,
-                                               M, [&](int, IT& L, IT& U) {
-                                                   L = eL; U = eU;
-                                               });
+                const bool fin = emit_alns(P, S, oA, node, m1, m2, 1, 0, t,
+                                           [&](int, IT& L, IT& U) {
+                                               L = eL; U = eU;
+                                           });
                 if (fin) break;
                 continue;
             }
@@ -712,7 +643,7 @@ ring_search_kernel(
                 IT* cur = sX;
                 IT* nxt = sX + 2 * P.XC;
                 if (t == 0) { cur[0] = eL; cur[1] = eU; }
-                __syncwarp(M);
+                __syncwarp();
                 int cnt = 1;
                 int over = 0;
                 for (int j = ei - 1; j >= 0 && cnt > 0; j--) {
@@ -722,22 +653,22 @@ ring_search_kernel(
                     if (c > 3) { cnt = 0; break; }
                     // rank rows of every interval of the list
                     int rr = 0;
-                    for (int e = t; e < cnt; e += LW)
+                    for (int e = t; e < cnt; e += RS_WARP)
                         rr += in_table<IT>(cur[2 * e] - 1, LEN)
                             + in_table<IT>(cur[2 * e + 1], LEN);
-                    rank_rows += __reduce_add_sync(M, rr);
+                    rank_rows += __reduce_add_sync(RS_FULL, rr);
                     const uint32_t need = c == 0 ? NEED0 : c == 1 ? NEED1
                                         : c == 2 ? NEED2 : NEED3;
                     const int nq = __popc(need);
                     // items (interval e, the qi-th code of `need`) in
-                    // order, LW a round, one a thread; a run of the output
+                    // order, 32 a round, one a thread; a run of the output
                     // list starts at an item unless it follows the previous
                     // non-empty item's U directly
                     const int items = cnt * nq;
                     int ncnt = 0;
                     bool has_tail = false;
                     IT tailU = 0;
-                    for (int k0 = 0; k0 < items; k0 += LW) {
+                    for (int k0 = 0; k0 < items; k0 += RS_WARP) {
                         const int k = k0 + t;
                         IT L = 0, U = -1;
                         if (k < items) {
@@ -750,16 +681,15 @@ ring_search_kernel(
                             U = rank_one<false>(table, carr, LEN,
                                                 cur[2 * e + 1], 0, q);
                         }
-                        // ballots on the lane's bits, shifted to bit 0
                         const bool ne_ = k < items && L <= U;
-                        const unsigned ne = __ballot_sync(M, ne_) >> sh;
+                        const unsigned ne = __ballot_sync(RS_FULL, ne_);
                         const unsigned lower = ne & ((1u << t) - 1u);
                         const IT pU = __shfl_sync(
-                            M, U, lower ? 31 - __clz(lower) : t, LW);
+                            RS_FULL, U, lower ? 31 - __clz(lower) : t);
                         const bool joins = (lower != 0 || has_tail)
                                            && L == (lower ? pU : tailU) + 1;
                         const bool start = ne_ && !joins;
-                        const unsigned st = __ballot_sync(M, start) >> sh;
+                        const unsigned st = __ballot_sync(RS_FULL, start);
                         if (ncnt + __popc(st) > P.XC) { over = OV_LIST; break; }
                         // the run this item belongs to; it ends here if the
                         // next non-empty item of the round starts a run or
@@ -771,11 +701,11 @@ ring_search_kernel(
                         if (start) nxt[2 * ridx] = L;
                         if (end) nxt[2 * ridx + 1] = U;
                         if (ne) {
-                            tailU = __shfl_sync(M, U, 31 - __clz(ne), LW);
+                            tailU = __shfl_sync(RS_FULL, U, 31 - __clz(ne));
                             has_tail = true;
                         }
                         ncnt += __popc(st);
-                        __syncwarp(M);
+                        __syncwarp();
                     }
                     if (over) break;
                     IT* tmp = cur; cur = nxt; nxt = tmp;
@@ -786,12 +716,11 @@ ring_search_kernel(
                     // the scan consumed ei chars: the path extends by ei
                     // implicit matches (inexact_match.c:365)
                     const IT* lst = cur;
-                    const bool fin = emit_alns<LW>(
-                        P, S, oA, node, m1, m2, cnt, ei, t, M,
-                        [&](int s, IT& L, IT& U) {
-                            L = lst[2 * s];
-                            U = lst[2 * s + 1];
-                        });
+                    const bool fin = emit_alns(P, S, oA, node, m1, m2, cnt, ei,
+                                               t, [&](int s, IT& L, IT& U) {
+                                                   L = lst[2 * s];
+                                                   U = lst[2 * s + 1];
+                                               });
                     if (fin) break;
                 }
                 continue;
@@ -802,25 +731,23 @@ ring_search_kernel(
             const int nplen = eplen + 1;
             rank_rows += in_table<IT>(eL - 1, LEN) + in_table<IT>(eU, LEN);
 
-            const IT D2n = sD[dclip(ei - 2)];
-            const IT S2n = sDs[sclip(seed_index - 2)];
-            // the widths of rows i1 = clip(i - 1) and i2 = clip(i - 2) are
-            // equal iff the rows are one, or i1 = i2 + 1 and row i1's width
-            // equals its predecessor's
-            const int di1 = dclip(ei - 1), si1 = sclip(seed_index - 1);
-            const bool weq_d = di1 == dclip(ei - 2) || sDq[di1];
-            const bool weq_s = si1 == sclip(seed_index - 2) || sDsq[si1];
+            const IT D2n = sD[dclip(ei - 2) * 2];
+            const IT D1w = sD[dclip(ei - 1) * 2 + 1];
+            const IT D2w = sD[dclip(ei - 2) * 2 + 1];
+            const IT S2n = sDs[sclip(seed_index - 2) * 2];
+            const IT S1w = sDs[sclip(seed_index - 1) * 2 + 1];
+            const IT S2w = sDs[sclip(seed_index - 2) * 2 + 1];
             bool allow_diff = true, allow_mm = true;
             const bool pm = ei - 1 > 0;
             const bool ad1 = diff_left - 1 < D2n;
             const bool am1 = (D1n == diff_left - 1) && (D2n == diff_left - 1)
-                             && weq_d;
+                             && (D1w == D2w);
             if (pm && ad1) allow_diff = false;
             if (pm && !ad1 && am1) allow_mm = false;
             const bool ps = seed_index - 1 > 0;
             const bool ad2 = dls - 1 < S2n;
             const bool am2 = (S1n == dls - 1) && (S2n == dls - 1)
-                             && weq_s;
+                             && (S1w == S2w);
             if (ps && ad2) allow_diff = false;
             if (ps && !ad2 && am2) allow_mm = false;
 
@@ -838,141 +765,97 @@ ring_search_kernel(
             const bool ind_ok = allow_diff && allow_indels;
             // the bounds from the rows asked for at the pop (the DFS rank
             // differs from the exact one on skipped codes only, and a
-            // single genome expands none): bound t + LW * x of this thread
-            IT rk[CPT];
-#pragma unroll
-            for (int x = 0; x < CPT; x++) {
-                const int w = x / KPR, k = x - w * KPR;
-                const int end = LW == 32 ? (t >> 4) : w;
-                rk[x] = count_row<MULTI>(row[w], carr, end ? 0 : 1,
-                                         jc + LW * k, k);
+            // single genome expands none)
+            const IT rk = count_row<MULTI>(row, carr, half ? 0 : 1, jc);
+
+            // thread s forms slot s: 0 the insertion, 1..NC the deletions,
+            // NC+1..2NC the match / mismatch pushes over code q = code(s -
+            // 1) or code(s - 1 - NC), whose bounds threads q and 16 + q hold
+            const int tc = t <= NC ? t - 1 : t - 1 - NC;
+            const int q = (t >= 1 && t < NSLOT)
+                        ? (int)((CODES >> (4 * tc)) & 15) : 0;
+            const IT Lq = __shfl_sync(RS_FULL, rk, q);
+            const IT Uq = __shfl_sync(RS_FULL, rk, 16 + q);
+            bool valid = false;
+            IT sL = eL, sU = eU;
+            uint32_t sm1 = 0;
+            int ssnp = esnp;
+            if (t == 0) {
+                // insertion (extend if state == I else open if M)
+                valid = ind_ok && ((is_I && allow_extend)
+                                   || (is_M && allow_open));
+                sm1 = pack1(ei - 1, emm, ego + (is_M ? 1 : 0),
+                            ege + (is_I ? 1 : 0), STATE_I, nplen);
+            } else if (t <= NC) {
+                // deletion: consumes a reference char, keeps i
+                const bool del_any = ind_ok && !is_I
+                    && ((is_M && allow_open) || (!is_M && allow_extend));
+                valid = del_any && Lq <= Uq;
+                sL = Lq; sU = Uq;
+                sm1 = pack1(ei, emm, ego + (is_M ? 1 : 0),
+                            ege + (is_M ? 0 : 1), STATE_D, nplen);
+            } else if (t < NSLOT) {
+                // match / mismatch (or the exact-only continuation when
+                // mismatches are suppressed)
+                const bool mm_branch = allow_diff && allow_mm;
+                const int bm = c <= 3 ? base_mask(c) : 0;
+                const bool nonempty = Lq <= Uq;
+                const bool is_match = (c <= 3) && !is_order_n(q)
+                                      && ((gray_val(q) & bm) != 0);
+                const bool ok_mm = mm_branch && nonempty;
+                const bool ok_ex = !mm_branch && (c < 4) && is_match
+                                   && nonempty;
+                valid = ok_mm || ok_ex;
+                sL = Lq; sU = Uq;
+                sm1 = pack1(ei - 1, emm + ((ok_mm && !is_match) ? 1 : 0),
+                            ego, ege, STATE_M, nplen);
+                ssnp = (esnp + (is_snp(q) ? 1 : 0)) & 0xFF;
             }
+            const int sc = ((sm1 >> 8) & 0x1F) * P.p_mm
+                         + ((sm1 >> 13) & 0x7) * P.p_go
+                         + ((sm1 >> 16) & 0xF) * P.p_ge;
+            const int b = sc < 0 ? 0 : (sc > NB - 1 ? NB - 1 : sc);
 
-            // the slots in rounds of LW; a slot links to the highest
-            // earlier valid slot of its bucket in its round, else to the
-            // bucket's head as the earlier rounds left it, so the sequential
-            // LIFO push of slots 0..NSLOT-1 into the score buckets
-            // (inexact_match.c:510-610) is kept; the last valid slot of a
-            // bucket in a round becomes its head
-            int total = 0;
-            unsigned bmin = (unsigned)INT_MAX;
-            int32_t* const frow = A + (size_t)myf * ROWW;
-#pragma unroll
-            for (int r = 0; r < NRND; r++) {
-                // thread t forms slot s: 0 the insertion, 1..NC the
-                // deletions, NC+1..2NC the match / mismatch pushes over
-                // code q = code(s - 1) or code(s - 1 - NC)
-                const int s = r * LW + t;
-                const int tc = s <= NC ? s - 1 : s - 1 - NC;
-                const int q = (s >= 1 && s < NSLOT)
-                            ? (int)((CODES >> (4 * tc)) & 15) : 0;
-                IT Lq, Uq;
-                if constexpr (LW == 32) {
-                    Lq = __shfl_sync(M, rk[0], q);
-                    Uq = __shfl_sync(M, rk[0], 16 + q);
-                } else {
-                    // bounds q and 16 + q: thread q % LW, its (q / LW)-th
-                    // and (16 + q) / LW-th
-                    Lq = 0; Uq = 0;
-#pragma unroll
-                    for (int x = 0; x < CPT; x++) {
-                        const IT v = __shfl_sync(M, rk[x], q % LW, LW);
-                        if (x == q / LW) Lq = v;
-                        if (x == (16 + q) / LW) Uq = v;
-                    }
-                }
-                bool valid = false;
-                IT sL = eL, sU = eU;
-                uint32_t sm1 = 0;
-                int ssnp = esnp;
-                if (s == 0) {
-                    // insertion (extend if state == I else open if M)
-                    valid = ind_ok && ((is_I && allow_extend)
-                                       || (is_M && allow_open));
-                    sm1 = pack1(ei - 1, emm, ego + (is_M ? 1 : 0),
-                                ege + (is_I ? 1 : 0), STATE_I, nplen);
-                } else if (s <= NC) {
-                    // deletion: consumes a reference char, keeps i
-                    const bool del_any = ind_ok && !is_I
-                        && ((is_M && allow_open) || (!is_M && allow_extend));
-                    valid = del_any && Lq <= Uq;
-                    sL = Lq; sU = Uq;
-                    sm1 = pack1(ei, emm, ego + (is_M ? 1 : 0),
-                                ege + (is_M ? 0 : 1), STATE_D, nplen);
-                } else if (s < NSLOT) {
-                    // match / mismatch (or the exact-only continuation when
-                    // mismatches are suppressed)
-                    const bool mm_branch = allow_diff && allow_mm;
-                    const int bm = c <= 3 ? base_mask(c) : 0;
-                    const bool nonempty = Lq <= Uq;
-                    const bool is_match = (c <= 3) && !is_order_n(q)
-                                          && ((gray_val(q) & bm) != 0);
-                    const bool ok_mm = mm_branch && nonempty;
-                    const bool ok_ex = !mm_branch && (c < 4) && is_match
-                                       && nonempty;
-                    valid = ok_mm || ok_ex;
-                    sL = Lq; sU = Uq;
-                    sm1 = pack1(ei - 1, emm + ((ok_mm && !is_match) ? 1 : 0),
-                                ego, ege, STATE_M, nplen);
-                    ssnp = (esnp + (is_snp(q) ? 1 : 0)) & 0xFF;
-                }
-                const int sc = ((sm1 >> 8) & 0x1F) * P.p_mm
-                             + ((sm1 >> 13) & 0x7) * P.p_go
-                             + ((sm1 >> 16) & 0xF) * P.p_ge;
-                const int b = sc < 0 ? 0 : (sc > NB - 1 ? NB - 1 : sc);
-
-                // the round's push: a match over the valid slots' buckets
-                // (the lane's bits of the warp)
-                const unsigned vmask = __ballot_sync(M, valid);
-                const unsigned grp = __match_any_sync(M, valid ? b : -1)
-                                   & vmask;
-                const int oldh = valid ? head[b] : 0;
-                __syncwarp(M);
-                const unsigned below = grp & ((1u << tw) - 1u);
-                const int prev = below
-                    ? base + r * LW + (31 - __clz(below)) - sh : oldh;
-                const uint32_t sm2 = ((uint32_t)ssnp & 0xFFu)
-                                   | ((uint32_t)(prev + 1) << 8);
-                if (valid && (grp >> tw) == 1u) head[b] = base + s;
-                const unsigned rmin = __reduce_min_sync(
-                    M, valid ? (unsigned)b : (unsigned)INT_MAX);
-                bmin = rmin < bmin ? rmin : bmin;
-                total += __popc(vmask);
+            // the sequential LIFO push of slots 0..NSLOT-1 into the score
+            // buckets (inexact_match.c:510-610), all slots at once: a slot
+            // links to the highest earlier valid slot of its bucket, else
+            // to the bucket's old head; the last valid slot of a bucket
+            // becomes its head
+            const unsigned vmask = __ballot_sync(RS_FULL, valid);
+            const unsigned grp = __match_any_sync(RS_FULL, valid ? b : -1)
+                               & vmask;
+            const int oldh = valid ? head[b] : 0;
+            __syncwarp();
+            const unsigned below = grp & ((1u << t) - 1u);
+            const int prev = below ? base + (31 - __clz(below)) : oldh;
+            const uint32_t sm2 = ((uint32_t)ssnp & 0xFFu)
+                               | ((uint32_t)(prev + 1) << 8);
+            if (valid && (grp >> t) == 1u) head[b] = base + t;
+            const int bmin = (int)__reduce_min_sync(
+                RS_FULL, valid ? (unsigned)b : (unsigned)INT_MAX);
+            if (bmin < minb) minb = bmin;
+            const int total = __popc(vmask);
+            if (total > 0) {
+                int32_t* frow = A + (size_t)myf * ROWW;
                 if (valid) {
                     if constexpr (LY::X64) {
-                        int32_t* sp = frow + NW * s;
+                        int32_t* sp = frow + NW * t;
                         *reinterpret_cast<long long*>(sp) = sL;
                         *reinterpret_cast<long long*>(sp + 2) = sU;
                         *reinterpret_cast<int2*>(sp + 4) =
                             make_int2((int)sm1, (int)sm2);
                     } else {
-                        *reinterpret_cast<int4*>(frow + 4 * s) =
+                        *reinterpret_cast<int4*>(frow + 4 * t) =
                             make_int4(sL, sU, (int)sm1, (int)sm2);
                     }
                 }
-                if constexpr (NRND == 1) {
-                    // the frame's slots replace the held ones only when
-                    // it pushed anything
-                    if (__popc(vmask) > 0) {
-                        rL[r] = sL; rU[r] = sU; rm1[r] = sm1; rm2[r] = sm2;
-                    }
-                } else {
-                    // (several rounds: the held frame is given up below
-                    // when this one pushed nothing)
-                    rL[r] = sL; rU[r] = sU; rm1[r] = sm1; rm2[r] = sm2;
-                }
-                __syncwarp(M);
-            }
-            if ((int)bmin < minb) minb = (int)bmin;
-            if (total > 0) {
-                if (t == 0) frow[AL::PARENT] = node;
+                if (t == NSLOT) frow[AL::PARENT] = node;
                 frame_wr++;
                 n_open += total;
                 regf = myf;
-            } else if constexpr (NRND > 1) {
-                regf = -1;
+                rL = sL; rU = sU; rm1 = sm1; rm2 = sm2;
             }
-            __syncwarp(M);
+            __syncwarp();
         }
 
         // ring mode: the lane's next read id, asked for now so that the
@@ -985,7 +868,7 @@ ring_search_kernel(
         // of the s-th ancestor, node first, root excluded; 2 bits per state
         int frd = 0;
         if (!S.overflow) {
-            for (int k = t; k < S.n_alns; k += LW) {
+            for (int k = t; k < S.n_alns; k += RS_WARP) {
                 uint8_t* pp = q_paths + ((size_t)rid * P.ACAP + k) * P.PW;
                 int cur = (int)oA[4 * P.ACAP + k];
                 int s = 0;
@@ -1004,7 +887,7 @@ ring_search_kernel(
                 if (s & 3) pp[s >> 2] = (uint8_t)acc;
             }
         }
-        frame_rd += __reduce_add_sync(M, frd);
+        frame_rd += __reduce_add_sync(RS_FULL, frd);
 
         if (t == 0) {
             int32_t* qm = q_meta + (size_t)rid * RS_NMETA;
@@ -1013,7 +896,7 @@ ring_search_kernel(
             qm[8] = root_rd;
         }
         if (FIXED) break;
-        rid = __shfl_sync(M, nrid, 0, LW);
+        rid = __shfl_sync(RS_FULL, nrid, 0);
     }
 }
 
@@ -1029,22 +912,14 @@ extern "C" long long ring_search_lane_smem(int NB, int Lmax, int DS, int XC,
     return (long long)LaneSmem(NB, Lmax, DS, XC, x64 ? 8 : 4).bytes;
 }
 
-// Lanes of LW threads, RS_WARP / LW a block (one warp): blocks for `lanes`
-// lanes and the block's shared memory.
-template <int LW>
-static int lane_blocks(int lanes) {
-    return (lanes + RS_WARP / LW - 1) / (RS_WARP / LW);
-}
-
-template <bool MULTI, bool FIXED, typename IT, int LW>
-static int launch(const RSParams& P, long long lane_smem, const void* table,
+template <bool MULTI, bool FIXED, typename IT>
+static int launch(const RSParams& P, size_t smem, const void* table,
                   const void* carr, const void* rc, const void* lens,
                   const void* D, const void* Ds, const void* sL,
                   const void* sU, const void* scnt, void* arena,
                   void* counter, void* q_alns, void* q_meta, void* q_paths,
                   void* stream, void* ev0, void* ev1) {
-    auto kern = ring_search_kernel<MULTI, FIXED, IT, LW>;
-    const size_t smem = (size_t)lane_smem * (RS_WARP / LW);
+    auto kern = ring_search_kernel<MULTI, FIXED, IT>;
     if (smem > 48 * 1024) {
         cudaError_t e = cudaFuncSetAttribute(
             kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -1055,8 +930,7 @@ static int launch(const RSParams& P, long long lane_smem, const void* table,
         cudaError_t e = cudaEventRecord((cudaEvent_t)ev0, (cudaStream_t)stream);
         if (e != cudaSuccess) return (int)e;
     }
-    const int blocks = lane_blocks<LW>(P.lanes);
-    kern<<<blocks, RS_WARP, smem, (cudaStream_t)stream>>>(
+    kern<<<P.lanes, RS_WARP, smem, (cudaStream_t)stream>>>(
         P, (const int32_t*)table, (const IT*)carr, (const int8_t*)rc,
         (const int32_t*)lens, (const IT*)D, (const IT*)Ds,
         (const IT*)sL, (const IT*)sU, (const int32_t*)scnt,
@@ -1067,13 +941,12 @@ static int launch(const RSParams& P, long long lane_smem, const void* table,
     return (int)cudaEventRecord((cudaEvent_t)ev1, (cudaStream_t)stream);
 }
 
-// Blocks of an instantiation that an SM holds at once with a lane's
-// `lane_smem` bytes of shared memory
-// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), or minus the CUDA error.
-template <bool MULTI, bool FIXED, typename IT, int LW>
-static int occupancy(long long lane_smem) {
-    auto kern = ring_search_kernel<MULTI, FIXED, IT, LW>;
-    const size_t smem = (size_t)lane_smem * (RS_WARP / LW);
+// Blocks of an instantiation that an SM holds at once with `smem` bytes of
+// dynamic shared memory a block (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
+// or minus the CUDA error.
+template <bool MULTI, bool FIXED, typename IT>
+static int occupancy(long long smem) {
+    auto kern = ring_search_kernel<MULTI, FIXED, IT>;
     cudaError_t e = cudaSuccess;
     if (smem > 48 * 1024)
         e = cudaFuncSetAttribute(
@@ -1081,29 +954,20 @@ static int occupancy(long long lane_smem) {
     int n = 0;
     if (e == cudaSuccess)
         e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kern, RS_WARP,
-                                                          smem);
+                                                          (size_t)smem);
     return e == cudaSuccess ? n : -(int)e;
 }
 
-// The lane widths built: one warp, and the narrow widths.
-#define RS_BY_WIDTH(LW_, CALL)                                          \
-    (LW_ == 32 ? CALL(32) : LW_ == 16 ? CALL(16) : LW_ == 8 ? CALL(8) : -1)
-
-extern "C" int ring_search_occupancy(int multiref, int fixed, int x64, int lw,
-                                     long long lane_smem) {
-#define RS_OCC(M, F, T, W) occupancy<M, F, T, W>(lane_smem)
-#define RS_OCC_MI(W) RS_OCC(true, true, long long, W)
-#define RS_OCC_SI(W) RS_OCC(false, true, long long, W)
-#define RS_OCC_MF(W) RS_OCC(true, true, int, W)
-#define RS_OCC_MR(W) RS_OCC(true, false, int, W)
-#define RS_OCC_SF(W) RS_OCC(false, true, int, W)
-#define RS_OCC_SR(W) RS_OCC(false, false, int, W)
+extern "C" int ring_search_occupancy(int multiref, int fixed, int x64,
+                                     long long smem) {
     if (x64)
-        return multiref ? RS_BY_WIDTH(lw, RS_OCC_MI)
-                        : RS_BY_WIDTH(lw, RS_OCC_SI);
+        return multiref ? occupancy<true, true, long long>(smem)
+                        : occupancy<false, true, long long>(smem);
     if (multiref)
-        return fixed ? RS_BY_WIDTH(lw, RS_OCC_MF) : RS_BY_WIDTH(lw, RS_OCC_MR);
-    return fixed ? RS_BY_WIDTH(lw, RS_OCC_SF) : RS_BY_WIDTH(lw, RS_OCC_SR);
+        return fixed ? occupancy<true, true, int>(smem)
+                     : occupancy<true, false, int>(smem);
+    return fixed ? occupancy<false, true, int>(smem)
+                 : occupancy<false, false, int>(smem);
 }
 
 // Frame-row width in int32 words for an alphabet and an index layout, for
@@ -1114,21 +978,20 @@ extern "C" int ring_search_row_words(int multiref, int x64) {
     return multiref ? Alpha<true>::ROWW : Alpha<false>::ROWW;
 }
 
-// Launches on `stream`, lanes of `lw` threads (32: one warp; or a narrow
-// width), 32 / lw of them a block of one warp, between the records of the
-// CUDA events `ev0` and `ev1` on the same stream (either may be null: no
+// Launches on `stream`, one lane (one warp) a block, between the records of
+// the CUDA events `ev0` and `ev1` on the same stream (either may be null: no
 // record); returns the first CUDA error of the records and the launch (0 on
-// success), or -1 when the parameter block does not match RSParams, the
-// width is not built, a block's shared memory exceeds the card's, a fixed
+// success), or -1 when the parameter block does
+// not match RSParams, a lane's shared memory exceeds the card's, a fixed
 // launch has not one lane per read, the seeds are given in part or with
-// NROOT < 1, or the int64 layout is asked of a ring launch.  `multiref`
-// picks the alphabet, `fixed` the launch mode (`counter` is not read then),
-// `x64` the index layout (carr, D, Ds, the seed intervals and q_alns are
-// int64 then, the table has 48 words a row); seed_L, seed_U and seed_cnt
-// are all null (one unseeded root, NROOT = 1) or all given ([Q, NROOT],
-// [Q, NROOT], [Q] int32).
+// NROOT < 1, or the int64 layout is asked of a ring launch.  `multiref` picks the alphabet,
+// `fixed` the launch mode (`counter` is not read then), `x64` the index
+// layout (carr, D, Ds, the seed intervals and q_alns are int64 then, the
+// table has 48 words a row); seed_L, seed_U and seed_cnt are all null (one
+// unseeded root, NROOT = 1) or all given ([Q, NROOT], [Q, NROOT], [Q]
+// int32).
 extern "C" int ring_search_launch(
-        const int* hp, int nhp, int multiref, int fixed, int x64, int lw,
+        const int* hp, int nhp, int multiref, int fixed, int x64,
         const void* table, const void* carr, const void* rc,
         const void* lens, const void* D, const void* Ds, const void* seed_L,
         const void* seed_U, const void* seed_cnt, void* arena, void* counter,
@@ -1138,32 +1001,24 @@ extern "C" int ring_search_launch(
     RSParams P;
     memcpy(&P, hp, sizeof(P));
     if (P.NB < 1 || P.Lmax < 1 || P.DS < 1 || P.XC < 0) return -1;
-    if (lw != 32 && lw != 16 && lw != 8) return -1;
     const long long smem = ring_search_lane_smem(P.NB, P.Lmax, P.DS, P.XC,
                                                  x64);
-    if (smem * (RS_WARP / lw) > RS_SMEM_MAX) return -1;
+    if (smem > RS_SMEM_MAX) return -1;
     if (fixed && P.lanes != P.Q) return -1;
     const int nseed = (seed_L != nullptr) + (seed_U != nullptr)
                     + (seed_cnt != nullptr);
     if (nseed == 1 || nseed == 2 || P.NROOT < 1 || (!nseed && P.NROOT != 1))
         return -1;
-#define RS_LAUNCH(M, F, T, W) launch<M, F, T, W>(                        \
-        P, smem, table, carr, rc, lens, D, Ds, seed_L, seed_U, seed_cnt, \
-        arena, counter, q_alns, q_meta, q_paths, stream, ev0, ev1)
-#define RS_LAUNCH_MI(W) RS_LAUNCH(true, true, long long, W)
-#define RS_LAUNCH_SI(W) RS_LAUNCH(false, true, long long, W)
-#define RS_LAUNCH_MF(W) RS_LAUNCH(true, true, int, W)
-#define RS_LAUNCH_MR(W) RS_LAUNCH(true, false, int, W)
-#define RS_LAUNCH_SF(W) RS_LAUNCH(false, true, int, W)
-#define RS_LAUNCH_SR(W) RS_LAUNCH(false, false, int, W)
+#define RS_LAUNCH(M, F, T) launch<M, F, T>(                           \
+        P, (size_t)smem, table, carr, rc, lens, D, Ds, seed_L, seed_U, \
+        seed_cnt, arena, counter, q_alns, q_meta, q_paths, stream, ev0, ev1)
     if (x64) {
         if (!fixed) return -1;
-        return multiref ? RS_BY_WIDTH(lw, RS_LAUNCH_MI)
-                        : RS_BY_WIDTH(lw, RS_LAUNCH_SI);
+        return multiref ? RS_LAUNCH(true, true, long long)
+                        : RS_LAUNCH(false, true, long long);
     }
     if (multiref)
-        return fixed ? RS_BY_WIDTH(lw, RS_LAUNCH_MF)
-                     : RS_BY_WIDTH(lw, RS_LAUNCH_MR);
-    return fixed ? RS_BY_WIDTH(lw, RS_LAUNCH_SF)
-                 : RS_BY_WIDTH(lw, RS_LAUNCH_SR);
+        return fixed ? RS_LAUNCH(true, true, int) : RS_LAUNCH(true, false, int);
+    return fixed ? RS_LAUNCH(false, true, int) : RS_LAUNCH(false, false, int);
+#undef RS_LAUNCH
 }

@@ -1,21 +1,18 @@
 // warp_emu.h — a CPU stand-in for the CUDA features csrc/ring_search.cu
 // uses, so that the kernel's logic can be compiled with g++ and run on CPU
 // tensors (tests/test_torch_kernel_emulated.py).  A block runs as blockDim.x
-// OS threads, its blocks one after another.  A warp runs as 32 / LW
-// independent lanes of LW threads (emu_launch<LW>): each warp intrinsic
-// (shuffle, ballot, vote, match, reduce, __syncwarp) is an exchange through
-// a buffer of the caller's lane between two barriers of that lane alone, so
-// the lanes of a warp, and the threads of a lane between intrinsics, run
-// independently, as on a card with independent thread scheduling.  An
-// intrinsic whose mask is not the caller's lane, or a shuffle whose width is
-// not LW, is a fault: cudaGetLastError() then returns nonzero.  It says
-// nothing of speed, registers or the card's memory model beyond that.
+// OS threads, its blocks one after another; each warp intrinsic (shuffle,
+// ballot, vote, match, reduce, __syncwarp) is an exchange through a buffer
+// of the warp between two barriers, so threads run independently between
+// intrinsics, as on a card with independent thread scheduling.  Event
+// records and launches are logged in order (emu_trace).  It says nothing of
+// speed, registers or the card's memory model beyond that.
 #pragma once
 #include <atomic>
 #include <barrier>
 #include <cstdint>
 #include <cstring>
-#include <memory>
+#include <string>
 #include <thread>
 #include <vector>
 #define __global__
@@ -34,9 +31,15 @@ typedef void* cudaStream_t;
 typedef void* cudaEvent_t;
 typedef int cudaError_t;
 enum { cudaSuccess = 0, cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
-inline std::atomic<int> emu_fault{0};
-inline int cudaGetLastError() { return emu_fault.exchange(0) ? 77 : 0; }
-inline int cudaEventRecord(cudaEvent_t, cudaStream_t) { return 0; }
+inline int cudaGetLastError() { return 0; }
+// what ran, in order: "r<n>" a record of the event whose handle is n (0-9),
+// "k" a kernel launch
+inline std::string emu_log;
+extern "C" const char* emu_trace() { return emu_log.c_str(); }
+inline int cudaEventRecord(cudaEvent_t e, cudaStream_t) {
+    emu_log += "r" + std::to_string((uintptr_t)e % 10);
+    return 0;
+}
 template <class F> int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int, size_t) { *n = 1; return 0; }
 template <class F> int cudaFuncSetAttribute(F, int, int) { return 0; }
 template <class T> inline T __ldg(const T* p) { return *p; }
@@ -45,86 +48,71 @@ inline int __ffs(unsigned x) { return __builtin_ffs((int)x); }
 inline int __clz(unsigned x) { return x ? __builtin_clz(x) : 32; }
 inline int atomicAdd(int* p, int v) { return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST); }
 
-// one lane of a warp: LW threads, its barrier and exchange buffer
-struct EmuLane {
-    std::barrier<> bar;
+struct EmuWarp {
+    std::barrier<> bar{32};
     uint64_t buf[32];
-    explicit EmuLane(int n) : bar(n) {}
 };
-inline thread_local EmuLane* emu_l = nullptr;
+inline thread_local EmuWarp* emu_w = nullptr;
 inline thread_local unsigned char* emu_sm = nullptr;
-inline thread_local int emu_lw = 32;          // threads a lane
-inline int emu_k() { return (threadIdx.x & 31) % emu_lw; }   // thread of the lane
-inline unsigned emu_mask() {
-    const int base = (threadIdx.x & 31) / emu_lw * emu_lw;
-    return emu_lw == 32 ? 0xFFFFFFFFu : ((1u << emu_lw) - 1u) << base;
-}
-inline void emu_check(unsigned mask, int width = -1) {
-    if (mask != emu_mask() || (width >= 0 && width != emu_lw)) emu_fault = 1;
-}
+inline int emu_lane() { return threadIdx.x & 31; }
 template <class T> inline uint64_t emu_bits(T v) { uint64_t b = 0; std::memcpy(&b, &v, sizeof(T)); return b; }
 template <class T> inline T emu_from(uint64_t b) { T v; std::memcpy(&v, &b, sizeof(T)); return v; }
-inline void __syncwarp(unsigned m = 0xFFFFFFFFu) { emu_check(m); std::atomic_thread_fence(std::memory_order_seq_cst); emu_l->bar.arrive_and_wait(); }
-// every thread of the lane puts `v`; returns what thread `src` of the lane put
+inline void __syncwarp(unsigned = 0xFFFFFFFFu) { std::atomic_thread_fence(std::memory_order_seq_cst); emu_w->bar.arrive_and_wait(); }
 template <class T> inline T emu_xchg(T v, int src) {
-    emu_l->buf[emu_k()] = emu_bits(v);
-    emu_l->bar.arrive_and_wait();
-    T r = emu_from<T>(emu_l->buf[src]);
-    emu_l->bar.arrive_and_wait();
+    emu_w->buf[emu_lane()] = emu_bits(v);
+    emu_w->bar.arrive_and_wait();
+    T r = emu_from<T>(emu_w->buf[src & 31]);
+    emu_w->bar.arrive_and_wait();
     return r;
 }
-template <class T> inline T __shfl_sync(unsigned m, T v, int src, int width = 32) { emu_check(m, width); return emu_xchg(v, src % emu_lw); }
-template <class T> inline T __shfl_xor_sync(unsigned m, T v, int x, int width = 32) { emu_check(m, width); return emu_xchg(v, (emu_k() ^ x) % emu_lw); }
-// what the lane's threads put, gathered in thread order
-template <class F> inline void emu_gather(uint64_t v, F take) {
-    emu_l->buf[emu_k()] = v;
-    emu_l->bar.arrive_and_wait();
-    for (int i = 0; i < emu_lw; i++) take(i, emu_l->buf[i]);
-    emu_l->bar.arrive_and_wait();
-}
-// bit i of the warp for thread i: the lane's threads at their warp positions
-inline unsigned emu_ballot(bool p) {
-    const int base = (threadIdx.x & 31) - emu_k();
+template <class T> inline T __shfl_sync(unsigned, T v, int src) { return emu_xchg(v, src); }
+template <class T> inline T __shfl_xor_sync(unsigned, T v, int m) { return emu_xchg(v, emu_lane() ^ m); }
+inline unsigned emu_gather_bits(bool p) {
+    emu_w->buf[emu_lane()] = p;
+    emu_w->bar.arrive_and_wait();
     unsigned r = 0;
-    emu_gather(p, [&](int i, uint64_t b) { r |= (unsigned)(b & 1) << (base + i); });
+    for (int i = 0; i < 32; i++) r |= (unsigned)(emu_w->buf[i] & 1) << i;
+    emu_w->bar.arrive_and_wait();
     return r;
 }
-inline unsigned __ballot_sync(unsigned m, int p) { emu_check(m); return emu_ballot(p != 0); }
-inline bool __any_sync(unsigned m, int p) { emu_check(m); return emu_ballot(p != 0) != 0; }
-inline unsigned __match_any_sync(unsigned m, int v) {
-    emu_check(m);
-    const int base = (threadIdx.x & 31) - emu_k();
+inline unsigned __ballot_sync(unsigned, int p) { return emu_gather_bits(p != 0); }
+inline bool __any_sync(unsigned, int p) { return emu_gather_bits(p != 0) != 0; }
+inline unsigned __match_any_sync(unsigned, int v) {
+    emu_w->buf[emu_lane()] = (uint64_t)(uint32_t)v;
+    emu_w->bar.arrive_and_wait();
     unsigned r = 0;
-    emu_gather((uint64_t)(uint32_t)v, [&](int i, uint64_t b) { r |= (unsigned)(b == (uint64_t)(uint32_t)v) << (base + i); });
+    for (int i = 0; i < 32; i++) r |= (unsigned)(emu_w->buf[i] == (uint64_t)(uint32_t)v) << i;
+    emu_w->bar.arrive_and_wait();
     return r;
 }
-inline unsigned __reduce_min_sync(unsigned m, unsigned v) {
-    emu_check(m);
+inline unsigned __reduce_min_sync(unsigned, unsigned v) {
+    emu_w->buf[emu_lane()] = v;
+    emu_w->bar.arrive_and_wait();
     unsigned r = 0xFFFFFFFFu;
-    emu_gather(v, [&](int, uint64_t b) { r = (unsigned)b < r ? (unsigned)b : r; });
+    for (int i = 0; i < 32; i++) r = (unsigned)emu_w->buf[i] < r ? (unsigned)emu_w->buf[i] : r;
+    emu_w->bar.arrive_and_wait();
     return r;
 }
-inline int __reduce_add_sync(unsigned m, int v) {
-    emu_check(m);
+inline int __reduce_add_sync(unsigned, int v) {
+    emu_w->buf[emu_lane()] = (uint64_t)(uint32_t)v;
+    emu_w->bar.arrive_and_wait();
     unsigned r = 0;
-    emu_gather((uint64_t)(uint32_t)v, [&](int, uint64_t b) { r += (unsigned)b; });
+    for (int i = 0; i < 32; i++) r += (unsigned)emu_w->buf[i];
+    emu_w->bar.arrive_and_wait();
     return (int)r;
 }
-// run a "kernel" over `blocks` blocks of `threads` threads, blocks in turn,
-// each warp as lanes of LW threads
-template <int LW, class K, class... A>
+// run a "kernel" over `blocks` blocks of `threads` threads, blocks in turn
+template <class K, class... A>
 void emu_launch(K kern, int blocks, int threads, size_t smem, A... args) {
+    emu_log += "k";
     for (int b = 0; b < blocks; b++) {
         std::vector<unsigned char> sm(smem + 16);
-        std::vector<std::unique_ptr<EmuLane>> lanes;
-        for (int i = 0; i < threads / LW; i++)
-            lanes.emplace_back(new EmuLane(LW));
+        std::vector<EmuWarp> warps(threads / 32);
         std::vector<std::thread> th;
         for (int i = 0; i < threads; i++)
             th.emplace_back([&, i] {
                 threadIdx.x = i; blockIdx.x = b; blockDim.x = threads;
-                emu_lw = LW;
-                emu_l = lanes[i / LW].get();
+                emu_w = &warps[i / 32];
                 emu_sm = sm.data();
                 kern(args...);
             });

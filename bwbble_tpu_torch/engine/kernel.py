@@ -9,7 +9,7 @@ seeds (`-P`), the same two entries take the place of `run_loop` driving
 the int64 whole-genome index layout `fixed_search` takes that layout's
 instantiations (the JAX package runs that layout in fixed batches only, and
 so does the port).  The kernel source is csrc/ring_search.cu (one template,
-six instantiations a lane width); the plain PyTorch versions are
+six instantiations); the plain PyTorch versions are
 engine/inexact.py:ring_search_plain and fixed_search_plain.
 
 Build: at first use, `nvcc` compiles the source for sm_90a into a shared
@@ -18,12 +18,10 @@ named by a content hash of the source so a stale build is never loaded; the
 library is bound with ctypes.  A build or load failure raises.  Nothing here
 runs when the module is imported.
 
-Lanes: a block is one warp, which runs one lane of 32 threads or 32 / w
-lanes of w threads (the narrow width `NARROW`); `lane_width` is the rule
-that picks a launch's width, `width=` of the entries overrides it.  Shared
-memory: a lane holds its read's small state there (`lane_smem_bytes`);
-`block_smem_bytes` raises ValueError, before any launch, for a
-configuration past the card's 227 KB a block.  Timing: given a `timer`, the C launch itself records two CUDA
+Shared memory: a block is one lane (one warp), which holds its read's
+small state there (`lane_smem_bytes`); `block_smem_bytes` raises
+ValueError, before any launch, for a configuration past the card's 227 KB
+a block.  Timing: given a `timer`, the C launch itself records two CUDA
 events on the current stream right before and after the kernel launch, with
 no Python between them, so what they time is the kernel's own run.
 """
@@ -57,16 +55,8 @@ LAUNCHES = {"ring_search": 0, "fixed_search": 0, "ring_search_seeded": 0,
             "fixed_search_seeded": 0, "fixed_search_i64": 0,
             "fixed_search_seeded_i64": 0}
 
-# launches by (entry, lane width), beside LAUNCHES
-WIDTH_LAUNCHES: dict = {}
-
 # dynamic shared memory a block may have on an H100 (227 KB)
 SMEM_MAX = 232448
-
-# threads a lane: a block is one warp of 32 threads, which runs one lane of
-# 32 threads (the one-warp shape) or 32 / w lanes of w threads (narrow)
-WIDTHS = (32, 16, 8)
-NARROW = 8
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -104,13 +94,13 @@ def build(name: str = "ring_search") -> str:
 
 def _bind_ring_search(lib: ctypes.CDLL) -> None:
     vp = ctypes.c_void_p
-    lib.ring_search_launch.argtypes = [vp] + [ctypes.c_int] * 5 + [vp] * 17
+    lib.ring_search_launch.argtypes = [vp] + [ctypes.c_int] * 4 + [vp] * 17
     lib.ring_search_launch.restype = ctypes.c_int
     lib.ring_search_lane_smem.argtypes = [ctypes.c_int] * 5
     lib.ring_search_lane_smem.restype = ctypes.c_longlong
     lib.ring_search_row_words.argtypes = [ctypes.c_int] * 2
     lib.ring_search_row_words.restype = ctypes.c_int
-    lib.ring_search_occupancy.argtypes = [ctypes.c_int] * 4 + [
+    lib.ring_search_occupancy.argtypes = [ctypes.c_int] * 3 + [
         ctypes.c_longlong]
     lib.ring_search_occupancy.restype = ctypes.c_int
     lib.ring_search_num_params.argtypes = []
@@ -178,77 +168,47 @@ def param_block(params: AlnParams, S, Q: int, Lmax: int, length: int,
 
 def lane_smem_bytes(S: RingStatics) -> int:
     """Shared-memory bytes of one lane (csrc/ring_search.cu LaneSmem):
-    C [17], D's and D_seed's bounds [Lmax + 1], [DS] and the two
-    exact-completion lists [2, XC, 2] in the index's type, the NB bucket
-    heads (int32), the read's codes [Lmax] and D's and D_seed's width
-    flags [Lmax + 1], [DS] (int8), each rounded up to 16 bytes."""
+    C [17], D [(Lmax + 1) * 2], D_seed [DS * 2] and the two exact-completion
+    lists [2, XC, 2] in the index's type, the NB bucket heads (int32) and
+    the read's codes (int8), each rounded up to 16 bytes."""
     it = 8 if S.x64 else 4
 
     def up(n: int) -> int:
         return (n + 15) // 16 * 16
-    return (up(17 * it) + up((S.Lmax + 1) * it) + up(S.DS * it)
-            + up(4 * S.XC * it) + up(S.NB * 4) + up(S.Lmax)
-            + up(S.Lmax + 1) + up(S.DS))
+    return (up(17 * it) + up((S.Lmax + 1) * 2 * it) + up(S.DS * 2 * it)
+            + up(4 * S.XC * it) + up(S.NB * 4) + up(S.Lmax))
 
 
-def block_smem_bytes(S: RingStatics, lw: int = 32) -> int:
-    """Shared bytes a block of a launch with lanes of `lw` threads asks for
-    (32 / lw lanes a block); raises ValueError when they exceed what a block
-    may have."""
-    if lw not in WIDTHS:
-        raise ValueError(f"search kernel: no lanes of {lw} threads")
-    lanes = 32 // lw
-    block = lanes * lane_smem_bytes(S)
-    if block > SMEM_MAX:
+def block_smem_bytes(S: RingStatics) -> int:
+    """Shared bytes a block (one lane) of a launch asks for; raises
+    ValueError when they exceed what a block may have."""
+    lane = lane_smem_bytes(S)
+    if lane > SMEM_MAX:
         raise ValueError(
-            f"search kernel: {lanes} lane(s) of {lw} threads need {block} "
-            f"bytes of shared memory (NB={S.NB}, Lmax={S.Lmax}, DS={S.DS}, "
-            f"XC={S.XC}, {'int64' if S.x64 else 'int32'}); a block has "
-            f"{SMEM_MAX}")
-    return block
+            f"search kernel: a lane needs {lane} bytes of shared memory "
+            f"(NB={S.NB}, Lmax={S.Lmax}, DS={S.DS}, XC={S.XC}, "
+            f"{'int64' if S.x64 else 'int32'}); a block has {SMEM_MAX}")
+    return lane
 
 
-def resident_lanes(S: RingStatics, fixed: bool, lw: int = 32) -> int:
-    """Lanes of a launch of this configuration with lanes of `lw` threads
-    that one SM holds at once: the blocks an SM takes
-    (cudaOccupancyMaxActiveBlocksPerMultiprocessor, at the launch's shared
-    memory a block) times the lanes a block."""
-    block_smem_bytes(S, lw)
+def resident_lanes(S: RingStatics, fixed: bool) -> int:
+    """Lanes of a launch of this configuration that one SM holds at once:
+    the blocks an SM takes (cudaOccupancyMaxActiveBlocksPerMultiprocessor,
+    at the launch's shared memory a block) times the lanes a block."""
     n = _load().ring_search_occupancy(int(S.multiref), int(fixed),
-                                      int(S.x64), lw, lane_smem_bytes(S))
+                                      int(S.x64), block_smem_bytes(S))
     if n < 0:
         raise RuntimeError(f"occupancy query failed with CUDA error {-n}")
-    return n * (32 // lw)
-
-
-def lane_width(lanes: int, one_warp_lanes: int) -> int:
-    """The shape rule: the threads a lane of a launch of `lanes` lanes gets,
-    given how many one-warp lanes the card holds at once."""
-    return 32 if lanes <= one_warp_lanes else 8
-
-
-_card_lanes: dict = {}
-
-
-def launch_width(S: RingStatics, lanes: int, dev) -> int:
-    """The lane width the shape rule gives a launch of `lanes` lanes of
-    this configuration on card `dev` (the one-warp lanes the card holds at
-    once, its SMs times resident_lanes, asked once a configuration)."""
-    key = (dev.index, S.multiref, S.fixed, S.x64, lane_smem_bytes(S))
-    if key not in _card_lanes:
-        _card_lanes[key] = resident_lanes(S, S.fixed) * \
-            torch.cuda.get_device_properties(dev).multi_processor_count
-    return lane_width(lanes, _card_lanes[key])
+    return n
 
 
 def _launch(entry: str, didx: DeviceIndex, rc_all: torch.Tensor,
             lengths_all: torch.Tensor, D_all: torch.Tensor,
             Ds_all: torch.Tensor, params: AlnParams, cfg: EngineConfig,
-            lanes: int | None, seeds, timer=None, width=None):
+            lanes: int | None, seeds, timer=None):
     """Check the arguments, allocate outputs and scratch, launch one
     instantiation of the kernel (`lanes` None: fixed mode, one lane per
-    read; `seeds` None or (seed_L, seed_U, seed_cnt); `width` None: the
-    lane width the shape rule picks, else that width) and count the launch.
+    read; `seeds` None or (seed_L, seed_U, seed_cnt)) and count the launch.
     Given a `timer`, sets `timer.events` to two CUDA events that
     `ring_search_launch` records on the current stream right before and after
     the kernel launch.  Returns (q_alns,
@@ -263,7 +223,7 @@ def _launch(entry: str, didx: DeviceIndex, rc_all: torch.Tensor,
     S = ring_statics(params, cfg, Lmax, Ds_all.shape[1], fixed=fixed,
                      seed_slots=nseed, x64=x64)
     lanes = Q if fixed else max(1, min(int(lanes), Q))
-    block_smem_bytes(S, 32 if width is None else width)
+    smem = block_smem_bytes(S)
     dev = didx.table.device
     if dev.type != "cuda":
         raise ValueError(f"{entry} launches a CUDA kernel: the index lives "
@@ -299,13 +259,11 @@ def _launch(entry: str, didx: DeviceIndex, rc_all: torch.Tensor,
             or S.ROWW != lib.ring_search_row_words(int(S.multiref),
                                                    int(x64))
             or NMETA != lib.ring_search_num_meta()
-            or lane_smem_bytes(S) != lib.ring_search_lane_smem(
+            or smem != lib.ring_search_lane_smem(
                 S.NB, S.Lmax, S.DS, S.XC, int(x64))):
         raise RuntimeError(f"{entry}: parameter block, frame-row width, "
                            "result columns or shared-memory layout out of "
                            "date")
-    lw = width if width is not None else launch_width(S, lanes, dev)
-    block_smem_bytes(S, lw)
     sp = [x.data_ptr() for x in seeds] if seeds is not None else [None] * 3
 
     with torch.cuda.device(dev):
@@ -318,7 +276,7 @@ def _launch(entry: str, didx: DeviceIndex, rc_all: torch.Tensor,
         evp = [None] * 2 if ev is None else [e.cuda_event for e in ev]
         rc = lib.ring_search_launch(
             hp.ctypes.data, hp.size, int(S.multiref), int(fixed), int(x64),
-            lw, didx.table.data_ptr(), didx.Carr.data_ptr(),
+            didx.table.data_ptr(), didx.Carr.data_ptr(),
             rc_all.data_ptr(), lengths_all.data_ptr(), D_all.data_ptr(),
             Ds_all.data_ptr(), *sp, arena.data_ptr(), counter.data_ptr(),
             q_alns.data_ptr(), q_meta.data_ptr(), q_paths.data_ptr(), stream,
@@ -326,7 +284,6 @@ def _launch(entry: str, didx: DeviceIndex, rc_all: torch.Tensor,
         if ev is not None:
             timer.events = ev
     count_launch(LAUNCHES, entry, rc)
-    WIDTH_LAUNCHES[entry, lw] = WIDTH_LAUNCHES.get((entry, lw), 0) + 1
     # the scratch tensors stay referenced by the caching allocator's stream
     # ordering: later allocations on this stream cannot reuse them before
     # the kernel has finished
@@ -336,28 +293,26 @@ def _launch(entry: str, didx: DeviceIndex, rc_all: torch.Tensor,
 def ring_search(didx: DeviceIndex, rc_all: torch.Tensor,
                 lengths_all: torch.Tensor, D_all: torch.Tensor,
                 Ds_all: torch.Tensor, params: AlnParams, cfg: EngineConfig,
-                lanes: int, seeds=None, timer=None, width=None) -> dict:
+                lanes: int, seeds=None, timer=None) -> dict:
     """Launch the ring-queue search on CUDA tensors: `lanes` lanes (at most
     one per read) stream through the reads; `seeds` None, or (seed_L [Q, S],
     seed_U [Q, S], seed_cnt [Q]) int32 for a seeded search with NROOT = S;
-    `timer` None, or an object whose `events` the launch sets (`_launch`);
-    `width` None (the shape rule, `lane_width`) or the threads a lane.
+    `timer` None, or an object whose `events` the launch sets (`_launch`).
     Returns the per-read result dict (engine/inexact.py:result_dict) of
     device tensors.  Does not synchronise.  Raises for anything the kernel
     does not take — there is no fallback to the plain version."""
     q_alns, q_meta, q_paths, _arena = _launch(
         "ring_search", didx, rc_all, lengths_all, D_all, Ds_all, params,
-        cfg, lanes, seeds, timer, width)
+        cfg, lanes, seeds, timer)
     return result_dict(q_alns, q_meta, q_paths)
 
 
 def fixed_search(didx: DeviceIndex, rc: torch.Tensor, lengths: torch.Tensor,
                  D: torch.Tensor, Ds: torch.Tensor, params: AlnParams,
-                 cfg: EngineConfig, seeds=None, timer=None,
-                 width=None) -> dict:
+                 cfg: EngineConfig, seeds=None, timer=None) -> dict:
     """Launch the fixed-batch search on CUDA tensors: lane b runs read b
     and nothing else, so there is a lane, and an arena column, for exactly
-    the reads given; `seeds`, `timer` and `width` as for `ring_search`.  On the int64 index
+    the reads given; `seeds` and `timer` as for `ring_search`.  On the int64 index
     layout D, Ds and the seed intervals are int64, and so are the reported
     L/U.  Returns the per-read
     result dict in read order plus `arena`, the launch's frame rows
@@ -366,5 +321,5 @@ def fixed_search(didx: DeviceIndex, rc: torch.Tensor, lengths: torch.Tensor,
     there is no fallback to the plain version."""
     q_alns, q_meta, q_paths, arena = _launch(
         "fixed_search", didx, rc, lengths, D, Ds, params, cfg, None, seeds,
-        timer, width)
+        timer)
     return dict(result_dict(q_alns, q_meta, q_paths), arena=arena)

@@ -46,8 +46,9 @@ The plain versions (one lockstep iteration per pop of a comparison's
 longest read, bound by the dispatch of small ops) run on host copies of the
 comparisons' inputs, on the CPU, in spawned worker processes side by side,
 after the last timed section, so no timed section shares the card or the
-host with them.  Search launches are timed by CUDA events that the kernel's
-wrapper records right around each launch (`t_search`); the probe kernels
+host with them.  Search launches are timed by the two CUDA events that the
+kernel's C launch records right around each launch (`t_search`, and every
+comparison: no host work of the wrapper between them); the probe kernels
 K5 and K6 and their library calls by replays of a CUDA graph of many calls.
 The build phase prints what `-Xptxas -v` says of each instantiation
 (registers, stack, spills); main_path.profile is one try of torch.profiler
@@ -176,21 +177,19 @@ def _plain_job(index_file: str, host_in: list, seeds, params, cfg,
 
 def ptxas_report(lines: list[str]) -> list[dict]:
     """Registers, stack and spills of each ring_search_kernel instantiation
-    from nvcc's `-Xptxas -v` report; an instantiation is named <alphabet,
-    mode, index type, lane width>."""
+    from nvcc's `-Xptxas -v` report."""
     import re
     names = {"1": "multiref", "0": "single"}
     out, cur = [], None
     for ln in lines:
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
-            k = re.search(r"ring_search_kernelILb([01])ELb([01])E([ix])"
-                          r"Li(\d+)EE", m.group(1))
+            k = re.search(r"ring_search_kernelILb([01])ELb([01])E([ix])E",
+                          m.group(1))
             cur = None if k is None else {
                 "instantiation": f"<{names[k.group(1)]}, "
                 f"{'fixed' if k.group(2) == '1' else 'ring'}, "
-                f"{'i64' if k.group(3) == 'x' else 'i32'}, "
-                f"lw{k.group(4)}>", "lane_width": int(k.group(4))}
+                f"{'i64' if k.group(3) == 'x' else 'i32'}>"}
             if cur is not None:
                 out.append(cur)
             continue
@@ -266,8 +265,10 @@ def main() -> int:
         capture_output=True, text=True)
     card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 \
         and smi.stdout.strip() else "nvidia-smi unavailable"
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     emit("device", card=card, torch=torch.__version__,
-         cuda=torch.version.cuda, kind=torch.cuda.get_device_name(0))
+         cuda=torch.version.cuda, kind=torch.cuda.get_device_name(0),
+         sms=sms)
 
     # ----------------------------------------------------------------- build
     t = time.time()
@@ -302,9 +303,9 @@ def main() -> int:
          kernel_libs=libs, ptxas=ptxas)
     for r in regs:
         emit("build.ptxas", kernel="ring_search_kernel", **r)
-    if len(regs) != 6 * len(kernel.WIDTHS):
-        fail("build", f"ring_search: not six instantiations a lane width "
-                      f"in the ptxas report: {regs}")
+    if len(regs) != 6:
+        fail("build", f"ring_search: not six instantiations in the ptxas "
+                      f"report: {regs}")
 
     # --------------------------------------------------------------- kernels
     def exact_d(idx, rd, params):
@@ -372,53 +373,34 @@ def main() -> int:
         x64 = didx.idt == torch.int64
         entry = ("fixed_search" if lanes is None else "ring_search") + (
             "" if seeds is None else "_seeded") + ("_i64" if x64 else "")
+        if lanes is None:
+            def run(tm):
+                return kernel.fixed_search(didx, *a, params, cfg, sd, tm)
+        else:
+            def run(tm):
+                return kernel.ring_search(didx, *a, params, cfg, lanes, sd,
+                                          tm)
+        run(None)                                             # warm-up
+        torch.cuda.synchronize()
+        tm = LaunchEvents()
+        got = run(tm)
+        torch.cuda.synchronize()
+        ms = tm.events[0].elapsed_time(tm.events[1])
+        walked = None
         S = ring_statics(params, cfg, a[0].shape[1], a[3].shape[1],
                          fixed=lanes is None,
                          seed_slots=0 if seeds is None else sd[0].shape[1],
                          x64=x64)
-        used = n if lanes is None else min(lanes, n)
-        rule_w = kernel.launch_width(S, used, dev)
-        by_w: dict = {}
-        walked = None
-        for lw in (32, kernel.NARROW):
-            # each shape warmed up, then timed by the events its C launch
-            # records, its arena walked, its results kept for the plain
-            # version
-            if lanes is None:
-                def run(tm, lw=lw):
-                    return kernel.fixed_search(didx, *a, params, cfg, sd,
-                                               tm, lw)
-            else:
-                def run(tm, lw=lw):
-                    return kernel.ring_search(didx, *a, params, cfg, lanes,
-                                              sd, tm, lw)
-            run(None)
-            torch.cuda.synchronize()
-            tm = LaunchEvents()
-            got = run(tm)
-            torch.cuda.synchronize()
-            ms_w = tm.events[0].elapsed_time(tm.events[1])
-            if lanes is None:
-                live = (torch.arange(S.ACAP, device=dev)[None, :]
-                        < got["n_alns"][:, None])
-                ln_i, sl_i = live.nonzero(as_tuple=True)
-                w = walk_paths(got["arena"], ln_i,
-                               got["o_node"][ln_i, sl_i], nroot=S.NROOT,
-                               nslot=S.NSLOT, nc=S.NC, pathcap=S.PATHCAP,
-                               nw=S.NW).cpu().numpy()
-                inker = unpack_paths(got["paths"].cpu().numpy(), S.PATHCAP)
-                walked = bool((walked is not False) and (
-                    w == inker[ln_i.cpu().numpy(),
-                               sl_i.cpu().numpy()]).all())
-            by_w[lw] = dict(ms=ms_w, got={k: v.cpu().numpy() for k, v in
-                                          got.items() if k != "arena"},
-                            resident_lanes_per_sm=kernel.resident_lanes(
-                                S, S.fixed, lw),
-                            smem_block_bytes=kernel.block_smem_bytes(S, lw))
-            del got
-        ms = by_w[rule_w]["ms"]
-        got = {k: torch.from_numpy(v)
-               for k, v in by_w[rule_w]["got"].items()}
+        if lanes is None:
+            live = (torch.arange(S.ACAP, device=dev)[None, :]
+                    < got["n_alns"][:, None])
+            ln_i, sl_i = live.nonzero(as_tuple=True)
+            w = walk_paths(got["arena"], ln_i, got["o_node"][ln_i, sl_i],
+                           nroot=S.NROOT, nslot=S.NSLOT, nc=S.NC,
+                           pathcap=S.PATHCAP, nw=S.NW).cpu().numpy()
+            inker = unpack_paths(got["paths"].cpu().numpy(), S.PATHCAP)
+            walked = bool((w == inker[ln_i.cpu().numpy(),
+                                      sl_i.cpu().numpy()]).all())
         tot = {k: int(got[k].sum(dtype=torch.int64)) for k in
                ("n_work", "pops", "rank_rows", "frame_rd", "frame_wr",
                 "root_rd", "n_alns", "overflow")}
@@ -445,6 +427,11 @@ def main() -> int:
         rec = dict(ms=ms, io_bytes=io_bytes, reads=n, x64=x64,
                    lane_work_max=lane_work_max, **tot)
         b_ms, b_by = bound_ms(rec)
+        smem = kernel.block_smem_bytes(S)
+        # the lanes an SM holds at once, and the waves of them the launch
+        # needs on this card
+        per_sm = kernel.resident_lanes(S, lanes is None)
+        used = n if lanes is None else min(lanes, n)
         line = dict(
             world=name, entry=entry,
             alphabet=16 if params.is_multiref else 4, reads=n,
@@ -452,20 +439,17 @@ def main() -> int:
             refills=0 if lanes is None else max(0, n - lanes),
             cap=cfg.cap, acap=cfg.acap, xc=cfg.xcap or cfg.kx,
             finished_share=1.0 - tot["overflow"] / n, kernel_ms=ms,
-            lane_width=rule_w, shapes={lw: dict(
-                ms=v["ms"], resident_lanes_per_sm=v["resident_lanes_per_sm"],
-                smem_block_bytes=v["smem_block_bytes"])
-                for lw, v in by_w.items()},
             bound_ms=b_ms, bound_by=b_by, lane_work_max=lane_work_max,
+            smem_block_bytes=smem, resident_lanes_per_sm=per_sm,
+            waves=-(-used // (per_sm * sms)),
             walk_paths_equal=walked, **roots)
         rec.update(line=line, totals=tot, walked=walked,
-                   shapes=[(entry, lw, S.NB, S.Lmax, S.DS, S.XC,
-                            v["smem_block_bytes"])
-                           for lw, v in by_w.items()],
+                   shape=(entry, S.NB, S.Lmax, S.DS, S.XC, smem),
                    plain_job=(index_file(didx), host_in, sd_host, params,
                               cfg, lanes is None),
-                   by_w=by_w, got=by_w[rule_w]["got"],
-                   over=by_w[rule_w]["got"]["overflow"])
+                   got={k: v.cpu().numpy() for k, v in got.items()
+                        if k != "arena"},
+                   over=got["overflow"].cpu().numpy())
         cmps.append(rec)
         if walked is False:
             fail("kernels", f"walk_paths over the arena != the in-kernel "
@@ -520,17 +504,13 @@ def main() -> int:
                        for k in parts[0][1][1]}
                 n_pieces = len(parts)
                 del parts
-                # every shape's results against the one plain version
                 bad, err = [], 0
-                for lw, v_w in c["by_w"].items():
-                    for k, v in ref.items():
-                        d = np.abs(v.astype(np.int64)
-                                   - v_w["got"][k].astype(np.int64))
-                        if d.size and int(d.max()) != 0:
-                            bad.append(f"{k} (lane width {lw})")
-                            err = max(err, int(d.max()))
-                    v_w["equal"] = not any(b.endswith(f"width {lw})")
-                                           for b in bad)
+                for k, v in ref.items():
+                    d = np.abs(v.astype(np.int64)
+                               - c["got"][k].astype(np.int64))
+                    if d.size and int(d.max()) != 0:
+                        bad.append(k)
+                        err = max(err, int(d.max()))
                 del ref
                 lat = latency_ms(c["lane_work_max"])
                 c.update(plain_ms=plain_ms, err=err, equal=not bad)
@@ -539,10 +519,6 @@ def main() -> int:
                                  latency_bound_ms=lat,
                                  time_over_latency_bound=c["ms"] / lat
                                  if lat else None)
-                for lw, sh in c["line"]["shapes"].items():
-                    sh.update(equal_to_plain=c["by_w"][lw]["equal"],
-                              time_over_latency_bound=sh["ms"] / lat
-                              if lat else None)
                 emit("kernels.compare", mismatched=bad, **c["line"],
                      **c["totals"])
                 if bad:
@@ -711,7 +687,6 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernel.LAUNCHES["ring_search"] = 0
-    kernel.WIDTH_LAUNCHES.clear()
     mark = host_mark()
     t = time.time()
     alns = align_reads_device(idx, didx, reads, params, cfg, d_cap=64,
@@ -721,8 +696,6 @@ def main() -> int:
     dt = time.time() - t
     host = host_since(mark)
     main_launches = kernel.LAUNCHES["ring_search"]
-    stats["width_launches"] = {f"{e} lw{lw}": n for (e, lw), n in
-                               sorted(kernel.WIDTH_LAUNCHES.items())}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     dev_aln = os.path.join(wdir, "device.aln")
     write_aln_file(dev_aln, alns)
@@ -745,7 +718,6 @@ def main() -> int:
         fallback_reads=stats.get("fallback_reads"),
         retried_reads=stats.get("retried_reads"),
         prerouted=stats.get("prerouted"), launches=main_launches, **host,
-        width_launches=stats["width_launches"],
         n_work=stats.get("work_units"), pops=stats.get("pops"),
         rank_rows=stats.get("rank_rows"),
         frame_rd_rows=stats.get("frame_rd_rows"),
@@ -817,18 +789,11 @@ def main() -> int:
             rank_rows=stats.get("rank_rows"),
             frame_rd_rows=stats.get("frame_rd_rows"),
             frame_wr_rows=stats.get("frame_wr_rows"),
-            chain_work=stats.get("chain_work"),
-            width_launches=stats.get("width_launches"), card=card, **extra)
+            chain_work=stats.get("chain_work"), card=card, **extra)
 
     def zero_launches():
         for k in kernel.LAUNCHES:
             kernel.LAUNCHES[k] = 0
-        kernel.WIDTH_LAUNCHES.clear()
-
-    def width_launches() -> dict:
-        """Search launches by entry and lane width since zero_launches."""
-        return {f"{e} lw{lw}": n for (e, lw), n in
-                sorted(kernel.WIDTH_LAUNCHES.items())}
 
     def timed_align(idx_, didx_, reads_, params_, cfg_, **kw):
         """One in-process align_reads_device call: (alns, seconds, stats,
@@ -843,7 +808,7 @@ def main() -> int:
                                  stats=st, device=dev, **kw)
         torch.cuda.synchronize()
         dt = time.time() - t0
-        st.update(host_since(mark), width_launches=width_launches())
+        st.update(host_since(mark))
         return (out, dt, st, dict(kernel.LAUNCHES),
                 torch.cuda.max_memory_allocated() / 1e9)
 
@@ -1472,36 +1437,16 @@ def main() -> int:
 
     # the comparisons run every path's settings: their shapes are the
     # shapes the paths launch (a block is one lane)
-    shapes = sorted({sh for x in cmps for sh in x["shapes"]})
+    shapes = sorted({x["shape"] for x in cmps})
     emit("kernels.smem", launch_shapes=[
-        dict(entry=e, lane_width=lw, NB=nb, Lmax=lm, DS=ds, XC=xc,
-             smem_block_bytes=b)
-        for e, lw, nb, lm, ds, xc, b in shapes],
+        dict(entry=e, NB=nb, Lmax=lm, DS=ds, XC=xc, smem_block_bytes=b)
+        for e, nb, lm, ds, xc, b in shapes],
         max_block_bytes=max(x[-1] for x in shapes),
         limit_block_bytes=kernel.SMEM_MAX)
 
-    def regs_of(*names, lw=32):
-        """Registers of the instantiations `names` (<alphabet, mode, index
-        type>) at lane width `lw`."""
+    def regs_of(*names):
         return {r["instantiation"]: r.get("registers") for r in regs
-                if r["lane_width"] == lw
-                and r["instantiation"].rsplit(",", 1)[0] + ">" in names}
-
-    def shapes_of(names, *stats_):
-        """Each lane width's registers, spill bytes and launches (in the
-        paths of `stats_`) for the instantiations `names`."""
-        out = []
-        for lw in (32, kernel.NARROW):
-            rs = [r for r in regs if r["lane_width"] == lw
-                  and r["instantiation"].rsplit(",", 1)[0] + ">" in names]
-            out.append(dict(
-                lane_width=lw, registers=regs_of(*names, lw=lw),
-                spill_bytes=sum(r.get("spill_stores", 0)
-                                + r.get("spill_loads", 0) for r in rs),
-                path_launches=sum(n for st in stats_ for k, n in
-                                  st["width_launches"].items()
-                                  if k.endswith(f" lw{lw}"))))
-        return out
+                if r["instantiation"] in names}
 
     def over_latency(ms, chain_work):
         lat = latency_ms(chain_work)
@@ -1562,10 +1507,6 @@ def main() -> int:
         "main_path_time_over_latency_bound": over_latency(
             stats.get("t_search", 0.0) * 1e3, stats["chain_work"]),
         "registers": regs_of("<multiref, ring, i32>", "<single, ring, i32>"),
-        # the lane widths: registers, spills, launches on the main path and
-        # the single path's queued run
-        "shapes": shapes_of(("<multiref, ring, i32>",
-                             "<single, ring, i32>"), stats, q_stats),
         # the 4-letter instantiation over the queued run of the single path
         "single_path_launches": q_launches["ring_search"],
         "single_path_ms": q_stats.get("t_search", 0.0) * 1e3,
@@ -1594,10 +1535,6 @@ def main() -> int:
         "easy_path_time_over_latency_bound": over_latency(
             e_stats.get("t_search", 0.0) * 1e3, e_stats["chain_work"]),
         "registers": regs_of("<multiref, fixed, i32>", "<single, fixed, i32>"),
-        # the lane widths: launches on the fixed, easy and single paths
-        "shapes": shapes_of(("<multiref, fixed, i32>",
-                             "<single, fixed, i32>"), f_stats, e_stats,
-                            s_stats),
         "easy_path_launches": e_launches["fixed_search"],
         "easy_path_ms": e_stats.get("t_search", 0.0) * 1e3,
         "easy_path_bound_ms": path_bound(e_stats),
@@ -1627,8 +1564,6 @@ def main() -> int:
                 i_stats.get("t_search", 0.0) * 1e3, i_stats["chain_work"]),
             "registers": regs_of("<multiref, fixed, i64>",
                                  "<single, fixed, i64>"),
-            "shapes": shapes_of(("<multiref, fixed, i64>",
-                                 "<single, fixed, i64>"), i_stats),
             "comparisons": i64_lines},
     }, {
         # K3's work: seeded roots in both entries of the same template
@@ -1644,11 +1579,17 @@ def main() -> int:
         "max_abs_err": max(x["err"] for x in cmps
                            if x["line"]["entry"].endswith("_seeded")),
         "equal_to_plain": all(x["equal_to_plain"] for x in seeded_lines),
-        # comparison (c), pre_path's fixed batch of 8 192 lanes
+        # comparison (c), pre_path's fixed batch of 8 192 lanes: its time,
+        # bounds, the lanes an SM holds and the waves of them it needs
         "reads": c3["reads"],
         "ms": c3["ms"], "plain_ms": c3["plain_ms"], "bound_ms": sb_ms,
         "bound_by": sb_by, "library_ms": None,
         "latency_bound_ms": c3["line"]["latency_bound_ms"],
+        "time_over_latency_bound": c3["line"]["time_over_latency_bound"],
+        "resident_lanes_per_sm": c3["line"]["resident_lanes_per_sm"],
+        "waves": c3["line"]["waves"],
+        "registers": regs_of("<multiref, fixed, i32>",
+                             "<multiref, ring, i32>"),
         "pre_path_ms": pr_stats.get("t_search", 0.0) * 1e3,
         "pre_path_bound_ms": path_bound(pr_stats),
         "pre_path_latency_bound_ms": latency_ms(pr_stats["chain_work"]),
@@ -1657,19 +1598,6 @@ def main() -> int:
         "pre_path_queued_bound_ms": path_bound(pq_stats),
         "pre_path_queued_latency_bound_ms": latency_ms(
             pq_stats["chain_work"]),
-        # comparison (c) in each shape, from this call: time, latency
-        # bound, their ratio, lanes an SM; registers and launches on the
-        # -P paths (fixed and queued)
-        "shapes": [dict(
-            sh, ms=c3["line"]["shapes"][sh["lane_width"]]["ms"],
-            latency_bound_ms=c3["line"]["latency_bound_ms"],
-            time_over_latency_bound=c3["line"]["shapes"][
-                sh["lane_width"]]["time_over_latency_bound"],
-            resident_lanes_per_sm=c3["line"]["shapes"][
-                sh["lane_width"]]["resident_lanes_per_sm"])
-            for sh in shapes_of(("<multiref, fixed, i32>",
-                                 "<multiref, ring, i32>"), pr_stats,
-                                pq_stats)],
         "comparisons": seeded_lines,
     },
         probe_entry("dma_wave", "benchmarks/dma_probe.py:99",

@@ -47,7 +47,7 @@ def emu_lib(tmp_path_factory):
         "unsigned char* smem_raw = emu_sm;")
     src, n = re.subn(r"kern<<<([^,]+), ([^,]+), ([^,]+), "
                      r"\(cudaStream_t\)stream>>>\(",
-                     r"emu_launch<LW>(kern, \1, \2, \3, ", src)
+                     r"emu_launch(kern, \1, \2, \3, ", src)
     assert n == 1 and "emu_sm" in src
     cpp, so = str(d / "ring_emu.cpp"), str(d / "libring_emu.so")
     with open(cpp, "w") as f:
@@ -61,9 +61,10 @@ def emu_lib(tmp_path_factory):
     return lib
 
 
-def _emulated(lib, didx, rc, ln, D, Ds, params, cfg, lanes, seeds, lw=32):
-    """kernel._launch's work on CPU tensors, through the emulated build, in
-    lanes of `lw` threads (null event handles)."""
+def _emulated(lib, didx, rc, ln, D, Ds, params, cfg, lanes, seeds,
+              events=(None, None)):
+    """kernel._launch's work on CPU tensors, through the emulated build
+    (`events`: the two event handles the launch records, or nulls)."""
     fixed = lanes is None
     x64 = didx.idt == torch.int64
     Q, Lmax = rc.shape
@@ -71,19 +72,19 @@ def _emulated(lib, didx, rc, ln, D, Ds, params, cfg, lanes, seeds, lw=32):
                      seed_slots=0 if seeds is None else seeds[0].shape[1],
                      x64=x64)
     lanes = Q if fixed else max(1, min(int(lanes), Q))
-    assert kernel.block_smem_bytes(S, lw) == (32 // lw) * \
-        lib.ring_search_lane_smem(S.NB, S.Lmax, S.DS, S.XC, int(x64))
+    assert kernel.block_smem_bytes(S) == lib.ring_search_lane_smem(
+        S.NB, S.Lmax, S.DS, S.XC, int(x64))
     hp = kernel.param_block(params, S, Q, Lmax, int(didx.length), lanes)
     q_alns, q_meta, q_paths = alloc_outputs(Q, S, "cpu")
     arena = torch.full((lanes, S.NFRAME, S.ROWW), -7, dtype=torch.int32)
     counter = torch.zeros((1,), dtype=torch.int32)
     sp = [x.data_ptr() for x in seeds] if seeds is not None else [None] * 3
     rc_ = lib.ring_search_launch(
-        hp.ctypes.data, hp.size, int(S.multiref), int(fixed), int(x64), lw,
+        hp.ctypes.data, hp.size, int(S.multiref), int(fixed), int(x64),
         didx.table.data_ptr(), didx.Carr.data_ptr(), rc.data_ptr(),
         ln.data_ptr(), D.data_ptr(), Ds.data_ptr(), *sp, arena.data_ptr(),
         counter.data_ptr(), q_alns.data_ptr(), q_meta.data_ptr(),
-        q_paths.data_ptr(), None, None, None)
+        q_paths.data_ptr(), None, *events)
     assert rc_ == 0
     return dict(result_dict(q_alns, q_meta, q_paths), arena=arena), S
 
@@ -107,31 +108,23 @@ CFG = EngineConfig(cap=4096, acap=24, kx=2, max_iters=20_000, xcap=128)
 # small capacities: list, ACAP, work and frame overflows
 TIGHT = EngineConfig(cap=400, acap=3, kx=2, max_iters=300, xcap=2)
 
-NW = kernel.NARROW
-# (name, world, params, cfg, lanes or None, seeded, int64, lane width); the
-# narrow ring cases run 3 lanes, so that a warp holds a lane that takes no
-# read
+# (name, world, params, cfg, lanes or None, seeded, int64)
 CASES = [
-    ("ring", "mixed", P3, CFG, 4, False, False, 32),
-    ("fixed", "mixed", P3, CFG, None, False, False, 32),
-    ("seeded ring", "mixed", P3S, CFG, 4, True, False, 32),
-    ("seeded fixed int64", "mixed", P3S, CFG, None, True, True, 32),
-    ("tight fixed", "mixed", P3, TIGHT, None, False, False, 32),
+    ("ring", "mixed", P3, CFG, 4, False, False),
+    ("fixed", "mixed", P3, CFG, None, False, False),
+    ("seeded ring", "mixed", P3S, CFG, 4, True, False),
+    ("seeded fixed int64", "mixed", P3S, CFG, None, True, True),
+    ("tight fixed", "mixed", P3, TIGHT, None, False, False),
     ("single ring", "single", PS, EngineConfig(cap=4096, kx=4), 4, False,
-     False, 32),
+     False),
     ("single fixed int64", "single", PS, EngineConfig(cap=4096, kx=4), None,
-     False, True, 32),
-    ("narrow seeded fixed", "mixed", P3S, CFG, None, True, False, NW),
-    ("narrow seeded ring", "mixed", P3S, CFG, 3, True, False, NW),
-    ("narrow fixed", "mixed", P3, CFG, None, False, False, NW),
-    ("narrow single ring", "single", PS, EngineConfig(cap=4096, kx=4), 3,
-     False, False, NW),
+     False, True),
 ]
 
 
 @pytest.mark.parametrize("case", CASES, ids=lambda c: c[0])
 def test_emulated_kernel_equals_plain_version(emu_lib, case):
-    _name, world, p, cfg, lanes, seeded, x64, lw = case
+    _name, world, p, cfg, lanes, seeded, x64 = case
     make = worlds.mixed_world if world == "mixed" else \
         worlds.single_genome_world
     idx, rd = make(n_reads=8)
@@ -150,7 +143,7 @@ def test_emulated_kernel_equals_plain_version(emu_lib, case):
         sd = (torch.from_numpy(sL.astype(np.int64)).to(it),
               torch.from_numpy(sU.astype(np.int64)).to(it),
               torch.from_numpy(scnt.astype(np.int32)))
-    got, S = _emulated(emu_lib, didx, *a, p, cfg, lanes, sd, lw)
+    got, S = _emulated(emu_lib, didx, *a, p, cfg, lanes, sd)
     if lanes is None:
         ref = fixed_search_plain(didx, *a, p, cfg, sd)
     else:
@@ -169,47 +162,23 @@ def test_emulated_kernel_equals_plain_version(emu_lib, case):
         assert (w == inker[li.numpy(), si.numpy()]).all()
 
 
-_MASK_PROBE = r'''
-#include "warp_emu.h"
-static int out[32];
-// lane g of a warp is threads 8g..8g+7: each takes thread 0 of its lane
-void kern(int mode) {
-    const int t = threadIdx.x, g = t / 8;
-    const unsigned M = 0xFFu << (8 * g);
-    if (mode == 0) out[t] = __shfl_sync(M, t, 0, 8);
-    if (mode == 1) out[t] = __shfl_sync(0xFFFFFFFFu, t, 0, 8);
-    if (mode == 2) out[t] = __shfl_sync(M, t, 0);
-}
-extern "C" int run(int mode, int* got) {
-    emu_launch<8>(kern, 1, 32, 0, mode);
-    for (int t = 0; t < 32; t++) got[t] = out[t];
-    return cudaGetLastError();
-}
-'''
-
-
-@pytest.mark.parametrize("mode", [0, 1, 2], ids=[
-    "the lane's mask", "the whole warp's mask", "the warp's width"])
-def test_emulator_faults_an_intrinsic_outside_the_callers_lane(
-        tmp_path, mode):
-    """With lanes of 8 threads, an intrinsic must name the caller's lane
-    (its mask, and a shuffle its width): a whole-warp mask or width is a
-    fault the emulated launch reports, as a mask bug of the kernel would
-    be; the lane's own runs clean, each lane apart."""
-    if shutil.which("g++") is None:
-        pytest.skip("g++ is not installed")
-    cpp, so = str(tmp_path / "probe.cpp"), str(tmp_path / "libprobe.so")
-    with open(cpp, "w") as f:
-        f.write(_MASK_PROBE)
-    r = subprocess.run(["g++", "-std=c++20", "-O1", "-fPIC", "-shared",
-                        "-pthread", "-I", kernel.CSRC, "-o", so, cpp],
-                       capture_output=True, text=True)
-    assert r.returncode == 0, r.stderr[-3000:]
-    lib = ctypes.CDLL(so)
-    got = np.zeros(32, dtype=np.int32)
-    rc = lib.run(mode, got.ctypes.data_as(ctypes.c_void_p))
-    if mode == 0:
-        assert rc == 0
-        assert (got == np.arange(32) // 8 * 8).all()
-    else:
-        assert rc != 0
+@pytest.mark.parametrize("events", [(None, None), (1, 2)],
+                         ids=["null handles", "two handles"])
+def test_launch_records_its_events_right_around_the_kernel(emu_lib, events):
+    """`ring_search_launch` records the first event right before the
+    kernel's launch and the second right after it, in C (nothing of the
+    caller between them), and takes null handles as no record."""
+    idx, rd = worlds.mixed_world(n_reads=4)
+    didx = from_fmindex(idx, device="cpu")
+    D, Ds = _exact_d(idx, rd, P3)
+    a = [torch.from_numpy(np.asarray(rd.rc, dtype=np.int8)),
+         torch.from_numpy(rd.lengths.astype(np.int32)),
+         torch.from_numpy(D), torch.from_numpy(Ds)]
+    emu_lib.emu_trace.restype = ctypes.c_char_p
+    before = emu_lib.emu_trace().decode()
+    got, _S = _emulated(emu_lib, didx, *a, P3, CFG, None, None, events)
+    trace = emu_lib.emu_trace().decode()[len(before):]
+    assert trace == ("k" if events[0] is None else "r1kr2")
+    ref = fixed_search_plain(didx, *a, P3, CFG, None)
+    assert torch.equal(ref["n_alns"].to(torch.int64),
+                       got["n_alns"].to(torch.int64))

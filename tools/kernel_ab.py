@@ -7,17 +7,16 @@ process on one card.
 Builds each source (nvcc, as engine/kernel.py:build does; one process a
 source, started together), prints what `-Xptxas -v` says of each
 instantiation (registers, stack, spills), and times each version, loaded as
-the search library, at each lane width of --widths (32: one warp a lane),
-on the main-path world's inputs (`worlds.chr21_world` as chip_smoke.py
+the search library, on the main-path world's inputs (`worlds.chr21_world` as chip_smoke.py
 builds it, D bounds from the native scan): the ring search of 768 reads at
 512 lanes (comparison A), of 8 192 reads at 512 lanes (the main path's
 first launch), fixed batches of 2 048 (the fixed path's tier 1) and 8 192
 reads; and on the easy world's (`easy_world_inputs`): fixed batches of
 8 192 reads unseeded and seeded (comparison (c)), and 1 024 reads at 512
 lanes unseeded and seeded.  Each launch is timed by the events its C
-launch records; the (source, width) pairs take turns, in alternating
-order, R times (3), and every result must equal the first pair's.  It
-prints the lanes an SM holds for each.  Each source must keep the kernel's
+launch records; the versions take turns, in alternating order, R times
+(3), and every result must equal the first version's.  It prints the
+lanes an SM holds for each.  Each source must keep the kernel's
 C interface.  Fails on a card-less machine.
 """
 
@@ -135,14 +134,11 @@ def same_results(a: dict, b: dict) -> bool:
 def main(argv: list[str]) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("sources", nargs="+")
-    ap.add_argument("--widths", default="32",
-                    help="lane widths to time each source at, e.g. 32,8")
     ap.add_argument("--genome-bp", type=int, default=46_700_000)
     ap.add_argument("--workdir", default=os.path.join(
         os.path.dirname(kernel.BUILD_DIR), ".bench_torch"))
     ap.add_argument("--repeats", type=int, default=3)
     args = ap.parse_args(argv)
-    widths = [int(w) for w in args.widths.split(",")]
     if not torch.cuda.is_available():
         raise RuntimeError("kernel_ab runs on a CUDA device only")
     os.makedirs(kernel.BUILD_DIR, exist_ok=True)
@@ -169,41 +165,42 @@ def main(argv: list[str]) -> dict:
     tier1 = EngineConfig(cap=32768, xcap=128)
     easy = EngineConfig(cap=32768, acap=24, kx=2, max_iters=500_000,
                         xcap=128)
+
     def st(p, cfg, a, seeds, fixed):
         return ring_statics(p, cfg, a[0].shape[1], a[3].shape[1],
                             fixed=fixed, seed_slots=0 if seeds is None
                             else seeds[0].shape[1])
-    # (name, statics, run(timer, width))
+    # (name, statics, run(timer))
     runs = (
         ("main ring 768 reads, 512 lanes (A)",
          st(params, ring, inputs, None, False),
-         lambda tm, w: kernel.ring_search(didx, *head(inputs, 768), params,
-                                          ring, 512, timer=tm, width=w)),
+         lambda tm: kernel.ring_search(didx, *head(inputs, 768), params,
+                                       ring, 512, timer=tm)),
         ("main ring 8192 reads, 512 lanes",
          st(params, ring, inputs, None, False),
-         lambda tm, w: kernel.ring_search(didx, *inputs, params, ring, 512,
-                                          timer=tm, width=w)),
+         lambda tm: kernel.ring_search(didx, *inputs, params, ring, 512,
+                                       timer=tm)),
         ("main fixed 2048 (tier 1)", st(params, tier1, inputs, None, True),
-         lambda tm, w: kernel.fixed_search(didx, *head(inputs, 2048), params,
-                                           tier1, timer=tm, width=w)),
+         lambda tm: kernel.fixed_search(didx, *head(inputs, 2048), params,
+                                        tier1, timer=tm)),
         ("main fixed 8192", st(params, tier1, inputs, None, True),
-         lambda tm, w: kernel.fixed_search(didx, *inputs, params, tier1,
-                                           timer=tm, width=w)),
+         lambda tm: kernel.fixed_search(didx, *inputs, params, tier1,
+                                        timer=tm)),
         ("easy fixed 8192", st(p_easy, easy, e_in, None, True),
-         lambda tm, w: kernel.fixed_search(edidx, *e_in, p_easy, easy,
-                                           timer=tm, width=w)),
+         lambda tm: kernel.fixed_search(edidx, *e_in, p_easy, easy,
+                                        timer=tm)),
         ("easy seeded fixed 8192 (c)", st(p_pre, easy, e_in, sd, True),
-         lambda tm, w: kernel.fixed_search(edidx, *e_in, p_pre, easy, sd,
-                                           timer=tm, width=w)),
-        ("easy ring 1024 reads, 512 lanes", st(p_easy, easy, e_in, None,
-                                               False),
-         lambda tm, w: kernel.ring_search(edidx, *head(e_in, 1024), p_easy,
-                                          easy, 512, timer=tm, width=w)),
+         lambda tm: kernel.fixed_search(edidx, *e_in, p_pre, easy, sd,
+                                        timer=tm)),
+        ("easy ring 1024 reads, 512 lanes",
+         st(p_easy, easy, e_in, None, False),
+         lambda tm: kernel.ring_search(edidx, *head(e_in, 1024), p_easy,
+                                       easy, 512, timer=tm)),
         ("easy seeded ring 1024 reads, 512 lanes",
          st(p_pre, easy, e_in, sd, False),
-         lambda tm, w: kernel.ring_search(
+         lambda tm: kernel.ring_search(
              edidx, *head(e_in, 1024), p_pre, easy, 512,
-             tuple(x[:1024] for x in sd), timer=tm, width=w)),
+             tuple(x[:1024] for x in sd), timer=tm)),
     )
     libs = {}
     for src, (so, proc) in builds.items():
@@ -220,16 +217,14 @@ def main(argv: list[str]) -> dict:
     occ: dict = {}
     try:
         for rep in range(args.repeats):
-            order = [(s, w) for s in args.sources for w in widths]
-            if rep % 2:
-                order = order[::-1]
-            for src, w in order:
+            order = args.sources if rep % 2 == 0 else args.sources[::-1]
+            for src in order:
                 kernel._libs["ring_search"] = libs[src]
                 for name, S, fn in runs:
-                    fn(None, w)
+                    fn(None)
                     torch.cuda.synchronize()
-                    got, t = kernel_ms(lambda tm: fn(tm, w))
-                    key = f"{os.path.basename(src)} lw={w}"
+                    got, t = kernel_ms(fn)
+                    key = os.path.basename(src)
                     ms.setdefault(name, {}).setdefault(key, []).append(t)
                     if name not in ref:
                         ref[name] = got
@@ -238,7 +233,7 @@ def main(argv: list[str]) -> dict:
                                            "the first version's results")
                     if rep == 0:
                         occ.setdefault(name, {})[key] = \
-                            kernel.resident_lanes(S, S.fixed, w)
+                            kernel.resident_lanes(S, S.fixed)
     finally:
         if saved is None:
             kernel._libs.pop("ring_search", None)

@@ -1,6 +1,6 @@
 """Where the search kernel's cycles go, phase by phase, on the card.
 
-    python3 tools/kernel_phases.py [--world main|easy|both] [--width W]
+    python3 tools/kernel_phases.py [--world main|easy|both]
         [--genome-bp N] [--workdir DIR] [--reads N]
 
 Builds a trace copy of csrc/ring_search.cu with clock64() probes at the
@@ -12,9 +12,8 @@ and tier 1's fixed settings.  World `easy`: comparison (c)'s seeded inputs
 (the easy world's first 8 192 reads, seeded from the k = 12 table, 32
 slots; kernel_ab.easy_world_inputs) as one fixed batch of 8 192 lanes and
 one ring launch of 512 lanes over the first 1 024 reads.  For each run it
-prints the launch's time (the events its C launch records), at the lane
-width --width or the wrapper's rule, the cycles that thread 0 of every
-lane spent in each phase, summed
+prints the launch's time (the events its C launch records), the cycles
+that thread 0 of every lane spent in each phase, summed
 over the lanes and divided by their pops, and the same cycles outside the
 pops (stage and walk) divided by the reads; the counts of pops served from
 registers and from the arena; the longest and the mean lane's wall time
@@ -77,16 +76,15 @@ extern "C" int ring_search_phase_reset() {
 #define CNT(k) (ph[k]++)
 """
 
-# (anchor, text, put the text after the anchor: True, before it: False, in
-# its place: None); each anchor must occur once
+# (anchor, text, put the text after the anchor); each anchor must occur once
 _PROBES = (
     ("#define OV_WORK 16\n", _DECL, True),
-    ("    if (lane >= P.lanes) return;\n",
+    ("    const int lane = blockIdx.x;\n",
      "    long long ph[NPH];\n    for (int k = 0; k < NPH; k++) ph[k] = 0;\n"
      "    long long ph_last = clock64();\n"
      "    const long long ph_t0 = ph_ns();\n", True),
     ("                head[b] = b == 0 ? n_open - 1 : -1;\n"
-     "        __syncwarp(M);\n", "        PH(0);\n", True),
+     "        __syncwarp();\n", "        PH(0);\n", True),
     ("            if (node < 0) break;\n", "            PH(1);\n", True),
     ("                if (f == regf) {\n", "                    CNT(11);\n",
      True),
@@ -95,26 +93,23 @@ _PROBES = (
     ("            n_open--;\n            work++;\n", "            PH(2);\n",
      False),
     ("            if (cont) continue;\n", "            PH(3);\n", False),
-    ("                                               });\n"
+    ("                                           });\n"
      "                if (fin) break;\n                continue;\n",
      "                PH(4); CNT(14);\n", False),
     ("                if (over) { S.overflow |= over; break; }\n",
      "                PH(5); CNT(15);\n", False),
-    ("            IT rk[CPT];\n", "            PH(6);\n", False),
-    ("                                         jc + LW * k, k);\n"
-     "            }\n", "            asm volatile(\"\" :: \"l\"((long long)rk[0]));"
-     "\n            PH(7);\n", True),
-    ("                const int b = sc < 0 ? 0 : (sc > NB - 1 ? NB - 1 : sc);"
-     "\n", "                asm volatile(\"\" :: \"r\"(b));\n"
-     "                PH(8);\n", True),
-    ("                __syncwarp(M);\n            }\n"
-     "            if ((int)bmin < minb) minb = (int)bmin;\n",
-     "                __syncwarp(M);\n                PH(9);\n            }\n"
-     "            CNT(13);\n"
-     "            if ((int)bmin < minb) minb = (int)bmin;\n", None),
+    ("            const IT rk = count_row<MULTI>(row, carr, half ? 0 : 1, "
+     "jc);\n", "            PH(6);\n", False),
+    ("            const IT rk = count_row<MULTI>(row, carr, half ? 0 : 1, "
+     "jc);\n", "            asm volatile(\"\" :: \"l\"((long long)rk));\n"
+     "            PH(7);\n", True),
+    ("            const int b = sc < 0 ? 0 : (sc > NB - 1 ? NB - 1 : sc);\n",
+     "            asm volatile(\"\" :: \"r\"(b));\n            PH(8);\n", True),
+    ("                rL = sL; rU = sU; rm1 = sm1; rm2 = sm2;\n            }\n"
+     "            __syncwarp();\n", "            PH(9); CNT(13);\n", True),
     ("        if (FIXED) break;\n", "        PH(10);\n", False),
-    ("        rid = __shfl_sync(M, nrid, 0, LW);\n    }\n}\n",
-     "        rid = __shfl_sync(M, nrid, 0, LW);\n    }\n    if (t == 0) {\n"
+    ("        rid = __shfl_sync(RS_FULL, nrid, 0);\n    }\n}\n",
+     "        rid = __shfl_sync(RS_FULL, nrid, 0);\n    }\n    if (t == 0) {\n"
      "        for (int k = 0; k < 16; k++)\n"
      "            atomicAdd(&rs_ph[k], (unsigned long long)ph[k]);\n"
      "        const unsigned long long span = ph_ns() - ph_t0;\n"
@@ -167,8 +162,6 @@ def main(argv: list[str]) -> list[dict]:
     ap.add_argument("--workdir", default=os.path.join(
         os.path.dirname(kernel.BUILD_DIR), ".bench_torch"))
     ap.add_argument("--reads", type=int, default=768)
-    ap.add_argument("--width", type=int, default=None,
-                    help="threads a lane (default: the wrapper's rule)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("kernel_phases runs on a CUDA device only")
@@ -196,25 +189,22 @@ def main(argv: list[str]) -> list[dict]:
             ("seeded ring, 512 lanes, 1024 reads", edidx, p_pre, cfg_pc,
              [x[:1024] for x in e], tuple(x[:1024] for x in sd), 512)]
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    # the lane width and the lanes an SM holds of the library the port loads (not the trace's)
-    per_sm, lws = {}, {}
+    # the lanes an SM holds of the library the port loads (not the trace's)
+    per_sm = {}
     for name, _di, prm, cfg, a, sd, lanes in runs:
         S = ring_statics(prm, cfg, a[0].shape[1], a[3].shape[1],
                          fixed=lanes is None,
                          seed_slots=0 if sd is None else sd[0].shape[1])
-        n = a[0].shape[0] if lanes is None else min(lanes, a[0].shape[0])
-        lws[name] = args.width or kernel.launch_width(S, n, dev)
-        per_sm[name] = kernel.resident_lanes(S, S.fixed, lws[name])
+        per_sm[name] = kernel.resident_lanes(S, lanes is None)
     saved = kernel._libs.get("ring_search")
     kernel._libs["ring_search"] = lib
     out = []
     try:
         for name, di, prm, cfg, a, sd, lanes in runs:
-            def fn(tm, w=lws[name]):
+            def fn(tm):
                 if lanes is None:
-                    return kernel.fixed_search(di, *a, prm, cfg, sd, tm, w)
-                return kernel.ring_search(di, *a, prm, cfg, lanes, sd, tm,
-                                          w)
+                    return kernel.fixed_search(di, *a, prm, cfg, sd, tm)
+                return kernel.ring_search(di, *a, prm, cfg, lanes, sd, tm)
             fn(None)
             torch.cuda.synchronize()
             lib.ring_search_phase_reset()
@@ -226,8 +216,7 @@ def main(argv: list[str]) -> list[dict]:
             used = n if lanes is None else min(lanes, n)
             cyc = buf[:len(PHASES)].astype(np.float64)
             ph = dict(zip(PHASES, cyc))
-            row = dict(run=name, reads=n, lanes=used, lane_width=lws[name],
-                       ms=ms,
+            row = dict(run=name, reads=n, lanes=used, ms=ms,
                        pops=pops, work=int(got["n_work"].sum()),
                        cycles_per_pop=float(cyc.sum() / pops),
                        phases={p: float(c / pops) for p, c in ph.items()},
