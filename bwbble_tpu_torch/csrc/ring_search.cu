@@ -117,6 +117,7 @@
 #define RS_NMETA 9           // q_meta columns (engine/inexact.py META_*)
 #define RS_SMEM_MAX 232448   // dynamic shared memory a block may have (H100)
 #define RS_FULL 0xFFFFFFFFu
+#define RS_PAR_MAX 2048      // frames a read whose parents shared memory keeps
 
 #define STATE_M 0
 #define STATE_I 1
@@ -155,13 +156,17 @@ struct Layout {
 // A lane's shared memory, byte offsets of each array (16-byte aligned):
 // C [17], D [(Lmax + 1) * 2], D_seed [DS * 2], the two exact-completion
 // lists [2][XC][L, U] (IT each), the bucket heads [NB] (int32), the read's
-// codes [Lmax] (int8).  engine/kernel.py:lane_smem_bytes mirrors it.
+// codes [Lmax] (int8), and, when a read has at most RS_PAR_MAX frames, each
+// frame's parent node [NFRAME] (int32; npar frames, else none).
+// engine/kernel.py:lane_smem_bytes mirrors it.
 struct LaneSmem {
-    size_t carr, D, Ds, xl, head, rc, bytes;
+    size_t carr, D, Ds, xl, head, rc, par, bytes;
+    int npar;
     __host__ __device__ static size_t up16(size_t x) {
         return (x + 15) & ~(size_t)15;
     }
-    __host__ __device__ LaneSmem(int NB, int Lmax, int DS, int XC, int it) {
+    __host__ __device__ LaneSmem(int NB, int Lmax, int DS, int XC, int it,
+                                 int NFRAME) {
         size_t o = 0;
         carr = o; o += up16(17 * (size_t)it);
         D = o;    o += up16((size_t)(Lmax + 1) * 2 * it);
@@ -169,6 +174,8 @@ struct LaneSmem {
         xl = o;   o += up16((size_t)4 * XC * it);
         head = o; o += up16((size_t)NB * 4);
         rc = o;   o += up16((size_t)Lmax);
+        npar = NFRAME <= RS_PAR_MAX ? NFRAME : 0;
+        par = o;  o += up16((size_t)npar * 4);
         bytes = o;
     }
 };
@@ -445,7 +452,7 @@ ring_search_kernel(
     const int lane = blockIdx.x;
 
     extern __shared__ __align__(16) unsigned char smem_raw[];
-    const LaneSmem SL(P.NB, P.Lmax, P.DS, P.XC, (int)sizeof(IT));
+    const LaneSmem SL(P.NB, P.Lmax, P.DS, P.XC, (int)sizeof(IT), P.NFRAME);
     unsigned char* const sm = smem_raw;
     IT* const carr = reinterpret_cast<IT*>(sm + SL.carr);
     IT* const sD = reinterpret_cast<IT*>(sm + SL.D);
@@ -453,6 +460,9 @@ ring_search_kernel(
     IT* const sX = reinterpret_cast<IT*>(sm + SL.xl);     // [2][XC][L,U]
     int* const head = reinterpret_cast<int*>(sm + SL.head);
     int8_t* const sRc = reinterpret_cast<int8_t*>(sm + SL.rc);
+    // the parents of the read's frames, beside the arena's parent words,
+    // for the path walk (null: the walk reads the arena)
+    int* const sPar = SL.npar ? reinterpret_cast<int*>(sm + SL.par) : nullptr;
     if (t < 17) carr[t] = carr_g[t];
 
     int32_t* const A = arena + (size_t)lane * P.NFRAME * ROWW;
@@ -849,7 +859,10 @@ ring_search_kernel(
                             make_int4(sL, sU, (int)sm1, (int)sm2);
                     }
                 }
-                if (t == NSLOT) frow[AL::PARENT] = node;
+                if (t == NSLOT) {
+                    frow[AL::PARENT] = node;
+                    if (sPar) sPar[myf] = node;
+                }
                 frame_wr++;
                 n_open += total;
                 regf = myf;
@@ -880,7 +893,7 @@ ring_search_kernel(
                                            : (sl <= NC ? STATE_D : STATE_M);
                     acc |= (uint32_t)st << (2 * (s & 3));
                     if ((s & 3) == 3) { pp[s >> 2] = (uint8_t)acc; acc = 0; }
-                    cur = A[(size_t)f * ROWW + AL::PARENT];
+                    cur = sPar ? sPar[f] : A[(size_t)f * ROWW + AL::PARENT];
                     frd++;
                     s++;
                 }
@@ -908,8 +921,8 @@ extern "C" int ring_search_num_meta() { return RS_NMETA; }
 
 // Shared-memory bytes of one lane (engine/kernel.py:lane_smem_bytes).
 extern "C" long long ring_search_lane_smem(int NB, int Lmax, int DS, int XC,
-                                           int x64) {
-    return (long long)LaneSmem(NB, Lmax, DS, XC, x64 ? 8 : 4).bytes;
+                                           int x64, int NFRAME) {
+    return (long long)LaneSmem(NB, Lmax, DS, XC, x64 ? 8 : 4, NFRAME).bytes;
 }
 
 template <bool MULTI, bool FIXED, typename IT>
@@ -1002,7 +1015,7 @@ extern "C" int ring_search_launch(
     memcpy(&P, hp, sizeof(P));
     if (P.NB < 1 || P.Lmax < 1 || P.DS < 1 || P.XC < 0) return -1;
     const long long smem = ring_search_lane_smem(P.NB, P.Lmax, P.DS, P.XC,
-                                                 x64);
+                                                 x64, P.NFRAME);
     if (smem > RS_SMEM_MAX) return -1;
     if (fixed && P.lanes != P.Q) return -1;
     const int nseed = (seed_L != nullptr) + (seed_U != nullptr)

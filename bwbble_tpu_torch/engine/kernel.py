@@ -58,6 +58,10 @@ LAUNCHES = {"ring_search": 0, "fixed_search": 0, "ring_search_seeded": 0,
 # dynamic shared memory a block may have on an H100 (227 KB)
 SMEM_MAX = 232448
 
+# frames a read may have for a lane to keep their parents in shared memory
+# (csrc/ring_search.cu RS_PAR_MAX)
+PAR_MAX = 2048
+
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 
@@ -96,7 +100,7 @@ def _bind_ring_search(lib: ctypes.CDLL) -> None:
     vp = ctypes.c_void_p
     lib.ring_search_launch.argtypes = [vp] + [ctypes.c_int] * 4 + [vp] * 17
     lib.ring_search_launch.restype = ctypes.c_int
-    lib.ring_search_lane_smem.argtypes = [ctypes.c_int] * 5
+    lib.ring_search_lane_smem.argtypes = [ctypes.c_int] * 6
     lib.ring_search_lane_smem.restype = ctypes.c_longlong
     lib.ring_search_row_words.argtypes = [ctypes.c_int] * 2
     lib.ring_search_row_words.restype = ctypes.c_int
@@ -169,14 +173,16 @@ def param_block(params: AlnParams, S, Q: int, Lmax: int, length: int,
 def lane_smem_bytes(S: RingStatics) -> int:
     """Shared-memory bytes of one lane (csrc/ring_search.cu LaneSmem):
     C [17], D [(Lmax + 1) * 2], D_seed [DS * 2] and the two exact-completion
-    lists [2, XC, 2] in the index's type, the NB bucket heads (int32) and
-    the read's codes (int8), each rounded up to 16 bytes."""
+    lists [2, XC, 2] in the index's type, the NB bucket heads (int32), the
+    read's codes (int8) and, when a read has at most PAR_MAX frames, their
+    parent nodes [NFRAME] (int32), each rounded up to 16 bytes."""
     it = 8 if S.x64 else 4
 
     def up(n: int) -> int:
         return (n + 15) // 16 * 16
+    npar = S.NFRAME if S.NFRAME <= PAR_MAX else 0
     return (up(17 * it) + up((S.Lmax + 1) * 2 * it) + up(S.DS * 2 * it)
-            + up(4 * S.XC * it) + up(S.NB * 4) + up(S.Lmax))
+            + up(4 * S.XC * it) + up(S.NB * 4) + up(S.Lmax) + up(4 * npar))
 
 
 def block_smem_bytes(S: RingStatics) -> int:
@@ -260,7 +266,7 @@ def _launch(entry: str, didx: DeviceIndex, rc_all: torch.Tensor,
                                                    int(x64))
             or NMETA != lib.ring_search_num_meta()
             or smem != lib.ring_search_lane_smem(
-                S.NB, S.Lmax, S.DS, S.XC, int(x64))):
+                S.NB, S.Lmax, S.DS, S.XC, int(x64), S.NFRAME)):
         raise RuntimeError(f"{entry}: parameter block, frame-row width, "
                            "result columns or shared-memory layout out of "
                            "date")

@@ -73,7 +73,7 @@ def _emulated(lib, didx, rc, ln, D, Ds, params, cfg, lanes, seeds,
                      x64=x64)
     lanes = Q if fixed else max(1, min(int(lanes), Q))
     assert kernel.block_smem_bytes(S) == lib.ring_search_lane_smem(
-        S.NB, S.Lmax, S.DS, S.XC, int(x64))
+        S.NB, S.Lmax, S.DS, S.XC, int(x64), S.NFRAME)
     hp = kernel.param_block(params, S, Q, Lmax, int(didx.length), lanes)
     q_alns, q_meta, q_paths = alloc_outputs(Q, S, "cpu")
     arena = torch.full((lanes, S.NFRAME, S.ROWW), -7, dtype=torch.int32)
@@ -107,6 +107,9 @@ PS = AlnParams(max_diff=3, batch_size=128, is_multiref=False)
 CFG = EngineConfig(cap=4096, acap=24, kx=2, max_iters=20_000, xcap=128)
 # small capacities: list, ACAP, work and frame overflows
 TIGHT = EngineConfig(cap=400, acap=3, kx=2, max_iters=300, xcap=2)
+# more frames a read than shared memory keeps parents of: the walk reads
+# the arena
+WIDE = EngineConfig(cap=65536, acap=24, kx=2, max_iters=20_000, xcap=128)
 
 # (name, world, params, cfg, lanes or None, seeded, int64)
 CASES = [
@@ -115,6 +118,7 @@ CASES = [
     ("seeded ring", "mixed", P3S, CFG, 4, True, False),
     ("seeded fixed int64", "mixed", P3S, CFG, None, True, True),
     ("tight fixed", "mixed", P3, TIGHT, None, False, False),
+    ("fixed, parents from the arena", "mixed", P3, WIDE, None, False, False),
     ("single ring", "single", PS, EngineConfig(cap=4096, kx=4), 4, False,
      False),
     ("single fixed int64", "single", PS, EngineConfig(cap=4096, kx=4), None,
@@ -144,6 +148,7 @@ def test_emulated_kernel_equals_plain_version(emu_lib, case):
               torch.from_numpy(sU.astype(np.int64)).to(it),
               torch.from_numpy(scnt.astype(np.int32)))
     got, S = _emulated(emu_lib, didx, *a, p, cfg, lanes, sd)
+    assert (S.NFRAME > kernel.PAR_MAX) == (cfg is WIDE)
     if lanes is None:
         ref = fixed_search_plain(didx, *a, p, cfg, sd)
     else:

@@ -91,10 +91,12 @@ def chip_smoke_configs():
 
 
 def _raw_bytes(S) -> int:
-    """The bytes of the arrays a lane keeps in shared memory, unpadded."""
+    """The bytes of the arrays a lane keeps in shared memory, unpadded (the
+    frames' parents when a read has at most PAR_MAX frames)."""
     it = 8 if S.x64 else 4
+    npar = S.NFRAME if S.NFRAME <= kernel.PAR_MAX else 0
     return (17 * it + (S.Lmax + 1) * 2 * it + S.DS * 2 * it
-            + 4 * S.XC * it + 4 * S.NB + S.Lmax)
+            + 4 * S.XC * it + 4 * S.NB + S.Lmax + 4 * npar)
 
 
 @pytest.mark.parametrize("conf", chip_smoke_configs(), ids=lambda c: c[0])
@@ -104,7 +106,7 @@ def test_shared_memory_covers_every_chip_smoke_configuration(conf):
                      seed_slots=slots, x64=x64)
     smem = kernel.block_smem_bytes(S)
     lane = kernel.lane_smem_bytes(S)
-    assert _raw_bytes(S) <= lane < _raw_bytes(S) + 6 * 16
+    assert _raw_bytes(S) <= lane < _raw_bytes(S) + 7 * 16
     assert lane % 16 == 0
     assert smem == lane <= kernel.SMEM_MAX
 
