@@ -69,8 +69,13 @@
 //   slower); the sequential merge (an item joins the previous run iff L ==
 //   U_prev + 1, U_prev the previous non-empty item's U) becomes ballots and
 //   a prefix count.  The duplicate check of an emit is spread over the
-//   threads (the emits stay in order), and the path walk takes one
-//   alignment a thread.
+//   threads (the emits stay in order).
+// - A read's fixed costs: the path walk takes one alignment a thread and,
+//   when a read has at most RS_PAR_MAX frames (short reads: seeded, easy,
+//   the first fixed tier), reads each frame's parent from shared memory
+//   instead of a dependent arena row a step (the walk was 16 % of a short
+//   seeded lane's cycles); a ring lane asks for its next read before the
+//   walk, so the atomic's latency overlaps it.
 //
 // The alphabet is a compile-time parameter: NC = 11 codes, NSLOT = 23 and
 // 128-word frame rows for a multi-genome; NC = 4, NSLOT = 9 and 40-word rows
@@ -99,7 +104,8 @@
 //
 // Memory.  A block is one lane (one warp).  Its shared memory holds C, the
 // read's D and D_seed rows, the two exact-completion lists (XC entries
-// each), the NB bucket heads and the read's codes (ring_search_lane_smem
+// each), the NB bucket heads, the read's codes and, for reads of at most
+// RS_PAR_MAX frames, the frames' parents (ring_search_lane_smem
 // gives the bytes; the launch asks for more than 48 KB a block where it
 // needs it, and the wrapper refuses a configuration past the card's 227
 // KB).  The frame

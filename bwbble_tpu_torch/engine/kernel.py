@@ -197,11 +197,11 @@ def block_smem_bytes(S: RingStatics) -> int:
     return lane
 
 
-def resident_lanes(S: RingStatics, fixed: bool) -> int:
+def resident_lanes(S: RingStatics) -> int:
     """Lanes of a launch of this configuration that one SM holds at once:
     the blocks an SM takes (cudaOccupancyMaxActiveBlocksPerMultiprocessor,
     at the launch's shared memory a block) times the lanes a block."""
-    n = _load().ring_search_occupancy(int(S.multiref), int(fixed),
+    n = _load().ring_search_occupancy(int(S.multiref), int(S.fixed),
                                       int(S.x64), block_smem_bytes(S))
     if n < 0:
         raise RuntimeError(f"occupancy query failed with CUDA error {-n}")
@@ -216,9 +216,9 @@ def _launch(entry: str, didx: DeviceIndex, rc_all: torch.Tensor,
     instantiation of the kernel (`lanes` None: fixed mode, one lane per
     read; `seeds` None or (seed_L, seed_U, seed_cnt)) and count the launch.
     Given a `timer`, sets `timer.events` to two CUDA events that
-    `ring_search_launch` records on the current stream right before and after
-    the kernel launch.  Returns (q_alns,
-    q_meta, q_paths, arena).  Does not synchronise."""
+    `ring_search_launch` records on the current stream right before and
+    after the kernel launch.  Returns (q_alns, q_meta, q_paths, arena).
+    Does not synchronise."""
     fixed = lanes is None
     idt = didx.idt
     x64 = idt == torch.int64

@@ -430,7 +430,7 @@ def main() -> int:
         smem = kernel.block_smem_bytes(S)
         # the lanes an SM holds at once, and the waves of them the launch
         # needs on this card
-        per_sm = kernel.resident_lanes(S, lanes is None)
+        per_sm = kernel.resident_lanes(S)
         used = n if lanes is None else min(lanes, n)
         line = dict(
             world=name, entry=entry,

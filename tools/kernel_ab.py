@@ -45,7 +45,7 @@ from bwbble_tpu_torch.engine.pipeline import (_calc_d_chunk,
                                               native_scan_chunks)
 from bwbble_tpu_torch.formats.fastq import read_fastq
 from bwbble_tpu_torch.index.fmindex import FMIndex
-from chip_smoke import ptxas_report
+from chip_smoke import LaunchEvents, ptxas_report
 
 
 def main_world_inputs(genome_bp: int, workdir: str, n_reads: int, dev):
@@ -109,16 +109,10 @@ def easy_world_inputs(workdir: str, n_reads: int, dev, seeded: bool):
     return didx, params, inputs, seeds
 
 
-class _Events:
-    """A search launch's timer: the wrapper sets `events` to the two CUDA
-    events its C launch records right around the kernel."""
-    events = None
-
-
 def kernel_ms(fn) -> tuple:
     """Call fn(timer) (one search launch) and wait for it: (its result, the
     milliseconds between the events the launch recorded)."""
-    tm = _Events()
+    tm = LaunchEvents()
     out = fn(tm)
     torch.cuda.synchronize()
     return out, tm.events[0].elapsed_time(tm.events[1])
@@ -233,7 +227,7 @@ def main(argv: list[str]) -> dict:
                                            "the first version's results")
                     if rep == 0:
                         occ.setdefault(name, {})[key] = \
-                            kernel.resident_lanes(S, S.fixed)
+                            kernel.resident_lanes(S)
     finally:
         if saved is None:
             kernel._libs.pop("ring_search", None)

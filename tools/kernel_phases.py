@@ -195,7 +195,7 @@ def main(argv: list[str]) -> list[dict]:
         S = ring_statics(prm, cfg, a[0].shape[1], a[3].shape[1],
                          fixed=lanes is None,
                          seed_slots=0 if sd is None else sd[0].shape[1])
-        per_sm[name] = kernel.resident_lanes(S, lanes is None)
+        per_sm[name] = kernel.resident_lanes(S)
     saved = kernel._libs.get("ring_search")
     kernel._libs["ring_search"] = lib
     out = []
