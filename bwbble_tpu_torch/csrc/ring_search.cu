@@ -71,11 +71,11 @@
 //   a prefix count.  The duplicate check of an emit is spread over the
 //   threads (the emits stay in order).
 // - A read's fixed costs: the path walk takes one alignment a thread and,
-//   when a read has at most RS_PAR_MAX frames (short reads: seeded, easy,
-//   the first fixed tier), reads each frame's parent from shared memory
-//   instead of a dependent arena row a step (the walk was 16 % of a short
-//   seeded lane's cycles); a ring lane asks for its next read before the
-//   walk, so the atomic's latency overlaps it.
+//   on the int32 layout when a read has at most RS_PAR_MAX frames (short
+//   reads: seeded, easy, the first fixed tier), reads each frame's parent
+//   from shared memory instead of a dependent arena row a step (the walk
+//   was 16 % of a short seeded lane's cycles); a ring lane asks for its
+//   next read before the walk, so the atomic's latency overlaps it.
 //
 // The alphabet is a compile-time parameter: NC = 11 codes, NSLOT = 23 and
 // 128-word frame rows for a multi-genome; NC = 4, NSLOT = 9 and 40-word rows
@@ -104,12 +104,11 @@
 //
 // Memory.  A block is one lane (one warp).  Its shared memory holds C, the
 // read's D and D_seed rows, the two exact-completion lists (XC entries
-// each), the NB bucket heads, the read's codes and, for reads of at most
-// RS_PAR_MAX frames, the frames' parents (ring_search_lane_smem
-// gives the bytes; the launch asks for more than 48 KB a block where it
-// needs it, and the wrapper refuses a configuration past the card's 227
-// KB).  The frame
-// arena is per-lane global scratch.  Reported alignments are written
+// each), the NB bucket heads, the read's codes and, on the int32 layout
+// for reads of at most RS_PAR_MAX frames, the frames' parents
+// (ring_search_lane_smem gives the bytes; the launch asks for more than 48
+// KB a block where it needs it, and the wrapper refuses a configuration
+// past the card's 227 KB).  The frame arena is per-lane global scratch.  Reported alignments are written
 // straight into the per-read output slab, which also serves the duplicate
 // check.  The kernel allocates nothing and runs on the stream it is given.
 
@@ -162,9 +161,10 @@ struct Layout {
 // A lane's shared memory, byte offsets of each array (16-byte aligned):
 // C [17], D [(Lmax + 1) * 2], D_seed [DS * 2], the two exact-completion
 // lists [2][XC][L, U] (IT each), the bucket heads [NB] (int32), the read's
-// codes [Lmax] (int8), and, when a read has at most RS_PAR_MAX frames, each
-// frame's parent node [NFRAME] (int32; npar frames, else none).
-// engine/kernel.py:lane_smem_bytes mirrors it.
+// codes [Lmax] (int8), and, on the int32 layout when a read has at most
+// RS_PAR_MAX frames, each frame's parent node [NFRAME] (int32; npar frames,
+// else none: an int64 lane is twice as large, and with the parents fewer of
+// its blocks would fit an SM).  engine/kernel.py:lane_smem_bytes mirrors it.
 struct LaneSmem {
     size_t carr, D, Ds, xl, head, rc, par, bytes;
     int npar;
@@ -180,7 +180,7 @@ struct LaneSmem {
         xl = o;   o += up16((size_t)4 * XC * it);
         head = o; o += up16((size_t)NB * 4);
         rc = o;   o += up16((size_t)Lmax);
-        npar = NFRAME <= RS_PAR_MAX ? NFRAME : 0;
+        npar = it == 4 && NFRAME <= RS_PAR_MAX ? NFRAME : 0;
         par = o;  o += up16((size_t)npar * 4);
         bytes = o;
     }

@@ -58,8 +58,8 @@ LAUNCHES = {"ring_search": 0, "fixed_search": 0, "ring_search_seeded": 0,
 # dynamic shared memory a block may have on an H100 (227 KB)
 SMEM_MAX = 232448
 
-# frames a read may have for a lane to keep their parents in shared memory
-# (csrc/ring_search.cu RS_PAR_MAX)
+# frames a read may have for a lane to keep their parents in shared memory,
+# on the int32 layout (csrc/ring_search.cu RS_PAR_MAX)
 PAR_MAX = 2048
 
 _lock = threading.Lock()
@@ -174,13 +174,14 @@ def lane_smem_bytes(S: RingStatics) -> int:
     """Shared-memory bytes of one lane (csrc/ring_search.cu LaneSmem):
     C [17], D [(Lmax + 1) * 2], D_seed [DS * 2] and the two exact-completion
     lists [2, XC, 2] in the index's type, the NB bucket heads (int32), the
-    read's codes (int8) and, when a read has at most PAR_MAX frames, their
-    parent nodes [NFRAME] (int32), each rounded up to 16 bytes."""
+    read's codes (int8) and, on the int32 layout when a read has at most
+    PAR_MAX frames, their parent nodes [NFRAME] (int32), each rounded up to
+    16 bytes."""
     it = 8 if S.x64 else 4
 
     def up(n: int) -> int:
         return (n + 15) // 16 * 16
-    npar = S.NFRAME if S.NFRAME <= PAR_MAX else 0
+    npar = S.NFRAME if not S.x64 and S.NFRAME <= PAR_MAX else 0
     return (up(17 * it) + up((S.Lmax + 1) * 2 * it) + up(S.DS * 2 * it)
             + up(4 * S.XC * it) + up(S.NB * 4) + up(S.Lmax) + up(4 * npar))
 

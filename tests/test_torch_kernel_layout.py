@@ -92,9 +92,10 @@ def chip_smoke_configs():
 
 def _raw_bytes(S) -> int:
     """The bytes of the arrays a lane keeps in shared memory, unpadded (the
-    frames' parents when a read has at most PAR_MAX frames)."""
+    frames' parents on the int32 layout when a read has at most PAR_MAX
+    frames)."""
     it = 8 if S.x64 else 4
-    npar = S.NFRAME if S.NFRAME <= kernel.PAR_MAX else 0
+    npar = S.NFRAME if not S.x64 and S.NFRAME <= kernel.PAR_MAX else 0
     return (17 * it + (S.Lmax + 1) * 2 * it + S.DS * 2 * it
             + 4 * S.XC * it + 4 * S.NB + S.Lmax + 4 * npar)
 
