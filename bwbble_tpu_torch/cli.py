@@ -4,10 +4,12 @@ Counterpart of bwbble_tpu/cli.py: subcommands `index`, `fasta2ref`, `align`,
 `aln2sam` and `eval` with the reference's single-letter flags and positional
 arguments (mg-aligner/main.c:72-160) and the same derived file names
 (`<fasta>.{ref,ann,bwt,pre}`).  Engine options are long options only
-(--engine, --batch, --arena, --queued, --device), so every reference
-invocation works verbatim.  `-P` reads the seed table `<fasta>.pre`, built
-at first use on the `--device` given (on the host with `--engine gold`).
-`--mesh` and `--dist` are not ported yet.
+(--engine, --batch, --arena, --queued, --device, --mesh, --dist), so every
+reference invocation works verbatim.  `-P` reads the seed table
+`<fasta>.pre`, built at first use on the `--device` given (on the host with
+`--engine gold`).  `--mesh DP[,TP]` spreads the run over a grid of devices
+(parallel/shard.py: every CUDA device, or DP*TP copies of `--device cpu`);
+`--dist HOST:PORT,NPROCS,RANK` over processes (parallel/distributed.py).
 
 Run as `python -m bwbble_tpu_torch ...`.
 """
@@ -110,6 +112,8 @@ def cmd_align(argv: list[str]) -> int:
     arena = None
     queued = False
     device = None
+    mesh_spec = None
+    dist_spec = None
     flag_kw = {"-M": "mm_score", "-O": "gapo_score", "-E": "gape_score",
                "-n": "max_diff", "-k": "max_diff_seed", "-o": "max_gapo",
                "-e": "max_gape", "-l": "seed_length", "-m": "max_entries",
@@ -131,9 +135,13 @@ def cmd_align(argv: list[str]) -> int:
             queued = True
         elif o == "--device":
             device = v
-        elif o in ("--mesh", "--dist"):
-            raise NotImplementedError(
-                f"{o} (parallel/ on torch.distributed) is not ported yet")
+        elif o == "--mesh":
+            mesh_spec = v
+        elif o == "--dist":
+            # --dist HOST:PORT,NPROCS,RANK — multi-process data parallelism
+            # over reads (parallel/distributed.py); run one process per
+            # host with the same command line except RANK
+            dist_spec = v
     fasta, fastq, alnf = args[0], args[1], args[2]
     if batch is not None:
         kw["batch_size"] = batch
@@ -146,6 +154,16 @@ def cmd_align(argv: list[str]) -> int:
     t = time.time()
     reads = read_fastq(fastq)
     print(f"Total read loading time: {time.time() - t:.2f} sec")
+
+    dist_rank, dist_n = 0, 1
+    if dist_spec is not None:
+        from bwbble_tpu_torch.parallel import distributed as DX
+        coord, n_s, r_s = dist_spec.rsplit(",", 2)
+        dist_n, dist_rank = int(n_s), int(r_s)
+        DX.init(coord, dist_n, dist_rank)
+        reads = DX.shard_reads(reads, dist_n, dist_rank)
+        print(f"dist: process {dist_rank}/{dist_n} aligning "
+              f"{reads.count} reads")
 
     precalc = None
     if params.use_precalc:
@@ -164,12 +182,31 @@ def cmd_align(argv: list[str]) -> int:
         from bwbble_tpu_torch.engine.inexact import EngineConfig
         from bwbble_tpu_torch.engine.pipeline import align_reads_device
         cfg = EngineConfig(cap=arena or int(params.arena_cap))
+        mesh = None
+        if mesh_spec is not None:
+            # --mesh DP[,TP]: run the sharded pipeline over a device mesh
+            # (dp = read data-parallelism, tp = index range-sharding);
+            # output is byte-identical to single-device alignment
+            import torch
+
+            from bwbble_tpu_torch.parallel.shard import make_mesh
+            parts = [int(x) for x in mesh_spec.split(",")]
+            dp, tp = parts[0], parts[1] if len(parts) > 1 else 1
+            host = device is not None and torch.device(device).type != "cuda"
+            mesh = make_mesh(dp, tp, [device] * (dp * tp) if host else None)
         didx = from_fmindex(idx, device=device)
         alns = align_reads_device(idx, didx, reads, params, cfg,
-                                  precalc=precalc, queued=queued,
+                                  precalc=precalc, queued=queued, mesh=mesh,
                                   device=device)
     print(f"Total read alignment time: {time.time() - t:.2f} sec")
-    write_aln_file(alnf, alns)
+    if dist_spec is not None:
+        from bwbble_tpu_torch.formats.aln import encode_alns
+        DX.write_part(alnf, dist_rank,
+                      b"".join(encode_alns(a) for a in alns))
+        if dist_rank == 0:
+            DX.merge_parts(alnf, dist_n)
+    else:
+        write_aln_file(alnf, alns)
     return 0
 
 

@@ -40,6 +40,12 @@ class DeviceIndex:
     sa_samples: torch.Tensor  # idt [num_sa] SA values every SA_INTERVAL
     length: int               # BWT length (host scalar: no device sync)
     sa0: int                  # sentinel row
+    # When set (parallel.shard, tp > 1), the table range-sharded over the
+    # tp members of a mesh row: tp_tables[t] holds blocks [t*n, (t+1)*n)
+    # on member t's device and `table` is tp_tables[0].  A rank query takes
+    # the owning shard's row (engine.rank._take_rows).  Checkpoint counts
+    # are global cumulative ranks, so shards answer directly.
+    tp_tables: tuple | None = None
 
     @property
     def num_blocks(self) -> int:

@@ -42,6 +42,7 @@ from bwbble_tpu_torch.engine.device_index import DeviceIndex
 from bwbble_tpu_torch.engine.inexact import (NMETA, EngineConfig,
                                              RingStatics, alloc_outputs,
                                              result_dict, ring_statics)
+from bwbble_tpu_torch.engine.rank import TP_CUDA
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(os.path.dirname(_HERE), "csrc")
@@ -220,6 +221,8 @@ def _launch(entry: str, didx: DeviceIndex, rc_all: torch.Tensor,
     `ring_search_launch` records on the current stream right before and
     after the kernel launch.  Returns (q_alns, q_meta, q_paths, arena).
     Does not synchronise."""
+    if didx.tp_tables is not None:
+        raise NotImplementedError(TP_CUDA)
     fixed = lanes is None
     idt = didx.idt
     x64 = idt == torch.int64

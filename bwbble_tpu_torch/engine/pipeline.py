@@ -2,15 +2,16 @@
 back to the host gold engine per read on any capacity overflow, so output is
 byte-identical to the reference at every capacity setting.
 
-Counterpart of bwbble_tpu/engine/pipeline.py.  Ported: the D-bound passes
+Counterpart of bwbble_tpu/engine/pipeline.py, all of it: the D-bound passes
 (device `calc_d` / `calc_d_1to1`, the native unbounded-list scanner and the
 probe that chooses between them), difficulty ordering and pre-routing, the
 fixed-batch tiers (`run_tier`: the default path of `align`, with its
 streamed scan-and-launch branch and escalation ladder),
 the queued branch with its single deep rung, single-genome `-S` mode in
 both, `-P` seeding in both (`precalc`, `seed_slots`), the int64
-whole-genome index layout in the fixed tiers, and the overlapped host gold
-pool.  Not ported yet (raise NotImplementedError): device meshes.
+whole-genome index layout in the fixed tiers, the overlapped host gold
+pool, and device meshes (`mesh`, parallel/shard.py: fixed tiers only, no
+`-P`, as in the JAX package).
 
 The int64 layout (`didx.idt`, automatic at 2^31 positions) runs as the JAX
 package runs it: D bounds, seeds and intervals in int64, fixed tiers only;
@@ -120,7 +121,8 @@ def _native_d_ok(didx: DeviceIndex, host_idx: FMIndex | None) -> bool:
 
 def probe_native_d(didx: DeviceIndex, reads: Reads, params: AlnParams,
                    d_cap: int, k_fast: int = 2,
-                   host_idx: FMIndex | None = None) -> tuple[int, bool]:
+                   host_idx: FMIndex | None = None,
+                   mesh=None) -> tuple[int, bool]:
     """(K1, skip): K1 is the device D pass's first-try interval capacity,
     skip=True when the whole device pass should be bypassed for the native
     exact scanner.
@@ -130,19 +132,25 @@ def probe_native_d(didx: DeviceIndex, reads: Reads, params: AlnParams,
     intervals on every read, so probe one chunk at k_fast and escalate the
     default width if it overflows.  When even d_cap overflows on >90% of
     the probe chunk, the whole K=d_cap device pass would be discarded
-    wholesale for the native scanner, so skip it up front."""
+    wholesale for the native scanner, so skip it up front.  Under a `mesh`
+    the probe chunk runs through sharded_calc_d_chunk and the native scan
+    is never chosen."""
     NR = reads.count
     Lmax = max(reads.max_len, 1)
     K1 = min(k_fast, d_cap) if params.is_multiref else d_cap
     if not (params.is_multiref and NR > 0 and d_cap > K1):
         return K1, False
-    nat_ok = _native_d_ok(didx, host_idx)
+    nat_ok = mesh is None and _native_d_ok(didx, host_idx)
     sq = np.zeros((min(256, max(NR, 1)), Lmax), dtype=np.int8)
     nbp = min(256, NR, sq.shape[0])
     sq[:nbp, :reads.seq.shape[1]] = reads.seq[:nbp]
     lnp = np.zeros((sq.shape[0],), dtype=np.int32)
     lnp[:nbp] = reads.lengths[:nbp]
-    _, _, dovp = _calc_d_chunk(didx, sq, lnp, lnp, params, K1)
+    if mesh is None:
+        _, _, dovp = _calc_d_chunk(didx, sq, lnp, lnp, params, K1)
+    else:
+        from bwbble_tpu_torch.parallel.shard import sharded_calc_d_chunk
+        _, _, dovp = sharded_calc_d_chunk(mesh, didx, sq, lnp, params, K1)
     if dovp.cpu().numpy()[:nbp].mean() > 0.5:
         K1 = d_cap
         if nat_ok:
@@ -167,7 +175,7 @@ def _native_d_read(nat, host_idx, planes, fused, nb_tab, seq, ln_r,
 
 def calc_d_all(didx: DeviceIndex, reads: Reads, params: AlnParams,
                batch: int, d_cap: int = 16, k_fast: int = 2,
-               host_idx: FMIndex | None = None, on_chunk=None):
+               host_idx: FMIndex | None = None, on_chunk=None, mesh=None):
     """D/D_seed bounds for every read: one cheap K=k_fast pass (exact unless
     a read's interval list overflows k_fast slots), then a K=d_cap re-run
     for just the overflowing reads, then the native unbounded-list scanner
@@ -177,16 +185,26 @@ def calc_d_all(didx: DeviceIndex, reads: Reads, params: AlnParams,
     `on_chunk(global_idx, z)`: called after each chunk of the first pass
     with the chunk's read indices and difficulty scores, so the caller can
     start routing work (the overlapped gold pool) while later chunks run.
+    `mesh`: the device passes run through sharded_calc_d_chunk.
 
     The reference recomputes these per read with unbounded linked lists
     (calculate_d, inexact_match.c:171-254)."""
     NR = reads.count
     Lmax = max(reads.max_len, 1)
     dev = didx.device
-    K1, skip = probe_native_d(didx, reads, params, d_cap, k_fast, host_idx)
+    K1, skip = probe_native_d(didx, reads, params, d_cap, k_fast, host_idx,
+                              mesh)
     if skip:
         return _calc_d_native_all(didx, host_idx, reads, params, batch,
                                   on_chunk)
+    if mesh is not None:
+        from bwbble_tpu_torch.parallel.shard import sharded_calc_d_chunk
+
+        def chunk(sq, ln, K):
+            return sharded_calc_d_chunk(mesh, didx, sq, ln, params, K)
+    else:
+        def chunk(sq, ln, K):
+            return _calc_d_chunk(didx, sq, ln, ln, params, K)
     D_parts, Ds_parts, dov_parts = [], [], []
     for s in range(0, NR, batch):
         e = min(s + batch, reads.count)
@@ -195,7 +213,7 @@ def calc_d_all(didx: DeviceIndex, reads: Reads, params: AlnParams,
         sq[:nb, :reads.seq.shape[1]] = reads.seq[s:e]
         ln = np.zeros((batch,), dtype=np.int32)
         ln[:nb] = reads.lengths[s:e]
-        D, Ds, dov = _calc_d_chunk(didx, sq, ln, ln, params, K1)
+        D, Ds, dov = chunk(sq, ln, K1)
         D_parts.append(D[:nb])
         Ds_parts.append(Ds[:nb])
         dov_parts.append(dov.cpu().numpy()[:nb])
@@ -216,7 +234,7 @@ def calc_d_all(didx: DeviceIndex, reads: Reads, params: AlnParams,
             sq = np.zeros((batch, Lmax), dtype=np.int8)
             sq[:, :reads.seq.shape[1]] = reads.seq[sel]
             ln = reads.lengths[sel].astype(np.int32)
-            D, Ds, dov = _calc_d_chunk(didx, sq, ln, ln, params, d_cap)
+            D, Ds, dov = chunk(sq, ln, d_cap)
             sidx = torch.from_numpy(sub.astype(np.int64)).to(dev)
             n = sub.size
             D_all[sidx] = D[:n]
@@ -459,6 +477,8 @@ def deep_tier_cfg(base: EngineConfig, B: int, deep_B: int,
 
 
 LADDER = ((256, 2),)      # (lanes, kx) of each deep tier
+# the JAX package's ladder for its XLA body, which serves tp > 1 meshes
+BODY_LADDER = ((1024, 8), (256, 8), (64, 16))
 
 
 def align_reads_device(idx: FMIndex, didx: DeviceIndex, reads: Reads,
@@ -485,13 +505,13 @@ def align_reads_device(idx: FMIndex, didx: DeviceIndex, reads: Reads,
     the device tiers (None => on when the native gold engine is available,
     the run is multi-genome and the read set spans several batches).
     `device`: None means CUDA (raises without one); the index must live
-    there.
+    there.  `mesh`: a parallel.shard.Mesh whose devices are of that type:
+    fixed batches, each launch split over its dp members
+    (sharded_inexact_search), D bounds through sharded_calc_d_chunk, no
+    gold overlap unless asked for; `-P` is refused, as in the JAX package.
     """
     cfg = cfg or EngineConfig()
     dev = index_device(didx, device)
-    if mesh is not None:
-        raise NotImplementedError("device meshes (parallel/) are not "
-                                  "ported yet")
     if (precalc is not None) != bool(params.use_precalc):
         raise ValueError("a seed table (precalc) goes with "
                          "params.use_precalc, and only with it")
@@ -506,6 +526,13 @@ def align_reads_device(idx: FMIndex, didx: DeviceIndex, reads: Reads,
                 int(params.n_threads)).items():
             out[orig] = alns
         return out
+    if mesh is not None:
+        # the mesh path (dp reads x tp index shards) is the fixed-batch
+        # pipeline with the sharded search; results are byte-identical to
+        # one device's
+        if precalc is not None:
+            raise NotImplementedError("--mesh with -P seeding not yet wired")
+        queued = False
     if queued and reads.count > int(params.batch_size):
         if didx.idt == torch.int64:
             raise NotImplementedError(QUEUED_I64)
@@ -523,6 +550,7 @@ def align_reads_device(idx: FMIndex, didx: DeviceIndex, reads: Reads,
     fail_why: dict[int, int] = {}   # overflow reason bits per failed read
     work_seen: dict[int, int] = {}  # per-read n_work at failure (tier cap)
     t_launch = [0.0]                # device time of the search launches
+    dp = mesh.shape["dp"] if mesh is not None else 1
 
     def run_tier(sel_all: np.ndarray | None, tier_cfg: EngineConfig,
                  tier_B: int, on_failed=None, sel_gen=None) -> list[int]:
@@ -554,20 +582,31 @@ def align_reads_device(idx: FMIndex, didx: DeviceIndex, reads: Reads,
                 selj = torch.from_numpy(sel.astype(np.int64)).to(dev)
                 Dsel = D_all.index_select(0, selj)
                 Dssel = Ds_all.index_select(0, selj)
-            timer = _LaunchTimer(dev)
+            timers = [_LaunchTimer(dev) for _ in range(dp)]
             kw = {} if seeds is None else dict(
                 seed_L=seeds[0], seed_U=seeds[1], seed_cnt=seeds[2])
-            res = inexact_search(didx, rc, lengths, Dsel, Dssel, params,
-                                 tier_cfg, device=dev, timer=timer, **kw)
-            timer.stop()
+            if mesh is None:
+                res = inexact_search(didx, rc, lengths, Dsel, Dssel, params,
+                                     tier_cfg, device=dev, timer=timers[0],
+                                     **kw)
+            else:
+                from bwbble_tpu_torch.parallel.shard import \
+                    sharded_inexact_search
+                res = sharded_inexact_search(mesh, didx, rc, lengths, Dsel,
+                                             Dssel, params, tier_cfg,
+                                             timers=timers)
+            for timer in timers:
+                timer.stop()
             # the pipeline reads the packed paths; the arena goes back to
             # the allocator here, and the next launch on this stream may
             # take the same memory once this one has finished
             del res["arena"]
-            return dict(sel=sel, res=res, timer=timer, seed_over=seed_over)
+            return dict(sel=sel, res=res, timers=timers,
+                        seed_over=seed_over)
 
         def collect(h: dict) -> None:
-            t_launch[0] += h["timer"].seconds()
+            # a launch over a mesh takes as long as its slowest member
+            t_launch[0] += max(t.seconds() for t in h["timers"])
             host = {k: v.cpu().numpy() for k, v in h["res"].items()}
             _count_launch(counters, host)
             # a read with more seeds than slots was searched on a part of
@@ -610,20 +649,30 @@ def align_reads_device(idx: FMIndex, didx: DeviceIndex, reads: Reads,
         nat0 = get_native()
         gold_overlap = (params.is_multiref and nat0 is not None
                         and getattr(nat0, "_has_gold", False)
-                        and reads.count > B)
+                        and mesh is None and reads.count > B)
     if gold_overlap:
         pool = _GoldPool(idx, reads, params, precalc,
                          n_workers=max(1, int(params.n_threads)))
 
-    # Exact completion over lists of up to 128 intervals covers the
-    # IUPAC-dense reads a handful of kx slots would ship to the host; a
-    # single genome keeps one interval, so kx slots are the fit there.
-    cfg = dataclasses.replace(cfg, xcap=128 if params.is_multiref else 0)
+    # The kernel runs the search whenever the index is not range-sharded:
+    # unsharded, or each dp member of a tp == 1 mesh at B // dp lanes (it
+    # takes any lane count).  Exact completion there runs over lists of up
+    # to 128 intervals, which cover the IUPAC-dense reads a handful of kx
+    # slots would ship to the host; a single genome keeps one interval, so
+    # kx slots are the fit there.  A tp > 1 mesh runs the plain body, as
+    # the JAX package's accelerator branch runs its XLA body there: the
+    # caller's xcap, that body's ladder and a 3/8 pre-routed share.
+    kernel_body = mesh is None or mesh.shape["tp"] == 1
+    if kernel_body:
+        cfg = dataclasses.replace(cfg, xcap=128 if params.is_multiref else 0)
+    ladder = LADDER if kernel_body else BODY_LADDER
 
     # Pre-route the per-chunk hardest quantile straight to gold as each D
     # chunk lands (keeps the host pool busy during the D phase).
     routed = np.zeros(reads.count, dtype=bool)
-    route_frac = 0.025 if (pool is not None and sort_reads) else 0.0
+    route_frac = 0.0
+    if pool is not None and sort_reads:
+        route_frac = 0.025 if kernel_body else 0.375
 
     def _route_chunk(gi: np.ndarray, zc: np.ndarray) -> None:
         k = int(gi.size * route_frac)
@@ -642,7 +691,8 @@ def align_reads_device(idx: FMIndex, didx: DeviceIndex, reads: Reads,
         # collect, so the device starts searching after ONE scanned chunk
         # instead of after the full D phase.  Each launch takes the hardest
         # B pending reads (failures surface early).
-        if (pool is not None and sort_reads and precalc is None
+        if (pool is not None and sort_reads and mesh is None
+                and precalc is None
                 and probe_native_d(didx, reads, params, d_cap,
                                    host_idx=idx)[1]):
             seed_len = int(params.seed_length)
@@ -712,7 +762,7 @@ def align_reads_device(idx: FMIndex, didx: DeviceIndex, reads: Reads,
                 if to_gold:
                     pool.submit(to_gold)
                 failed = hardest[len(to_gold):]
-                for deep_B, deep_kx in LADDER:
+                for deep_B, deep_kx in ladder:
                     if not failed:
                         break
                     sel_d = np.array(failed, dtype=np.int64)
@@ -731,7 +781,9 @@ def align_reads_device(idx: FMIndex, didx: DeviceIndex, reads: Reads,
                 didx, reads, params,
                 batch=max(1, min(B, reads.count)), d_cap=d_cap,
                 host_idx=idx,
-                on_chunk=_route_chunk if route_frac > 0 else None)
+                on_chunk=_route_chunk if route_frac > 0 else None,
+                mesh=mesh)
+            # a mesh's D bounds are joined on `dev`: its sync waits for all
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
             counters["t_dbounds"] = round(_tm.time() - t_start, 3)
@@ -763,7 +815,7 @@ def align_reads_device(idx: FMIndex, didx: DeviceIndex, reads: Reads,
             # 3e6, inexact_match.c:299) ladder down to a narrow deep tier
             # instead of storming the host gold engine.
             tiers: list[tuple[int, EngineConfig]] = [(B, cfg)]
-            for deep_B, deep_kx in (LADDER if deep_tiers else ()):
+            for deep_B, deep_kx in (ladder if deep_tiers else ()):
                 if deep_B < B:
                     tiers.append((deep_B,
                                   deep_tier_cfg(cfg, B, deep_B, deep_kx)))

@@ -44,6 +44,33 @@ def popcount32(x: torch.Tensor) -> torch.Tensor:
             + ((x >> 24) & 0xFF))
 
 
+# the refusal of a range-sharded index on the card (parallel.shard's
+# Mesh.place, and the search kernel's wrapper)
+TP_CUDA = ("tp > 1 on CUDA tensors needs a kernel that reads its peers' "
+           "index shards (over NVLink); the port has none yet, and the "
+           "plain version does not run on the card in its place")
+
+
+def _take_rows(didx: DeviceIndex, k: torch.Tensor) -> torch.Tensor:
+    """Rows of the fused table at global block ids k.
+
+    On a tp-sharded index (`didx.tp_tables`) each shard holds a contiguous
+    block range: a shard's rows outside its range are masked to zero and
+    the shards' rows summed (exactly one shard owns each row), as the JAX
+    package's psum over tp does."""
+    if didx.tp_tables is None:
+        return didx.table.index_select(0, k.long())
+    nloc = didx.tp_tables[0].shape[0]
+    rows = None
+    for t, shard in enumerate(didx.tp_tables):
+        lk = k.long() - t * nloc
+        mine = ((lk >= 0) & (lk < nloc)).to(k.device)
+        r = shard.index_select(0, lk.clamp(0, nloc - 1).to(shard.device))
+        r = torch.where(mine[:, None], r.to(k.device), 0)
+        rows = r if rows is None else rows + r
+    return rows
+
+
 def _gather_block(didx: DeviceIndex, i: torch.Tensor):
     """Clamp i into the normal-path domain and fetch (bit-plane words
     [B, 4, 4], checkpoint row [B, 16], in-block offset, first char) with one
@@ -52,7 +79,7 @@ def _gather_block(didx: DeviceIndex, i: torch.Tensor):
     i_c = i.clamp(0, max(len_m1 - 1, 0))
     k = torch.div(i_c, BLK, rounding_mode="floor")
     off = (i_c - k * BLK).to(torch.int32)
-    rows = didx.table.index_select(0, k.long())              # [B, 32|48]
+    rows = _take_rows(didx, k)                               # [B, 32|48]
     pw = rows[:, :16].reshape(-1, 4, 4)                      # [B, bit, word]
     if didx.idt == torch.int64:
         lo = rows[:, 16:32].to(torch.int64) & 0xFFFFFFFF
@@ -211,7 +238,7 @@ def bwt_char(didx: DeviceIndex, i: torch.Tensor) -> torch.Tensor:
     i = i.to(didx.idt)
     k = torch.div(i, BLK, rounding_mode="floor")
     off = (i - k * BLK).to(torch.int32)
-    pw = didx.table.index_select(0, k.long())[:, :16].reshape(-1, 4, 4)
+    pw = _take_rows(didx, k)[:, :16].reshape(-1, 4, 4)
     w = torch.div(off, 32, rounding_mode="floor")
     b = off - w * 32
     bits = pw.gather(2, w.long()[:, None, None].expand(-1, 4, 1))[:, :, 0]

@@ -19,7 +19,12 @@ world: CLI, then the timed in-process run, `.aln` byte-compared with the
 gold engine's); fixed_path (`align -n 4` as the quick start types it, no
 `--queued`, on the same world and reads); more kernel comparisons on reads
 of the main world at the settings of the main path's two launches and of
-the fixed path's two tiers; easy_path (the easy 5 Mbp world, fixed batches
+the fixed path's two tiers; mesh_path (`align -n 4 --mesh 1` through the
+CLI on the same world and reads: the fixed tiers over a mesh of the one
+card, `.aln` byte-equal to fixed_path's, and one launch of
+sharded_inexact_search equal to inexact_search); dist_path (two `--dist`
+processes on the card, each with half of fixed_path's `-t`, the merged
+`.aln` byte-equal to fixed_path's); easy_path (the easy 5 Mbp world, fixed batches
 of 8 192); single_path (the same world as a plain 4-letter reference, `-S`);
 kernel comparisons on the easy world at the lane counts, arenas and
 alphabets these two paths launch; precalc (the k = 12 seed table of the
@@ -64,6 +69,7 @@ import gc
 import json
 import multiprocessing
 import os
+import socket
 import subprocess
 import sys
 import tempfile
@@ -242,8 +248,11 @@ def main() -> int:
     from bwbble_tpu_torch.align.precalc import (build_precalc_device,
                                                 build_precalc_gold, load_pre,
                                                 read_indices, store_pre)
-    from bwbble_tpu_torch.engine.inexact import (EngineConfig, ring_statics,
-                                                 unpack_paths, walk_paths)
+    from bwbble_tpu_torch.engine import pipeline as pipeline_mod
+    from bwbble_tpu_torch.engine.inexact import (EngineConfig,
+                                                 inexact_search,
+                                                 ring_statics, unpack_paths,
+                                                 walk_paths)
     from bwbble_tpu_torch.engine.pipeline import (LADDER, _calc_d_chunk,
                                                   align_reads_device,
                                                   deep_tier_cfg,
@@ -255,6 +264,7 @@ def main() -> int:
     from bwbble_tpu_torch.gold.engine import calculate_d, exact_match
     from bwbble_tpu_torch.index.fmindex import FMIndex
     from bwbble_tpu_torch.native import get_native
+    from bwbble_tpu_torch.parallel import make_mesh, sharded_inexact_search
 
     dev = torch.device("cuda")
     gc.callbacks.append(_gc_clock)
@@ -833,6 +843,7 @@ def main() -> int:
     f_parity = filecmp.cmp(fixed_aln, gold_aln, shallow=False)
     f_ok = bool(f_parity and f_launches["fixed_search"] > 0
                 and f_stats.get("launches") == f_launches["fixed_search"])
+    fixed_cli_seconds = t_cli
     emit("fixed_path", ok=f_ok, parity=f_parity, cli_seconds=round(t_cli, 1),
          cli_launches=cli_launches["fixed_search"],
          batch=int(p_fixed.batch_size), cap=int(cfg_fixed.cap),
@@ -909,6 +920,114 @@ def main() -> int:
                              xcap=128), table_d, 32, 512,
                 cfg_fixed=cfg_tier1)
     del table_d
+
+    # ------------------------------------------------------------- mesh path
+    # `align -n 4 --mesh 1` through the CLI on fixed_path's world and reads:
+    # the fixed tiers over a mesh of the one card (dp = tp = 1), which
+    # runs no gold pool and no streamed branch, so D comes from the device
+    # pass at d_cap and the native scanner for the reads that overflow it
+    # (engine/pipeline.py's mesh branches); then one launch of
+    # sharded_inexact_search against inexact_search on the same inputs
+    def cli_with_stats(argv):
+        """One CLI call whose align_reads_device call also fills a stats
+        dict: (exit code, CLI seconds, stats, seconds of that call)."""
+        st: dict = {}
+        inner = [0.0]
+        align = pipeline_mod.align_reads_device
+
+        def timed(*a, **kw):
+            t0 = time.time()
+            out = align(*a, stats=st, **kw)
+            torch.cuda.synchronize()
+            inner[0] = time.time() - t0
+            return out
+        pipeline_mod.align_reads_device = timed
+        mark = host_mark()
+        try:
+            code, sec = timed_cli(argv)
+        finally:
+            pipeline_mod.align_reads_device = align
+        st.update(host_since(mark))
+        return code, sec, st, inner[0]
+
+    mesh_aln = os.path.join(wdir, "mesh_cli.aln")
+    zero_launches()
+    rc, t_mesh, m_stats, m_dt = cli_with_stats(
+        ["align", "-n", "4", "-t", str(threads), "--mesh", "1", fa, fq,
+         mesh_aln])
+    m_launches = dict(kernel.LAUNCHES)
+    m_same = rc == 0 and filecmp.cmp(mesh_aln, fixed_cli_aln, shallow=False)
+    one = inexact_search(didx, rc_c[:n_cmp], rd_c.lengths[:n_cmp],
+                         Dc[:n_cmp], Dsc[:n_cmp], params, cfg_tier1,
+                         device=dev)
+    shd = sharded_inexact_search(make_mesh(1), didx, rc_c[:n_cmp],
+                                 rd_c.lengths[:n_cmp], Dc[:n_cmp],
+                                 Dsc[:n_cmp], params, cfg_tier1)
+    # the arena's rows past what a lane wrote are uninitialised scratch
+    m_equal = all(torch.equal(one[k], shd[k]) for k in one if k != "arena")
+    m_ok = bool(m_same and m_equal and m_launches["fixed_search"] > 0
+                and m_stats.get("launches") == m_launches["fixed_search"])
+    emit("mesh_path", ok=m_ok, same_as_fixed_path=m_same,
+         sharded_equals_unsharded=m_equal, launch_reads=n_cmp,
+         mesh={"dp": 1, "tp": 1}, cli_seconds=t_mesh,
+         fixed_cli_seconds=fixed_cli_seconds,
+         **path_line(reads.count, m_dt, m_stats,
+                     m_launches["fixed_search"]))
+    if not m_ok:
+        fail("mesh_path", "`.aln` differs from fixed_path's, the sharded "
+                          "launch differs from the unsharded one, or the "
+                          "path did not launch fixed_search")
+    del one, shd
+
+    # ------------------------------------------------------------- dist path
+    # two `--dist` processes on the one card, each with half of
+    # fixed_path's -t, through the CLI's entry point; each prints its
+    # launch counts, which start at 0 in a fresh process
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    dist_aln = os.path.join(wdir, "dist.aln")
+    half = str(max(1, threads // 2))
+    child = ("import json, sys; from bwbble_tpu_torch import cli; "
+             "from bwbble_tpu_torch.engine import kernel; "
+             "code = cli.main(sys.argv[1:]); "
+             "print('LAUNCHES ' + json.dumps(kernel.LAUNCHES)); "
+             "sys.exit(code)")
+    t = time.time()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", child, "align", "-n", "4", "-t", half,
+         "--dist", f"127.0.0.1:{port},2,{r}", fa, fq, dist_aln],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(2)]
+    try:
+        outs = [p_.communicate(timeout=600) for p_ in procs]
+    finally:
+        for p_ in procs:
+            if p_.poll() is None:
+                p_.kill()
+                p_.wait()
+    d_wall = time.time() - t
+    d_launches, d_align = 0, []
+    for out, _err in outs:
+        for ln_ in out.splitlines():
+            if ln_.startswith("LAUNCHES "):
+                d_launches += json.loads(ln_[9:])["fixed_search"]
+            elif ln_.startswith("Total read alignment time:"):
+                d_align.append(float(ln_.split()[-2]))
+    d_rcs = [p_.returncode for p_ in procs]
+    d_same = d_rcs == [0, 0] and filecmp.cmp(dist_aln, fixed_cli_aln,
+                                             shallow=False)
+    d_ok = bool(d_same and d_launches > 0)
+    emit("dist_path", ok=d_ok, same_as_fixed_path=d_same, returncodes=d_rcs,
+         processes=2, threads_each=int(half), reads=reads.count,
+         wall_seconds=d_wall, align_seconds_each=d_align,
+         fixed_cli_seconds=fixed_cli_seconds, launches=d_launches,
+         card=card)
+    if not d_ok:
+        fail("dist_path", "the merged `.aln` differs from fixed_path's, a "
+                          "process failed, or no process launched "
+                          "fixed_search: " + " | ".join(
+                              e[-500:] for _o, e in outs))
 
     # ------------------------------------------------------------- easy path
     # the easy world in fixed batches of 8 192: pure-ACGT genome, 16 384

@@ -2,6 +2,7 @@
 bwbble_tpu original only in the package name, and the copied codecs, index
 construction and gold engine produce the same bytes.  Tolerance: zero (bytes)."""
 
+import inspect
 import os
 import re
 
@@ -15,9 +16,11 @@ from bwbble_tpu.formats.aln import write_aln_file as j_write_aln
 from bwbble_tpu.formats.fasta import fasta2ref as j_fasta2ref
 from bwbble_tpu.formats.fastq import read_fastq as j_read_fastq
 from bwbble_tpu.index import FMIndex as JFMIndex
+from bwbble_tpu.parallel import distributed as j_dist
 
 from bwbble_tpu_torch import cli
 from bwbble_tpu_torch.formats.aln import read_aln_file
+from bwbble_tpu_torch.parallel import distributed as t_dist
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -38,6 +41,19 @@ def test_copied_module_differs_only_in_package_name(rel):
         orig = f.read()
     with open(os.path.join(ROOT, "bwbble_tpu_torch", rel)) as f:
         copy = f.read()
+    assert re.sub(r"\bbwbble_tpu\b", "bwbble_tpu_torch", orig) == copy
+
+
+# parallel/distributed.py: the host functions are copies; `init` differs
+# (torch.distributed in place of jax.distributed)
+DIST_COPIED = ["shard_bounds", "shard_reads", "part_path", "write_part",
+               "merge_parts"]
+
+
+@pytest.mark.parametrize("name", DIST_COPIED)
+def test_copied_distributed_function_differs_only_in_package_name(name):
+    orig = inspect.getsource(getattr(j_dist, name))
+    copy = inspect.getsource(getattr(t_dist, name))
     assert re.sub(r"\bbwbble_tpu\b", "bwbble_tpu_torch", orig) == copy
 
 

@@ -7,6 +7,7 @@ import pkgutil
 import re
 import subprocess
 import sys
+import types
 
 import numpy as np
 import pytest
@@ -22,6 +23,7 @@ from bwbble_tpu_torch.engine.device_index import from_arrays, from_fmindex
 from bwbble_tpu_torch.engine.inexact import (EngineConfig,
                                              inexact_search_queued)
 from bwbble_tpu_torch.engine.pipeline import align_reads_device
+from bwbble_tpu_torch.parallel import make_mesh
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -39,7 +41,9 @@ def test_importing_every_submodule_pulls_in_no_jax():
     assert {"bwbble_tpu_torch.benchmarks.kernels",
             "bwbble_tpu_torch.benchmarks.dma_probe",
             "bwbble_tpu_torch.benchmarks.gather_pallas_probe",
-            "bwbble_tpu_torch.benchmarks.gather_bench"} <= set(mods)
+            "bwbble_tpu_torch.benchmarks.gather_bench",
+            "bwbble_tpu_torch.parallel.shard",
+            "bwbble_tpu_torch.parallel.distributed"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -152,22 +156,39 @@ def test_probe_wrappers_never_run_the_plain_version_off_the_cpu(monkeypatch):
 
 
 def test_unported_paths_raise_not_implemented(small, tmp_path):
-    """What is still to port raises: device meshes and `--mesh`/`--dist`.
-    (`-P` seeding is ported: tests/test_torch_precalc.py; a seed table
-    without params.use_precalc, or the flag without a table, is refused.
-    The int64 layout is ported for fixed batches: tests/test_torch_int64.py;
-    a queued search on it raises, as in the JAX package.)"""
+    """What is still to port raises: a mesh with `-P` seeding (as in the
+    JAX package), a range-sharded index (tp > 1) on CUDA tensors, and a
+    queued search on the int64 layout (as in the JAX package).  (`-P`
+    seeding is ported: tests/test_torch_precalc.py; a seed table without
+    params.use_precalc, or the flag without a table, is refused.  Device
+    meshes and `--dist` are ported: tests/test_torch_parallel.py and
+    tests/test_torch_distributed.py.)"""
     idx, reads = small
     didx = from_fmindex(idx, device="cpu")
     cfg = EngineConfig(cap=512)
+    mesh = make_mesh(1, devices=["cpu"])
     for queued in (False, True):
         with pytest.raises(NotImplementedError, match="mesh"):
-            align_reads_device(idx, didx, reads, AlnParams(max_diff=1), cfg,
-                               queued=queued, mesh=object(), device="cpu")
+            align_reads_device(idx, didx, reads,
+                               AlnParams(max_diff=1, use_precalc=True), cfg,
+                               precalc=object(), queued=queued, mesh=mesh,
+                               device="cpu")
         with pytest.raises(ValueError, match="use_precalc"):
             align_reads_device(idx, didx, reads,
                                AlnParams(max_diff=1, use_precalc=True), cfg,
                                queued=queued, device="cpu")
+    # tp > 1 on the card: the mesh refuses to shard a CUDA index, and the
+    # kernel's wrapper refuses a sharded one before anything else
+    cuda_idx = types.SimpleNamespace(device=torch.device("cuda"))
+    with pytest.raises(NotImplementedError, match="tp > 1"):
+        make_mesh(1, 2, devices=["cuda:0", "cuda:1"]).place(cuda_idx)
+    sharded = make_mesh(1, 2, devices=["cpu"] * 2).place(didx)[0]
+    ln = torch.from_numpy(reads.lengths.astype(np.int32))
+    rc = torch.from_numpy(np.asarray(reads.rc, dtype=np.int8))
+    D = torch.zeros((reads.count, reads.max_len + 1, 2), dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="tp > 1"):
+        kernel.fixed_search(sharded, rc, ln, D, D, AlnParams(max_diff=1),
+                            cfg)
     # the int64 whole-genome layout: 48-word rows are taken as int64, and
     # a queued search on them is refused
     d64 = from_arrays(np.zeros((4, 48), dtype=np.int32), np.zeros(17),
@@ -180,8 +201,11 @@ def test_unported_paths_raise_not_implemented(small, tmp_path):
                               np.zeros((4, 33, 2), np.int64),
                               AlnParams(max_diff=1), cfg, lanes=4,
                               device="cpu")
-    # CLI: --mesh and --dist raise before anything is read
-    for flag in (["--mesh", "2"], ["--dist", "localhost:1,1,0"]):
-        with pytest.raises(NotImplementedError, match=flag[0]):
-            cli.main(["align", *flag, "--device", "cpu", "g.fa", "r.fq",
+    # CLI: --mesh and --dist parse; with no input files the run stops at
+    # the missing index, before the process group or the mesh is made
+    for flag in (["--mesh", "1"], ["--mesh", "2,2"],
+                 ["--dist", "localhost:1,1,0"]):
+        with pytest.raises(FileNotFoundError, match="g.fa.bwt"):
+            cli.main(["align", *flag, "--device", "cpu",
+                      str(tmp_path / "g.fa"), "r.fq",
                       str(tmp_path / "o.aln")])
