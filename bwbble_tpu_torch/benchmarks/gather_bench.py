@@ -11,11 +11,14 @@ at N = 16 384 and 65 536 indices.
 
 Variants:
   take       torch.index_select (PyTorch's own gather, the yardstick)
-  direct u1  a warp a row, 32 x 4 bytes; u8: 8 rows a warp a step.  The
-             table fits the card's 50 MB L2, which plays the part VMEM
-             plays for the TPU variant `vmem`
-  ring b8    a ring of 8 cp.async row copies in flight a warp (the TPU's
-             `hbm` ring of row DMAs); b32: 32
+  direct u1  8 threads a row, 8 x 16-byte loads, in a persistent grid; a
+             warp moves 4 rows a step (u8: 32, 8 rows a group of 8
+             threads).  The table fits the card's 50 MB L2, which plays
+             the part VMEM plays for the TPU variant `vmem`
+  ring b8    a ring of 8 row slots in shared memory a warp, one bulk copy
+             (cp.async.bulk, an mbarrier a slot) a row, the landed rows
+             leaving by bulk stores of contiguous output rows (the TPU's
+             `hbm` ring of row DMAs); b32: 32 slots
 Each is checked equal to `take` ("OK" / "WRONG").  Table and indices are
 random, made on the card from a seed; timed with CUDA events over 10 calls
 on 4 index sets after a warm-up on a fifth.  With device="cpu" (the tests)

@@ -7,8 +7,11 @@ versions.
   gather_pallas_probe.py (K5): the [8, B] digest of gathered rows in one of
   `LAYOUTS`;
 - `row_gather` replaces benchmarks/gather_bench.py:gather_vmem and
-  gather_hbm (K6): out[i] = table[idx[i]], `direct` or through a `ring` of
-  row copies.
+  gather_hbm (K6): out[i] = table[idx[i]], `direct` (16-byte loads in a
+  persistent grid) or through a `ring` of bulk row copies; its launch shape
+  is `gather_shape`, which csrc/probes.cu mirrors;
+- `launch_floor` launches an empty kernel of a given grid: it replaces no
+  TPU kernel and measures the least time a launch of that shape takes.
 
 A wrapper given CPU tensors runs the plain version (`*_plain`, which takes
 CPU tensors only); given CUDA tensors it launches the kernel or raises.  It
@@ -23,6 +26,7 @@ module is imported.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -42,7 +46,10 @@ BLOCKED_LANES = 256
 DIGEST_W = 8
 ROW_WORDS = 128          # dma_wave's rows: 512 bytes
 GATHER_WORDS = 32        # row_gather's rows: 128 bytes
-
+BLOCK = 128              # threads a block of every probe kernel but one
+GATHER_WARPS = BLOCK // 32   # row_gather: warps, or rings, a block
+ROW_BYTES = 4 * GATHER_WORDS
+RING_STAGES = 2          # bulk stores a turn of a ring
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -50,8 +57,12 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.dma_wave_launch.argtypes = [vp, vp, vp, ci, ci, ci, ci, vp]
     lib.digest_consume_launch.argtypes = [vp, vp, ci, ci, ci, vp]
     lib.row_gather_launch.argtypes = [vp, vp, vp, ci, ci, ci, ci, vp]
+    lib.row_gather_shape.argtypes = [ci, ci, ci, ci,
+                                     ctypes.POINTER(ctypes.c_int)]
+    lib.probe_floor_launch.argtypes = [ci, ci, vp]
     for f in (lib.dma_wave_launch, lib.digest_consume_launch,
-              lib.row_gather_launch):
+              lib.row_gather_launch, lib.row_gather_shape,
+              lib.probe_floor_launch):
         f.restype = ci
 
 
@@ -110,6 +121,12 @@ def _check_wave(idx0: torch.Tensor, tbl: torch.Tensor, K: int) -> None:
             or tbl.shape[0] < 1 or int(K) < 0):
         raise ValueError("dma_wave takes idx0 [8, B0], a table [N, 128] "
                          "and K >= 0")
+
+
+def wave_grid(B0: int) -> tuple[int, int]:
+    """(blocks, threads a block) of a dma_wave launch of B0 lanes, a warp
+    a lane (csrc/probes.cu dma_wave_launch)."""
+    return (B0 * 32 + BLOCK - 1) // BLOCK, BLOCK
 
 
 def dma_wave_plain(idx0: torch.Tensor, tbl: torch.Tensor, K: int,
@@ -189,6 +206,14 @@ def digest_view(x: torch.Tensor, layout: str, RQ: int, B: int
     return x.reshape(RQ, B, w)[:, :, :DIGEST_W].transpose(1, 2)
 
 
+def digest_grid(layout: str, B: int) -> tuple[int, int]:
+    """(blocks, threads a block) of a digest_consume launch over B lanes
+    (csrc/probes.cu digest_consume_launch)."""
+    if layout == "blocked_128":
+        return B // BLOCKED_LANES, BLOCKED_LANES
+    return (DIGEST_W * B + BLOCK - 1) // BLOCK, BLOCK
+
+
 def digest_consume_plain(x: torch.Tensor, layout: str, RQ: int, B: int
                          ) -> torch.Tensor:
     """The plain version of digest_consume, on CPU tensors."""
@@ -234,6 +259,71 @@ def _check_gather(table: torch.Tensor, idx: torch.Tensor, mode: str,
         raise ValueError(f"mode must be 'direct' or 'ring', not {mode!r}")
 
 
+class GatherShape(NamedTuple):
+    """A row_gather launch: `grid` blocks of `block` threads; direct: `step`
+    rows a warp a step, `tile` rows a warp takes at a time; ring: `step`
+    rows a bulk store, `tile` rows a ring, `slots` slots a ring; `smem`
+    shared bytes a block."""
+    grid: int
+    block: int
+    step: int
+    tile: int
+    slots: int
+    smem: int
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def gather_shape(n: int, mode: str, unroll: int, nbuf: int, sms: int,
+                 blocks_per_sm: int) -> GatherShape:
+    """The launch shape of row_gather over n rows on a card of `sms` SMs
+    that holds `blocks_per_sm` blocks of the variant each (csrc/probes.cu
+    gather_shape mirrors this).  The grid is persistent: at most the blocks
+    the card holds at once, and no more than the rows need.  direct: the
+    tile is the least of step, 2 step, ... 32 rows for which every tile
+    has its own warp (else 32), so that few rows still spread over every
+    warp; ring: a ring takes the most rows one of the card's rings must
+    take, at least nbuf, in whole stages of nbuf / RING_STAGES rows."""
+    blocks_max = sms * blocks_per_sm
+    warps_max = blocks_max * GATHER_WARPS
+    if mode == "direct":
+        step = 4 * unroll
+        tile = step
+        while tile < 32 and _ceil(n, tile) > warps_max:
+            tile *= 2
+        grid = min(blocks_max, _ceil(_ceil(n, tile), GATHER_WARPS))
+        return GatherShape(grid, BLOCK, step, tile, 0, 0)
+    step = nbuf // RING_STAGES
+    run = _ceil(max(_ceil(n, warps_max), nbuf), step) * step
+    grid = _ceil(_ceil(n, run), GATHER_WARPS)
+    return GatherShape(grid, BLOCK, step, run, nbuf,
+                       GATHER_WARPS * nbuf * (ROW_BYTES + 8))
+
+
+def ring_layout(nbuf: int) -> tuple[list[int], list[int]]:
+    """Byte offsets in a block's shared memory of each ring's first slot
+    and first mbarrier: every ring's slots, then every ring's barriers
+    (csrc/probes.cu gather_ring_kernel's `slots` and `bars`)."""
+    slots = [w * nbuf * ROW_BYTES for w in range(GATHER_WARPS)]
+    bars = [GATHER_WARPS * nbuf * ROW_BYTES + w * nbuf * 8
+            for w in range(GATHER_WARPS)]
+    return slots, bars
+
+
+def gather_shape_on_card(n: int, mode: str = "direct", unroll: int = 1,
+                         nbuf: int = 8) -> tuple[GatherShape, int, int]:
+    """The shape row_gather_launch takes on the current CUDA device, from
+    the C side, with the SMs and the blocks an SM holds it used."""
+    out = (ctypes.c_int * 8)()
+    rc = _load().row_gather_shape(int(n), 0 if mode == "direct" else 1,
+                                  int(unroll), int(nbuf), out)
+    if rc != 0:
+        raise RuntimeError(f"row_gather_shape failed with {rc}")
+    return GatherShape(*out[:6]), out[6], out[7]
+
+
 def row_gather_plain(table: torch.Tensor, idx: torch.Tensor,
                      mode: str = "direct", unroll: int = 1, nbuf: int = 8
                      ) -> torch.Tensor:
@@ -263,6 +353,16 @@ def row_gather(table: torch.Tensor, idx: torch.Tensor, mode: str = "direct",
         _stream(table))
     _launched("row_gather", rc)
     return out
+
+
+def launch_floor(grid: int, block: int, device) -> None:
+    """Launch the empty kernel on `grid` blocks of `block` threads on the
+    current stream of CUDA `device` (no TPU kernel: the launch floor)."""
+    rc = _load().probe_floor_launch(
+        int(grid), int(block),
+        torch.cuda.current_stream(torch.device(device)).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"probe_floor_launch failed with CUDA error {rc}")
 
 
 def time_calls(fn, args_list: list, n: int) -> float:

@@ -17,7 +17,9 @@
 //   row_gather     benchmarks/gather_bench.py: gather_vmem (:54) and
 //                  gather_hbm (:101): out[i] = table[idx[i]].
 // Each computes what the TPU kernel computes; none is carried over block by
-// block.
+// block.  probe_floor_launch, an empty kernel, replaces no TPU kernel: it
+// exists to measure the launch floor, the least time a launch of a given
+// grid takes, which bounds the probes whose bytes take less.
 //
 // What bounds them on an H100, and what each design does about it:
 // - dma_wave is bound by the latency of one dependent row fetch: wave t+1's
@@ -38,15 +40,41 @@
 //   a row): a thread per (b, w), w fastest, so 8 threads read a row's 32
 //   bytes.  Blocked input [RQ, B, 128]: a block per 256 lanes, as the TPU
 //   grid blocks them, a thread per lane with two 16-byte loads a row.
-// - row_gather is bound by bytes: rows read once (the 10 MB table sits in
-//   the 50 MB L2 after the first touch), rows written once.  `direct`: a
-//   warp per row, 32 x 4 bytes coalesced, `UNROLL` rows a warp per step so
-//   that UNROLL independent loads are in flight.  `ring`: each warp takes a
-//   run of rows and keeps NBUF row copies in flight with cp.async into its
-//   own shared-memory ring (the counterpart of the TPU's ring of NBUF row
-//   DMAs), storing the oldest to `out` as it lands; a thread copies and
-//   stores the same word of every row, so it waits only on its own copies.
-//
+// - row_gather is bound by bytes: each row read once and written once.  The
+//   10 MB table and the 8.4 MB output of 65 536 rows both fit the 50 MB L2,
+//   so across repeated calls the rows come from L2 and the bound that
+//   applies may be L2's, not HBM's; below ~16 000 rows the bytes take less
+//   than a launch, and the launch floor (probe_floor_launch) is the bound.
+//   What keeps a gather from its bound is the bytes in flight: at a round
+//   trip of ~1 us, 3.35 TB/s needs ~25 KB in flight on each of the 132
+//   SMs (Little's law); a warp's load of 4 bytes a thread holds 128 bytes
+//   in flight, one of 16 bytes a thread 512.  Both
+//   designs start from a persistent grid: as many blocks as the card holds
+//   at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor, asked once per
+//   variant and device and cached), and no more than the rows need.
+//   `direct`: eight threads move a row as 8 x 16 bytes, so each load
+//   instruction of a warp covers 4 rows; a warp reads the indices of its
+//   tile (up to 32 rows) in one coalesced load and hands them out with
+//   __shfl_sync; `UNROLL` rows each group of 8 threads keeps in flight (u1:
+//   4 rows a warp a step, u8: 32).  Tiles are as small as 4 rows when the
+//   rows are few, so every warp of the grid has work: 2 048 threads x 16
+//   bytes = 32 KB in flight an SM at u1.  Stores are streaming (st.cs), so
+//   the output does not push the table out of L2.
+//   `ring`: Hopper's counterpart of the TPU's ring of row DMAs.  A warp
+//   runs a ring of NBUF 128-byte slots in shared memory, one mbarrier each;
+//   its lane 0 starts one bulk copy (cp.async.bulk, completion counted in
+//   bytes on the slot's mbarrier) a row into slot i % NBUF, and the rows
+//   leave NBUF / 2 at a time, once landed, through one bulk store of a run
+//   of contiguous output rows (cp.async.bulk ... bulk_group); before a
+//   slot takes its next row, the store that reads it must have read it
+//   (wait_group.read).  At least half a ring is in flight: a b32 ring is
+//   4 KB, b8 1 KB, and an SM runs up to 48 and 64 of them.  A ring takes a
+//   run of at least NBUF rows (n >= NBUF, as the TPU kernel needs).  On the
+//   card the ring is slower than `direct` (PERF.md): what bounds it is the
+//   cost of one bulk copy a 128-byte row, not the bytes in flight.  The
+//   launch shape (grid, tile or run, slots, shared bytes) is gather_shape,
+//   which benchmarks/kernels.py:gather_shape mirrors.
+
 // Plain C interface, bound with ctypes (benchmarks/kernels.py).  Every
 // launch function runs on the stream it is given, allocates nothing, and
 // returns cudaGetLastError() (0 on success) or -1 for arguments it does not
@@ -229,116 +257,309 @@ extern "C" int digest_consume_launch(const void* x, void* d, int RQ, int B,
 
 // ------------------------------------------------------------------- K6
 
-// `direct`: warp w handles rows w*UNROLL .. w*UNROLL+UNROLL-1 of each step
-// of gridDim*warps*UNROLL rows; thread t moves word t of each of them.
+#define GATHER_WARPS (PR_BLOCK / PR_WARP)   // warps, or rings, a block
+#define ROW_BYTES 128                        // a row of the gathered table
+#define RING_STAGES 2                        // bulk stores a turn of a ring
+#define FULL_MASK 0xffffffffu
+
+// `direct`: warp w takes tiles w, w + W, ... (W warps in the grid) of
+// `tile` rows; lane l holds the index of the tile's row l.  Group g (lanes
+// 8g .. 8g+7) moves rows s + 4u + g of each step s of 4 * UNROLL rows,
+// lane 8g + j the row's 16-byte word j.
 template <int UNROLL>
-__global__ void gather_direct_kernel(const int32_t* __restrict__ table,
-                                     const int32_t* __restrict__ idx,
-                                     int32_t* __restrict__ out, int n) {
-    const int t = threadIdx.x & (PR_WARP - 1);
-    const int warp = (blockIdx.x * blockDim.x + threadIdx.x) / PR_WARP;
-    const int nwarps = gridDim.x * blockDim.x / PR_WARP;
-    for (int i0 = warp * UNROLL; i0 < n; i0 += nwarps * UNROLL) {
-        int v[UNROLL];
+__global__ void __launch_bounds__(PR_BLOCK)
+gather_direct_kernel(const int4* __restrict__ table,
+                     const int32_t* __restrict__ idx,
+                     int4* __restrict__ out, int n, int tile) {
+    const int lane = threadIdx.x & (PR_WARP - 1);
+    const int g = lane >> 3, j = lane & 7;
+    const long long warp =
+        ((long long)blockIdx.x * blockDim.x + threadIdx.x) / PR_WARP;
+    const long long nwarps = (long long)gridDim.x * blockDim.x / PR_WARP;
+    for (long long t0 = warp * tile; t0 < n; t0 += nwarps * tile) {
+        const int m = (int)(n - t0 < tile ? n - t0 : tile);
+        const int mine = lane < m ? __ldg(idx + t0 + lane) : 0;
+#pragma unroll 1
+        for (int s = 0; s < m; s += 4 * UNROLL) {
+            int4 v[UNROLL];
 #pragma unroll
-        for (int u = 0; u < UNROLL; u++) {
-            const int i = i0 + u;
-            v[u] = i < n ? table[(size_t)idx[i] * 32 + t] : 0;
-        }
+            for (int u = 0; u < UNROLL; u++) {
+                const int r = s + 4 * u + g;
+                const int row = __shfl_sync(FULL_MASK, mine,
+                                            r & (PR_WARP - 1));
+                if (r < m) v[u] = __ldg(table + (size_t)row * 8 + j);
+            }
 #pragma unroll
-        for (int u = 0; u < UNROLL; u++) {
-            const int i = i0 + u;
-            if (i < n) out[(size_t)i * 32 + t] = v[u];
+            for (int u = 0; u < UNROLL; u++) {
+                const int r = s + 4 * u + g;
+                if (r < m) __stcs(out + (size_t)(t0 + r) * 8 + j, v[u]);
+            }
         }
     }
 }
 
-__device__ __forceinline__ void cp_async4(uint32_t smem, const void* g) {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;"
-                 :: "r"(smem), "l"(g) : "memory");
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+    return (uint32_t)__cvta_generic_to_shared(p);
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-    asm volatile("cp.async.commit_group;" ::: "memory");
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+                 :: "r"(bar), "r"(count) : "memory");
 }
 
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-    asm volatile("cp.async.wait_group %0;" :: "n"(N) : "memory");
+// one arrival that also arms the barrier's phase for `bytes` of copies
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+                 :: "r"(bar), "r"(bytes) : "memory");
 }
 
-// `ring`: warp w copies rows [w*run, w*run + run) with NBUF copies in
-// flight: row i lands in slot i % NBUF of the warp's ring; at step i the
-// thread waits for its copy of row i (one commit group a row, committed in
-// order), stores it, and starts row i + NBUF in the freed slot.
+// until the barrier's phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+    uint32_t done;
+    do {
+        asm volatile("{\n\t.reg .pred p;\n\t"
+                     "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;"
+                     "\n\tselp.u32 %0, 1, 0, p;\n\t}"
+                     : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    } while (!done);
+}
+
+// global -> shared, `bytes` counted on `bar` when they land
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+    asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::"
+                 "complete_tx::bytes [%0], [%1], %2, [%3];"
+                 :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
+}
+
+// shared -> global, in the thread's current bulk group
+__device__ __forceinline__ void bulk_store(void* dst, uint32_t src,
+                                           uint32_t bytes) {
+    asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;"
+                 :: "l"(dst), "r"(src), "r"(bytes) : "memory");
+    asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+
+// until every bulk store this thread committed has read its source
+__device__ __forceinline__ void bulk_wait_read() {
+    asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+}
+
+// `ring`: warp w of block b runs ring b * GATHER_WARPS + w over rows
+// [s0, s0 + cnt), s0 = ring * run.  Shared memory: every ring's NBUF slots
+// of ROW_BYTES, then every ring's NBUF mbarriers (8 bytes each).  Ring row
+// q (0 <= q < cnt) lands in slot q % NBUF in that slot's use q / NBUF, whose
+// phase has parity (q / NBUF) & 1.  Rows leave in stages of NBUF /
+// RING_STAGES rows, one bulk store each: a stage's rows sit in contiguous
+// slots (its first row's slot is a multiple of the stage size), and go to
+// contiguous output rows.  All lanes run the loop (warp-uniform); lane 0
+// alone issues copies and stores and waits on the barriers.
 template <int NBUF>
-__global__ void gather_ring_kernel(const int32_t* __restrict__ table,
-                                   const int32_t* __restrict__ idx,
-                                   int32_t* __restrict__ out, int n,
-                                   int run) {
-    extern __shared__ int32_t ring_smem[];
-    const int t = threadIdx.x & (PR_WARP - 1);
+__global__ void __launch_bounds__(PR_BLOCK)
+gather_ring_kernel(const int32_t* __restrict__ table,
+                   const int32_t* __restrict__ idx,
+                   int32_t* __restrict__ out, int n, int run) {
+    constexpr int G = NBUF / RING_STAGES;
+    extern __shared__ __align__(128) unsigned char ring_smem[];
+    const int lane = threadIdx.x & (PR_WARP - 1);
     const int wib = threadIdx.x / PR_WARP;
-    const int warp = (blockIdx.x * blockDim.x + threadIdx.x) / PR_WARP;
-    int32_t* ring = ring_smem + (size_t)wib * NBUF * 32;
-    const int s = warp * run;
-    if (s >= n) return;
-    const int e = s + run < n ? s + run : n;
-    const uint32_t base =
-        (uint32_t)__cvta_generic_to_shared(ring) + 4u * (uint32_t)t;
-#pragma unroll
-    for (int j = 0; j < NBUF; j++) {
-        if (s + j < e)
-            cp_async4(base + 128u * j, table + (size_t)idx[s + j] * 32 + t);
-        cp_async_commit();
+    const long long s0 = ((long long)blockIdx.x * GATHER_WARPS + wib) * run;
+    if (s0 >= n) return;
+    const int cnt = (int)(n - s0 < run ? n - s0 : run);
+    const uint32_t slots = smem_u32(ring_smem) + wib * NBUF * ROW_BYTES;
+    const uint32_t bars = smem_u32(ring_smem)
+                        + GATHER_WARPS * NBUF * ROW_BYTES + wib * NBUF * 8;
+    if (lane == 0) {
+        for (int k = 0; k < NBUF; k++) mbar_init(bars + 8 * k, 1);
+        asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
     }
-    for (int i = s; i < e; i++) {
-        const int slot = (i - s) % NBUF;
-        cp_async_wait<NBUF - 1>();
-        out[(size_t)i * 32 + t] = ring[slot * 32 + t];
-        if (i + NBUF < e)
-            cp_async4(base + 128u * slot,
-                      table + (size_t)idx[i + NBUF] * 32 + t);
-        cp_async_commit();
+    __syncwarp();
+    const int32_t* ix = idx + s0;
+    int base = -PR_WARP, mine = 0;   // lane l holds the index of row base + l
+    // start ring row q's copy into slot q % NBUF; q rises by one each call
+    auto issue = [&](int q) {
+        if (q >= base + PR_WARP) {
+            base = q;
+            mine = base + lane < cnt ? __ldg(ix + base + lane) : 0;
+        }
+        const int row = __shfl_sync(FULL_MASK, mine, q - base);
+        if (lane == 0) {
+            const uint32_t bar = bars + 8 * (q % NBUF);
+            mbar_expect_tx(bar, ROW_BYTES);
+            bulk_load(slots + ROW_BYTES * (q % NBUF),
+                      table + (size_t)row * (ROW_BYTES / 4), ROW_BYTES, bar);
+        }
+    };
+    for (int q = 0; q < cnt && q < NBUF; q++) issue(q);
+    for (int st = 0; st < cnt; st += G) {
+        const int k = cnt - st < G ? cnt - st : G;
+        if (lane == 0) {
+            for (int q = st; q < st + k; q++)
+                mbar_wait(bars + 8 * (q % NBUF), (q / NBUF) & 1);
+            // the rows landed through the async proxy; order the store's
+            // reads after them
+            asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+            bulk_store(out + (size_t)(s0 + st) * (ROW_BYTES / 4),
+                       slots + ROW_BYTES * (st % NBUF), k * ROW_BYTES);
+            if (st + NBUF < cnt) bulk_wait_read();   // the slots are free
+        }
+        for (int q = st + NBUF; q < st + NBUF + k && q < cnt; q++) issue(q);
     }
-    cp_async_wait<0>();
+    if (lane == 0) bulk_wait_read();   // before the block's shared memory goes
 }
 
+__global__ void floor_kernel() {}
+
+// The launch shape of a row_gather launch (benchmarks/kernels.py
+// gather_shape mirrors it): `sms` SMs holding `bps` blocks each.  direct:
+// step = 4 * unroll rows a warp a step; tile = the least of step, 2 step,
+// ... 32 rows for which every tile has its own warp (else 32); grid = the
+// blocks the tiles need, at most sms * bps.  ring: step = nbuf /
+// RING_STAGES rows a bulk store; tile (the run of rows a ring) = the most
+// rows a ring of sms * bps * GATHER_WARPS must take, at least nbuf,
+// rounded up to a whole stage; grid = the blocks those rings fill.
+struct GatherShape { int grid, block, step, tile, slots, smem; };
+
+static void gather_shape(long long n, int mode, int unroll, int nbuf,
+                         int sms, int bps, GatherShape* s) {
+    const long long blocks_max = (long long)sms * bps;
+    const long long warps_max = blocks_max * GATHER_WARPS;
+    s->block = PR_BLOCK;
+    if (mode == 0) {
+        s->step = 4 * unroll;
+        long long tile = s->step;
+        while (tile < PR_WARP && (n + tile - 1) / tile > warps_max) tile *= 2;
+        const long long blocks =
+            ((n + tile - 1) / tile + GATHER_WARPS - 1) / GATHER_WARPS;
+        s->grid = (int)(blocks < blocks_max ? blocks : blocks_max);
+        s->tile = (int)tile;
+        s->slots = 0;
+        s->smem = 0;
+    } else {
+        s->step = nbuf / RING_STAGES;
+        long long run = (n + warps_max - 1) / warps_max;
+        if (run < nbuf) run = nbuf;
+        run = (run + s->step - 1) / s->step * s->step;
+        const long long rings = (n + run - 1) / run;
+        s->grid = (int)((rings + GATHER_WARPS - 1) / GATHER_WARPS);
+        s->tile = (int)run;
+        s->slots = nbuf;
+        s->smem = GATHER_WARPS * nbuf * (ROW_BYTES + 8);
+    }
+}
+
+// variants: 0 direct u1, 1 direct u8, 2 ring b8, 3 ring b32; -1 refused
+static int gather_variant(int mode, int unroll, int nbuf) {
+    if (mode == 0) return unroll == 1 ? 0 : unroll == 8 ? 1 : -1;
+    if (mode == 1) return nbuf == 8 ? 2 : nbuf == 32 ? 3 : -1;
+    return -1;
+}
+
+#define GATHER_MAX_DEVICES 64
+static int g_sms[GATHER_MAX_DEVICES];
+static int g_bps[4][GATHER_MAX_DEVICES];   // 0: not asked yet
+
+// SMs of the current device and blocks of `variant` an SM holds, asked once
+// and cached; asked for the first time inside a stream capture, refused
+// (returns -1), since a capture must take no such query
+static int gather_occupancy(int variant, cudaStream_t st, int* sms,
+                            int* bps) {
+    int dev;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return (int)e;
+    if (dev >= GATHER_MAX_DEVICES) return -1;
+    if (!g_sms[dev] || !g_bps[variant][dev]) {
+        cudaStreamCaptureStatus cs;
+        e = cudaStreamIsCapturing(st, &cs);
+        if (e != cudaSuccess) return (int)e;
+        if (cs != cudaStreamCaptureStatusNone) return -1;
+        int m = 0, b = 0;
+        e = cudaDeviceGetAttribute(&m, cudaDevAttrMultiProcessorCount, dev);
+        if (e != cudaSuccess) return (int)e;
+        const int nbuf = variant == 2 ? 8 : 32;
+        const size_t smem = GATHER_WARPS * nbuf * (ROW_BYTES + 8);
+        switch (variant) {
+        case 0: e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                    &b, gather_direct_kernel<1>, PR_BLOCK, 0); break;
+        case 1: e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                    &b, gather_direct_kernel<8>, PR_BLOCK, 0); break;
+        case 2: e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                    &b, gather_ring_kernel<8>, PR_BLOCK, smem); break;
+        default: e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                    &b, gather_ring_kernel<32>, PR_BLOCK, smem); break;
+        }
+        if (e != cudaSuccess) return (int)e;
+        if (b < 1) return -1;
+        g_sms[dev] = m;
+        g_bps[variant][dev] = b;
+    }
+    *sms = g_sms[dev];
+    *bps = g_bps[variant][dev];
+    return 0;
+}
+
+// The launch shape row_gather_launch takes on the current device, as
+// out[0..7] = grid, block, step, tile, slots, smem, SMs, blocks an SM.
+extern "C" int row_gather_shape(int n, int mode, int unroll, int nbuf,
+                                int* out) {
+    const int v = gather_variant(mode, unroll, nbuf);
+    if (n < 1 || v < 0) return -1;
+    int sms, bps;
+    const int rc = gather_occupancy(v, 0, &sms, &bps);
+    if (rc) return rc;
+    GatherShape s;
+    gather_shape(n, mode, unroll, nbuf, sms, bps, &s);
+    const int o[8] = {s.grid, s.block, s.step, s.tile, s.slots, s.smem, sms,
+                      bps};
+    for (int k = 0; k < 8; k++) out[k] = o[k];
+    return 0;
+}
 
 // mode 0 = direct (unroll 1 or 8), 1 = ring (nbuf 8 or 32); the table has
 // 32 int32 words a row; n >= nbuf for the ring (the TPU kernel starts nbuf
-// copies before its loop).
+// copies before its loop); table and out 16-byte aligned.
 extern "C" int row_gather_launch(const void* table, const void* idx,
                                  void* out, int n, int mode, int unroll,
                                  int nbuf, void* stream) {
-    if (n < 1) return -1;
+    const int v = gather_variant(mode, unroll, nbuf);
+    if (n < 1 || v < 0 || (mode == 1 && n < nbuf)) return -1;
+    if (((uintptr_t)table | (uintptr_t)out) & 15) return -1;
     cudaStream_t st = (cudaStream_t)stream;
+    int sms, bps;
+    const int rc = gather_occupancy(v, st, &sms, &bps);
+    if (rc) return rc;
+    GatherShape s;
+    gather_shape(n, mode, unroll, nbuf, sms, bps, &s);
     const int32_t* tb = (const int32_t*)table;
     const int32_t* ix = (const int32_t*)idx;
     int32_t* o = (int32_t*)out;
-    const int warps_per_block = PR_BLOCK / PR_WARP;
-    if (mode == 0) {
-        if (unroll != 1 && unroll != 8) return -1;
-        const int steps = (n + unroll - 1) / unroll;
-        int blocks = (steps + warps_per_block - 1) / warps_per_block;
-        if (unroll == 1)
-            gather_direct_kernel<1><<<blocks, PR_BLOCK, 0, st>>>(tb, ix, o, n);
-        else
-            gather_direct_kernel<8><<<blocks, PR_BLOCK, 0, st>>>(tb, ix, o, n);
-    } else if (mode == 1) {
-        if ((nbuf != 8 && nbuf != 32) || n < nbuf) return -1;
-        const int run = 4 * nbuf;      // rows a warp: four turns of its ring
-        const int warps = (n + run - 1) / run;
-        const int blocks = (warps + warps_per_block - 1) / warps_per_block;
-        const size_t smem = (size_t)warps_per_block * nbuf * 32 * 4;
-        if (nbuf == 8)
-            gather_ring_kernel<8><<<blocks, PR_BLOCK, smem, st>>>(
-                tb, ix, o, n, run);
-        else
-            gather_ring_kernel<32><<<blocks, PR_BLOCK, smem, st>>>(
-                tb, ix, o, n, run);
-    } else {
-        return -1;
+    switch (v) {
+    case 0:
+        gather_direct_kernel<1><<<s.grid, s.block, 0, st>>>(
+            (const int4*)tb, ix, (int4*)o, n, s.tile);
+        break;
+    case 1:
+        gather_direct_kernel<8><<<s.grid, s.block, 0, st>>>(
+            (const int4*)tb, ix, (int4*)o, n, s.tile);
+        break;
+    case 2:
+        gather_ring_kernel<8><<<s.grid, s.block, s.smem, st>>>(
+            tb, ix, o, n, s.tile);
+        break;
+    default:
+        gather_ring_kernel<32><<<s.grid, s.block, s.smem, st>>>(
+            tb, ix, o, n, s.tile);
+        break;
     }
+    return (int)cudaGetLastError();
+}
+
+// ------------------------------------------------------------ launch floor
+
+// An empty kernel of `grid` blocks of `block` threads: the least time a
+// launch of that shape takes (no TPU kernel; see the note at the top).
+extern "C" int probe_floor_launch(int grid, int block, void* stream) {
+    if (grid < 1 || block < 1 || block > 1024) return -1;
+    floor_kernel<<<grid, block, 0, (cudaStream_t)stream>>>();
     return (int)cudaGetLastError();
 }

@@ -54,7 +54,10 @@ after the last timed section, so no timed section shares the card or the
 host with them.  Search launches are timed by the two CUDA events that the
 kernel's C launch records right around each launch (`t_search`, and every
 comparison: no host work of the wrapper between them); the probe kernels
-K5 and K6 and their library calls by replays of a CUDA graph of many calls.
+K5 and K6 and their library calls by replays of a CUDA graph of many calls,
+beside an empty kernel of the same grid (the launch floor, which bounds a
+call whose bytes take less); K4 against a latency bound, K times the ns a
+wave of its lightest comparison.
 The build phase prints what `-Xptxas -v` says of each instantiation
 (registers, stack, spills); main_path.profile is one try of torch.profiler
 over the main path's call (the card's own busy share).
@@ -1343,32 +1346,34 @@ def main() -> int:
 
     pcmps: dict = {"dma_wave": [], "digest_consume": [], "row_gather": []}
 
-    def probe_compare(name, fn, plain, sets, nbytes, library=None,
-                      graph=False, **what):
+    def probe_compare(name, fn, plain, sets, nbytes, grid, library=None,
+                      **what):
         """One probe kernel on the card against its plain version on host
-        copies of the first of `sets` (argument tuples of distinct inputs);
-        kernel and library call timed with CUDA events, one call on each
-        other set after a warm-up on the last (`graph`: GRAPH_CALLS calls
-        over the other sets in one CUDA graph, replayed between the events,
-        so the host's dispatch is not timed), the plain version on the host
-        clock."""
+        copies of the first of `sets` (argument tuples of distinct inputs).
+        The kernel, the library call and the empty kernel of the kernel's
+        `grid` (blocks, threads a block: the launch floor) are each timed
+        with CUDA events around one replay of a CUDA graph of GRAPH_CALLS
+        calls over the other sets, after a warm-up on the last, so the
+        host's dispatch is not timed; the plain version on the host clock.
+        The bound with the floor is the larger of it and the byte bound."""
         got = fn(*sets[0]).cpu()
         host = [x.cpu() if torch.is_tensor(x) else x for x in sets[0]]
         t0 = time.time()
         ref = plain(*host)
         plain_ms = (time.time() - t0) * 1e3
         err = int((got.to(torch.int64) - ref.to(torch.int64)).abs().max())
-        n_t = len(sets) - 1
-        timer = probe_k.time_calls
-        if graph:
-            n_t, timer = GRAPH_CALLS, probe_k.time_graph
-        line = dict(ms=timer(fn, sets, n_t),
-                    plain_ms=plain_ms,
+        ms = probe_k.time_graph(fn, sets, GRAPH_CALLS)
+        bound = nbytes / PEAK_BYTES_S * 1e3
+        floor = probe_k.time_graph(
+            lambda *_a: probe_k.launch_floor(*grid, dev), sets, GRAPH_CALLS)
+        line = dict(ms=ms, plain_ms=plain_ms,
                     library_ms=None if library is None else
-                    timer(library, sets, n_t), timed_by=(
-                        f"CUDA graph of {n_t} calls" if graph else
-                        f"{n_t} calls between two events"),
-                    bound_ms=nbytes / PEAK_BYTES_S * 1e3, bound_by="bytes",
+                    probe_k.time_graph(library, sets, GRAPH_CALLS),
+                    timed_by=f"CUDA graph of {GRAPH_CALLS} calls",
+                    bound_ms=bound, bound_by="bytes", launch_grid=list(grid),
+                    launch_floor_ms=floor,
+                    bound_with_floor_ms=max(bound, floor),
+                    time_over_bound_with_floor=ms / max(bound, floor),
                     max_abs_err=err, equal_to_plain=err == 0, **what)
         pcmps[name].append(line)
         emit("probes.compare", kernel=name, **line)
@@ -1376,8 +1381,9 @@ def main() -> int:
             fail("probes", f"{name} {what} != its plain version")
         return line
 
-    # every comparison is timed over SETS distinct input sets, one warms up;
-    # K5 and K6 (a few microseconds a call) in a graph of GRAPH_CALLS calls
+    # every comparison is timed over SETS distinct input sets, one warms up,
+    # in a graph of GRAPH_CALLS calls (K4's lightest launch, K5 and K6 take
+    # a few microseconds, less than the host's dispatch of a call takes)
     SETS = 21
     GRAPH_CALLS = 200
     # K4: the probe's table (N rows of 512 bytes), B0 = 128 lanes for 16
@@ -1396,8 +1402,27 @@ def main() -> int:
                 lambda i, tb, k=kw, h=heavy: probe_k.dma_wave_plain(
                     i, tb, k, h),
                 sets, b0 * kw * (128 if heavy else 32) + 2 * 8 * b0 * 4,
-                variant=variant, B0=b0, K=kw, N=dma_probe.N)
+                probe_k.wave_grid(b0), variant=variant, B0=b0, K=kw,
+                N=dma_probe.N)
     del tbl, idx_w, sets
+    # K4's latency bound: K times the ns a wave of its lightest comparison
+    # (`wave`, B0 = 128, K = 16; its time less the launch floor of its
+    # grid, over its K), the least a chain of K dependent fetches takes on
+    # this card
+    k4_light = next(x for x in pcmps["dma_wave"]
+                    if x["B0"] == 128 and x["variant"] == "wave")
+    wave_ns = (k4_light["ms"] - k4_light["launch_floor_ms"]) * 1e6 / \
+        k4_light["K"]
+    for x in pcmps["dma_wave"]:
+        x.update(latency_bound_ms=x["K"] * wave_ns / 1e6,
+                 time_over_latency_bound=x["ms"] / (x["K"] * wave_ns / 1e6))
+        emit("probes.latency_bound", kernel="dma_wave",
+             variant=x["variant"], B0=x["B0"], K=x["K"], ms=x["ms"],
+             latency_bound_ms=x["latency_bound_ms"],
+             time_over_latency_bound=x["time_over_latency_bound"],
+             ns_a_wave_from="wave, B0 = 128, K = 16, less its launch "
+                            "floor", ns_a_wave=wave_ns,
+             card=card)
     # K5: one iteration's rows of every variant, in its layout; the
     # library call is torch.sum over the digest view
     for variant, (rq, _w, layout) in gather_pallas_probe.VARIANTS.items():
@@ -1412,15 +1437,35 @@ def main() -> int:
             lambda x_, l=layout, r=rq: probe_k.digest_consume_plain(
                 x_, l, r, B_),
             sets, rq * B_ * 8 * 4 + 8 * B_ * 4,
+            probe_k.digest_grid(layout, B_),
             library=lambda x_, l=layout, r=rq: probe_k.digest_view(
-                x_, l, r, B_).sum(dim=0, dtype=torch.int32), graph=True,
+                x_, l, r, B_).sum(dim=0, dtype=torch.int32),
             variant=variant, layout=layout, RQ=rq, B=B_)
         del tb, k0, sets
-    # K6: both N, every variant; the library call is index_select
+    # K6: both N, every variant; the library call is index_select.  The
+    # launch shape the C side takes must be the one kernels.gather_shape
+    # computes for the card's SMs and occupancy.  The table and the output
+    # fit the 50 MB L2, so the rows may come from L2: beside the HBM byte
+    # bound stands an L2 bound, the gather's bytes at the rate a contiguous
+    # copy of its n rows reaches in the same harness
     for n_ in gather_bench.NS:
         tb, ks = gather_bench.make_inputs(gather_bench.NBLK, n_, dev, seed=1,
                                           sets=SETS)
+        l2_copy_ms = probe_k.time_graph(lambda t_, k_, m=n_: t_[:m].clone(),
+                                        [(tb, k) for k in ks], GRAPH_CALLS)
+        l2_bound_ms = (n_ * 128 * 2 + n_ * 4) / (n_ * 128 * 2) * l2_copy_ms
         for variant, mode, unroll, nbuf in gather_bench.VARIANTS:
+            shape, g_sms, g_bps = probe_k.gather_shape_on_card(
+                n_, mode, unroll, nbuf)
+            mirror = probe_k.gather_shape(n_, mode, unroll, nbuf, g_sms,
+                                          g_bps)
+            emit("probes.shape", kernel="row_gather", variant=variant, N=n_,
+                 **shape._asdict(), sms=g_sms, blocks_per_sm=g_bps,
+                 mirrors=shape == mirror)
+            if shape != mirror or shape.smem > kernel.SMEM_MAX:
+                fail("probes", f"row_gather {variant} N={n_}: the C shape "
+                               f"{shape} is not kernels.gather_shape's "
+                               f"{mirror}, or past {kernel.SMEM_MAX} bytes")
             probe_compare(
                 "row_gather",
                 lambda t_, k_, m=mode, u=unroll, b=nbuf: probe_k.row_gather(
@@ -1428,8 +1473,11 @@ def main() -> int:
                 lambda t_, k_, m=mode, u=unroll, b=nbuf:
                     probe_k.row_gather_plain(t_, k_, m, u, b),
                 [(tb, k) for k in ks], n_ * 128 * 2 + n_ * 4,
+                (shape.grid, shape.block),
                 library=lambda t_, k_: t_.index_select(0, k_.long()),
-                graph=True, variant=variant, N=n_, NBLK=gather_bench.NBLK)
+                variant=variant, N=n_,
+                NBLK=gather_bench.NBLK, l2_copy_ms=l2_copy_ms,
+                l2_bound_ms=l2_bound_ms)
         del tb, ks
     # an index outside the table is refused on the card, before a launch
     tb = torch.zeros((16, 128), dtype=torch.int32, device=dev)
@@ -1721,14 +1769,21 @@ def main() -> int:
     },
         probe_entry("dma_wave", "benchmarks/dma_probe.py:99",
                     "_make (pallas_call :99, kernel :48)", k4_main,
-                    latency_ns_per_dependent_row=latency_ns),
+                    latency_ns_per_dependent_row=latency_ns,
+                    latency_bound_ms=k4_main["latency_bound_ms"],
+                    time_over_latency_bound=k4_main[
+                        "time_over_latency_bound"]),
         probe_entry("digest_consume", "benchmarks/gather_pallas_probe.py:50",
                     "consume :49, consume_rowmajor :103, run_pad128's "
                     "consume :157, run_pad128_grid's consume3 :195",
-                    k5_main),
+                    k5_main, launch_floor_ms=k5_main["launch_floor_ms"],
+                    bound_with_floor_ms=k5_main["bound_with_floor_ms"]),
         probe_entry("row_gather", "benchmarks/gather_bench.py:56",
                     "gather_vmem :54 (_vmem_kernel :46), gather_hbm :101 "
-                    "(_hbm_kernel :68)", k6_main),
+                    "(_hbm_kernel :68)", k6_main,
+                    launch_floor_ms=k6_main["launch_floor_ms"],
+                    bound_with_floor_ms=k6_main["bound_with_floor_ms"],
+                    l2_bound_ms=k6_main["l2_bound_ms"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

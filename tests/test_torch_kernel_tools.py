@@ -19,6 +19,7 @@ sys.path.insert(0, TOOLS)
 import kernel_ab  # noqa: E402
 import kernel_phases  # noqa: E402
 import paths_ab  # noqa: E402
+import probes_ab  # noqa: E402
 
 
 def test_phase_probes_find_their_anchors_in_the_kernel_source():
@@ -38,7 +39,8 @@ def test_phase_probes_find_their_anchors_in_the_kernel_source():
     lambda tmp: kernel_ab.main(["a.cu", "--workdir", tmp]),
     lambda tmp: kernel_phases.main(["--workdir", tmp]),
     lambda tmp: paths_ab.run_one(paths_ab.HERE, tmp, "0T"),
-], ids=["kernel_ab", "kernel_phases", "paths_ab"])
+    lambda tmp: probes_ab.main(["a.cu"]),
+], ids=["kernel_ab", "kernel_phases", "paths_ab", "probes_ab"])
 def test_tools_refuse_to_run_without_a_card(run, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA device only"):
         run(str(tmp_path))
