@@ -1,8 +1,9 @@
 // ring_search.cu — the inexact search as one CUDA kernel, in two launch
 // modes (ring queue, fixed batch), for two alphabets (the 16-letter
 // multi-genome, the 4-letter single genome of `-S`) and for two index
-// layouts (int32; int64, the whole-genome layout, in fixed mode only): six
-// instantiations of one template.
+// layouts (int32; int64, the whole-genome layout, in fixed mode only), each
+// fixed one also over a table range-sharded across the cards of a mesh row:
+// ten instantiations of one template.
 //
 // Replaces: bwbble_tpu/engine/kernel.py:_resident_kernel, in ring mode
 // (driven by run_loop_resident_queued) and in fixed-batch mode (driven by
@@ -93,6 +94,16 @@
 // NSLOT * 6 + 1 words padded to a multiple of 4 (140 and 56).  Nothing else
 // moves: exploration order is the contract.
 //
+// Sharded tables (tp > 1; fixed batches only, as a mesh runs them).
+// `--mesh DP,TP` range-shards the table over the tp cards of a mesh row
+// (parallel/shard.py): shard s holds blocks [s * nloc, (s + 1) * nloc), the
+// last one zero-padded.  A rank row is read from the shard that owns its
+// block, on the launching card or on a peer card over NVLink (peer access,
+// ring_search_enable_peer); the rows are the same, so every result is the
+// unsharded launch's.  Only the row's address changes (row_addr); the
+// unsharded instantiations read through their own table pointer.  No padding
+// row is read: positions are clamped to length - 2 before the block lookup.
+//
 // Seeded roots.  Given seed_L/seed_U [Q, NROOT] and seed_cnt [Q], read r's
 // root s < scnt is (seed_L[r][s], seed_U[r][s]) at i = len - PK with a
 // PK-long all-match path, linked to root s - 1 in bucket 0 (links are stored
@@ -123,6 +134,7 @@
 #define RS_SMEM_MAX 232448   // dynamic shared memory a block may have (H100)
 #define RS_FULL 0xFFFFFFFFu
 #define RS_PAR_MAX 2048      // frames a read whose parents shared memory keeps
+#define RS_TP_MAX 8          // shards a table may have (cards of a mesh row)
 
 #define STATE_M 0
 #define STATE_I 1
@@ -157,6 +169,35 @@ struct Layout {
                    : (IT)P.LEN;
     }
 };
+
+// The index table as the kernel reads it: shard s holds blocks [s * nloc,
+// (s + 1) * nloc) of the table (tp = 1: p[0] is the whole table).
+struct Shards {
+    const int32_t* p[RS_TP_MAX];
+    long long nloc;
+    int tp;
+};
+
+// The row of block ic >> 7 (ic a clamped position): in the one table, through
+// the kernel's restrict-qualified pointer (not TP: without the qualifier
+// ptxas gave the unsharded instantiations 120-122 registers instead of 96,
+// and the int64 ones spills), or row k % nloc of shard k / nloc (TP; p[]
+// read from the kernel's parameter space).
+template <typename IT, bool TP>
+__device__ __forceinline__ const int32_t* row_addr(
+        const int32_t* __restrict__ table, const Shards& sh, IT ic) {
+    const IT k = ic >> 7;
+    if constexpr (!TP) {
+        return table + (size_t)k * Layout<IT>::TW;
+    } else {
+        const IT nloc = (IT)sh.nloc;
+        int s = 0;
+#pragma unroll
+        for (int u = 1; u < RS_TP_MAX; u++)
+            s += (u < sh.tp) & (k >= (IT)u * nloc);
+        return sh.p[s] + (size_t)(k - (IT)s * nloc) * Layout<IT>::TW;
+    }
+}
 
 // A lane's shared memory, byte offsets of each array (16-byte aligned):
 // C [17], D [(Lmax + 1) * 2], D_seed [DS * 2], the two exact-completion
@@ -286,16 +327,17 @@ struct Row {
     int off, edge;
 };
 
-template <typename IT>
+template <typename IT, bool TP>
 __device__ __forceinline__ Row<IT> load_row(const int32_t* __restrict__ table,
-                                            IT LEN, IT i, int j) {
+                                            const Shards& sh, IT LEN, IT i,
+                                            int j) {
     Row<IT> r;
     const IT len_m1 = LEN - 1;
     r.edge = i == len_m1 ? 1 : (i < 0 ? 2 : 0);
     if (r.edge) return r;
     const IT hi = len_m1 - 1 > 0 ? len_m1 - 1 : 0;
     const IT ic = i < hi ? i : hi;
-    const int32_t* row = table + (size_t)(ic >> 7) * Layout<IT>::TW;
+    const int32_t* row = row_addr<IT, TP>(table, sh, ic);
     r.off = (int)(ic & 127);
     const int4* r4 = reinterpret_cast<const int4*>(row);
     r.p0 = __ldg(r4); r.p1 = __ldg(r4 + 1); r.p2 = __ldg(r4 + 2);
@@ -349,17 +391,17 @@ __device__ __forceinline__ IT count_row(const Row<IT>& r, const IT* carr,
 // The same bound, its row read right here: an exact-completion item ranks
 // its two ends one after the other, which keeps the kernel's registers
 // down.
-template <bool DFS, typename IT>
+template <bool DFS, bool TP, typename IT>
 __device__ __forceinline__ IT rank_one(const int32_t* __restrict__ table,
-                                       const IT* carr, IT LEN, IT i,
-                                       int inc, int j) {
+                                       const Shards& sh, const IT* carr,
+                                       IT LEN, IT i, int inc, int j) {
     const IT len_m1 = LEN - 1;
     if (j == 0) return 0;
     if (i == len_m1) return carr[j + 1] + inc;
     if (i < 0) return carr[j] + inc;
     const IT hi = len_m1 - 1 > 0 ? len_m1 - 1 : 0;
     const IT ic = i < hi ? i : hi;
-    const int32_t* row = table + (size_t)(ic >> 7) * Layout<IT>::TW;
+    const int32_t* row = row_addr<IT, TP>(table, sh, ic);
     const int4* r4 = reinterpret_cast<const int4*>(row);
     IT ck;
     if constexpr (Layout<IT>::X64)
@@ -435,10 +477,11 @@ __device__ __forceinline__ bool emit_alns(const RSParams& P, ReadState<IT>& S,
     return false;
 }
 
-template <bool MULTI, bool FIXED, typename IT>
+template <bool MULTI, bool FIXED, typename IT, bool TP>
 __global__ void __launch_bounds__(RS_WARP)
 ring_search_kernel(
         RSParams P, const int32_t* __restrict__ table,
+        const __grid_constant__ Shards sh,
         const IT* __restrict__ carr_g, const int8_t* __restrict__ rc,
         const int32_t* __restrict__ lens, const IT* __restrict__ D,
         const IT* __restrict__ Ds, const IT* __restrict__ seed_L,
@@ -600,8 +643,8 @@ ring_search_kernel(
             // that of eU; thread j of a half forms code j's bound (unused
             // when the pop does not expand)
             const int half = t >> 4, jc = t & 15;
-            const Row<IT> row = load_row<IT>(table, LEN, half ? eU : eL - 1,
-                                             jc);
+            const Row<IT> row = load_row<IT, TP>(table, sh, LEN,
+                                                 half ? eU : eL - 1, jc);
             if (t == 0)
                 head[bucket] = (int)((m2 >> 8) & 0xFFFFFFu) - 1;  // 24-bit link
             __syncwarp();
@@ -692,10 +735,10 @@ ring_search_kernel(
                             uint32_t mq = need;
                             for (int z = k - e * nq; z > 0; z--) mq &= mq - 1;
                             const int q = __ffs(mq) - 1;
-                            L = rank_one<false>(table, carr, LEN,
-                                                cur[2 * e] - 1, 1, q);
-                            U = rank_one<false>(table, carr, LEN,
-                                                cur[2 * e + 1], 0, q);
+                            L = rank_one<false, TP>(table, sh, carr, LEN,
+                                                    cur[2 * e] - 1, 1, q);
+                            U = rank_one<false, TP>(table, sh, carr, LEN,
+                                                    cur[2 * e + 1], 0, q);
                         }
                         const bool ne_ = k < items && L <= U;
                         const unsigned ne = __ballot_sync(RS_FULL, ne_);
@@ -931,14 +974,14 @@ extern "C" long long ring_search_lane_smem(int NB, int Lmax, int DS, int XC,
     return (long long)LaneSmem(NB, Lmax, DS, XC, x64 ? 8 : 4, NFRAME).bytes;
 }
 
-template <bool MULTI, bool FIXED, typename IT>
-static int launch(const RSParams& P, size_t smem, const void* table,
+template <bool MULTI, bool FIXED, typename IT, bool TP>
+static int launch(const RSParams& P, size_t smem, const Shards& sh,
                   const void* carr, const void* rc, const void* lens,
                   const void* D, const void* Ds, const void* sL,
                   const void* sU, const void* scnt, void* arena,
                   void* counter, void* q_alns, void* q_meta, void* q_paths,
                   void* stream, void* ev0, void* ev1) {
-    auto kern = ring_search_kernel<MULTI, FIXED, IT>;
+    auto kern = ring_search_kernel<MULTI, FIXED, IT, TP>;
     if (smem > 48 * 1024) {
         cudaError_t e = cudaFuncSetAttribute(
             kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -950,7 +993,7 @@ static int launch(const RSParams& P, size_t smem, const void* table,
         if (e != cudaSuccess) return (int)e;
     }
     kern<<<P.lanes, RS_WARP, smem, (cudaStream_t)stream>>>(
-        P, (const int32_t*)table, (const IT*)carr, (const int8_t*)rc,
+        P, sh.p[0], sh, (const IT*)carr, (const int8_t*)rc,
         (const int32_t*)lens, (const IT*)D, (const IT*)Ds,
         (const IT*)sL, (const IT*)sU, (const int32_t*)scnt,
         (int32_t*)arena, (int32_t*)counter,
@@ -963,9 +1006,9 @@ static int launch(const RSParams& P, size_t smem, const void* table,
 // Blocks of an instantiation that an SM holds at once with `smem` bytes of
 // dynamic shared memory a block (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
 // or minus the CUDA error.
-template <bool MULTI, bool FIXED, typename IT>
+template <bool MULTI, bool FIXED, typename IT, bool TP = false>
 static int occupancy(long long smem) {
-    auto kern = ring_search_kernel<MULTI, FIXED, IT>;
+    auto kern = ring_search_kernel<MULTI, FIXED, IT, TP>;
     cudaError_t e = cudaSuccess;
     if (smem > 48 * 1024)
         e = cudaFuncSetAttribute(
@@ -978,7 +1021,15 @@ static int occupancy(long long smem) {
 }
 
 extern "C" int ring_search_occupancy(int multiref, int fixed, int x64,
-                                     long long smem) {
+                                     int sharded, long long smem) {
+    if (sharded) {
+        if (!fixed) return -1;
+        if (x64)
+            return multiref ? occupancy<true, true, long long, true>(smem)
+                            : occupancy<false, true, long long, true>(smem);
+        return multiref ? occupancy<true, true, int, true>(smem)
+                        : occupancy<false, true, int, true>(smem);
+    }
     if (x64)
         return multiref ? occupancy<true, true, long long>(smem)
                         : occupancy<false, true, long long>(smem);
@@ -1000,22 +1051,26 @@ extern "C" int ring_search_row_words(int multiref, int x64) {
 // Launches on `stream`, one lane (one warp) a block, between the records of
 // the CUDA events `ev0` and `ev1` on the same stream (either may be null: no
 // record); returns the first CUDA error of the records and the launch (0 on
-// success), or -1 when the parameter block does
-// not match RSParams, a lane's shared memory exceeds the card's, a fixed
-// launch has not one lane per read, the seeds are given in part or with
-// NROOT < 1, or the int64 layout is asked of a ring launch.  `multiref` picks the alphabet,
-// `fixed` the launch mode (`counter` is not read then), `x64` the index
-// layout (carr, D, Ds, the seed intervals and q_alns are int64 then, the
-// table has 48 words a row); seed_L, seed_U and seed_cnt are all null (one
-// unseeded root, NROOT = 1) or all given ([Q, NROOT], [Q, NROOT], [Q]
-// int32).
+// success), or -1 when the parameter block does not match RSParams, a lane's
+// shared memory exceeds the card's, a fixed launch has not one lane per
+// read, the seeds are given in part or with NROOT < 1, the int64 layout or
+// a sharded table is asked of a ring launch, or the shards are not 1 to
+// RS_TP_MAX non-null tables of nloc rows that hold every block a rank reads.
+// `multiref` picks the alphabet, `fixed` the launch mode (`counter` is not
+// read then), `x64` the index layout (carr, D, Ds, the seed intervals and
+// q_alns are int64 then, the table has 48 words a row); `shards` holds `tp`
+// table pointers, each of `nloc` rows (tp = 1: the whole table; tp > 1:
+// shard s holds blocks [s * nloc, (s + 1) * nloc), on the launching card or
+// on a card it has peer access to); seed_L, seed_U and seed_cnt are all
+// null (one unseeded root, NROOT = 1) or all given ([Q, NROOT], [Q, NROOT],
+// [Q] int32).
 extern "C" int ring_search_launch(
         const int* hp, int nhp, int multiref, int fixed, int x64,
-        const void* table, const void* carr, const void* rc,
-        const void* lens, const void* D, const void* Ds, const void* seed_L,
-        const void* seed_U, const void* seed_cnt, void* arena, void* counter,
-        void* q_alns, void* q_meta, void* q_paths, void* stream, void* ev0,
-        void* ev1) {
+        const void* const* shards, int tp, long long nloc, const void* carr,
+        const void* rc, const void* lens, const void* D, const void* Ds,
+        const void* seed_L, const void* seed_U, const void* seed_cnt,
+        void* arena, void* counter, void* q_alns, void* q_meta,
+        void* q_paths, void* stream, void* ev0, void* ev1) {
     if (nhp != (int)(sizeof(RSParams) / sizeof(int))) return -1;
     RSParams P;
     memcpy(&P, hp, sizeof(P));
@@ -1028,16 +1083,68 @@ extern "C" int ring_search_launch(
                     + (seed_cnt != nullptr);
     if (nseed == 1 || nseed == 2 || P.NROOT < 1 || (!nseed && P.NROOT != 1))
         return -1;
-#define RS_LAUNCH(M, F, T) launch<M, F, T>(                           \
-        P, (size_t)smem, table, carr, rc, lens, D, Ds, seed_L, seed_U, \
+    if (!shards || tp < 1 || tp > RS_TP_MAX || nloc < 1 || (tp > 1 && !fixed)
+            || (!x64 && nloc > INT_MAX / RS_TP_MAX))
+        return -1;
+    Shards sh = {};
+    for (int s = 0; s < tp; s++) {
+        if (!shards[s]) return -1;
+        sh.p[s] = (const int32_t*)shards[s];
+    }
+    sh.nloc = nloc;
+    sh.tp = tp;
+    // the last block a rank reads: positions are clamped to length - 2
+    const long long len = (long long)(((unsigned long long)(uint32_t)P.LEN_HI
+                                       << 32) | (uint32_t)P.LEN);
+    if (len >= 2 && ((len - 2) >> 7) >= nloc * tp) return -1;
+#define RS_LAUNCH(M, F, T, S) launch<M, F, T, S>(                          \
+        P, (size_t)smem, sh, carr, rc, lens, D, Ds, seed_L, seed_U,        \
         seed_cnt, arena, counter, q_alns, q_meta, q_paths, stream, ev0, ev1)
     if (x64) {
         if (!fixed) return -1;
-        return multiref ? RS_LAUNCH(true, true, long long)
-                        : RS_LAUNCH(false, true, long long);
+        if (tp > 1)
+            return multiref ? RS_LAUNCH(true, true, long long, true)
+                            : RS_LAUNCH(false, true, long long, true);
+        return multiref ? RS_LAUNCH(true, true, long long, false)
+                        : RS_LAUNCH(false, true, long long, false);
     }
+    if (tp > 1)
+        return multiref ? RS_LAUNCH(true, true, int, true)
+                        : RS_LAUNCH(false, true, int, true);
     if (multiref)
-        return fixed ? RS_LAUNCH(true, true, int) : RS_LAUNCH(true, false, int);
-    return fixed ? RS_LAUNCH(false, true, int) : RS_LAUNCH(false, false, int);
+        return fixed ? RS_LAUNCH(true, true, int, false)
+                     : RS_LAUNCH(true, false, int, false);
+    return fixed ? RS_LAUNCH(false, true, int, false)
+                 : RS_LAUNCH(false, false, int, false);
 #undef RS_LAUNCH
+}
+
+// Lets kernels launched on card `dev` read the memory of card `peer` (a
+// shard of a table), over NVLink.  Returns 0 when they may, also when the
+// pair's access was already enabled (by an earlier call, or by PyTorch for
+// its own copies), cudaErrorPeerAccessUnsupported when `dev` cannot reach
+// `peer`, else the CUDA error of the query or the enable.  The error a call
+// leaves is cleared, so that the next launch's cudaGetLastError does not
+// report it, and the current device is left as it was.
+extern "C" int ring_search_enable_peer(int dev, int peer) {
+    int can = 0, cur = 0;
+    cudaError_t e = cudaDeviceCanAccessPeer(&can, dev, peer);
+    if (e == cudaSuccess && !can) e = cudaErrorPeerAccessUnsupported;
+    if (e == cudaSuccess) e = cudaGetDevice(&cur);
+    if (e == cudaSuccess) {
+        e = cudaSetDevice(dev);
+        if (e == cudaSuccess) {
+            e = cudaDeviceEnablePeerAccess(peer, 0);
+            if (e == cudaErrorPeerAccessAlreadyEnabled) e = cudaSuccess;
+        }
+        const cudaError_t back = cudaSetDevice(cur);
+        if (e == cudaSuccess) e = back;
+    }
+    cudaGetLastError();
+    return (int)e;
+}
+
+// The CUDA runtime's text for error `e`.
+extern "C" const char* ring_search_error_string(int e) {
+    return cudaGetErrorString((cudaError_t)e);
 }

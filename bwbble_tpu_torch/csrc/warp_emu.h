@@ -5,8 +5,12 @@
 // ballot, vote, match, reduce, __syncwarp) is an exchange through a buffer
 // of the warp between two barriers, so threads run independently between
 // intrinsics, as on a card with independent thread scheduling.  Event
-// records and launches are logged in order (emu_trace).  It says nothing of
-// speed, registers or the card's memory model beyond that.
+// records and launches are logged in order (emu_trace).  Peer access is a
+// table of EMU_NDEV cards, each able to reach every other, with the
+// runtime's last-error rule: enabling a pair twice fails with
+// cudaErrorPeerAccessAlreadyEnabled and leaves that error for the next
+// cudaGetLastError.  It says nothing of speed, registers or the card's
+// memory model beyond that.
 #pragma once
 #include <atomic>
 #include <barrier>
@@ -21,6 +25,7 @@
 #define __forceinline__ inline
 #define __launch_bounds__(x)
 #define __align__(n) alignas(n)
+#define __grid_constant__
 struct dim3_ { unsigned x = 0, y = 0, z = 0; };
 inline thread_local dim3_ threadIdx, blockIdx, blockDim;
 struct int2 { int x, y; };
@@ -30,8 +35,37 @@ inline int4 make_int4(int a, int b, int c, int d) { return {a, b, c, d}; }
 typedef void* cudaStream_t;
 typedef void* cudaEvent_t;
 typedef int cudaError_t;
-enum { cudaSuccess = 0, cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
-inline int cudaGetLastError() { return 0; }
+enum { cudaSuccess = 0, cudaFuncAttributeMaxDynamicSharedMemorySize = 8,
+       cudaErrorInvalidDevice = 101, cudaErrorPeerAccessUnsupported = 217,
+       cudaErrorPeerAccessAlreadyEnabled = 704 };
+inline int emu_last_error = 0;
+inline int cudaGetLastError() { int e = emu_last_error; emu_last_error = 0; return e; }
+inline const char* cudaGetErrorString(int e) {
+    return e == 0 ? "no error" : e == cudaErrorInvalidDevice ? "invalid device ordinal"
+         : e == cudaErrorPeerAccessUnsupported ? "peer access is not supported between these two devices"
+         : e == cudaErrorPeerAccessAlreadyEnabled ? "peer access is already enabled" : "unknown error";
+}
+#define EMU_NDEV 4
+inline int emu_device = 0;
+inline bool emu_peer[EMU_NDEV][EMU_NDEV];
+extern "C" int emu_current_device() { return emu_device; }
+inline int cudaGetDevice(int* d) { *d = emu_device; return 0; }
+inline int cudaSetDevice(int d) {
+    if (d < 0 || d >= EMU_NDEV) return emu_last_error = cudaErrorInvalidDevice;
+    emu_device = d;
+    return 0;
+}
+inline int cudaDeviceCanAccessPeer(int* can, int d, int p) {
+    if (d < 0 || d >= EMU_NDEV || p < 0 || p >= EMU_NDEV) return emu_last_error = cudaErrorInvalidDevice;
+    *can = d != p;
+    return 0;
+}
+inline int cudaDeviceEnablePeerAccess(int p, unsigned) {
+    if (p < 0 || p >= EMU_NDEV || p == emu_device) return emu_last_error = cudaErrorInvalidDevice;
+    if (emu_peer[emu_device][p]) return emu_last_error = cudaErrorPeerAccessAlreadyEnabled;
+    emu_peer[emu_device][p] = true;
+    return 0;
+}
 // what ran, in order: "r<n>" a record of the event whose handle is n (0-9),
 // "k" a kernel launch
 inline std::string emu_log;

@@ -8,8 +8,13 @@ seeds (`-P`), the same two entries take the place of `run_loop` driving
 `_kernel_body`, the JAX package's kernel for seeded roots (NROOT > 1).  On
 the int64 whole-genome index layout `fixed_search` takes that layout's
 instantiations (the JAX package runs that layout in fixed batches only, and
-so does the port).  The kernel source is csrc/ring_search.cu (one template,
-six instantiations); the plain PyTorch versions are
+so does the port).  On an index range-sharded over the tp cards of a mesh
+row (parallel/shard.py, `DeviceIndex.tp_tables`), `fixed_search` takes the
+sharded instantiations, which read each rank row from the shard that owns
+its block, on the launching card or on a peer card over NVLink
+(`enable_peer`); a ring launch takes no shards, as a mesh runs fixed
+batches only.  The kernel source is csrc/ring_search.cu (one template, ten
+instantiations); the plain PyTorch versions are
 engine/inexact.py:ring_search_plain and fixed_search_plain.
 
 Build: at first use, `nvcc` compiles the source for sm_90a into a shared
@@ -42,7 +47,6 @@ from bwbble_tpu_torch.engine.device_index import DeviceIndex
 from bwbble_tpu_torch.engine.inexact import (NMETA, EngineConfig,
                                              RingStatics, alloc_outputs,
                                              result_dict, ring_statics)
-from bwbble_tpu_torch.engine.rank import TP_CUDA
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(os.path.dirname(_HERE), "csrc")
@@ -50,11 +54,17 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "build")
 
 # launches per kernel entry, incremented where a kernel is launched and
 # nowhere else (a run can show that its path went through the kernels); a
-# seeded launch counts under its entry's `_seeded` key only, a launch on the
-# int64 index layout under its `_i64` key only
+# launch counts under one key only: its entry, then `_seeded` for a seeded
+# launch, `_tp` for one on a range-sharded table, `_i64` for one on the
+# int64 index layout
 LAUNCHES = {"ring_search": 0, "fixed_search": 0, "ring_search_seeded": 0,
             "fixed_search_seeded": 0, "fixed_search_i64": 0,
-            "fixed_search_seeded_i64": 0}
+            "fixed_search_seeded_i64": 0, "fixed_search_tp": 0,
+            "fixed_search_seeded_tp": 0, "fixed_search_tp_i64": 0,
+            "fixed_search_seeded_tp_i64": 0}
+
+# shards a table may have (csrc/ring_search.cu RS_TP_MAX)
+MAX_TP = 8
 
 # dynamic shared memory a block may have on an H100 (227 KB)
 SMEM_MAX = 232448
@@ -99,13 +109,19 @@ def build(name: str = "ring_search") -> str:
 
 def _bind_ring_search(lib: ctypes.CDLL) -> None:
     vp = ctypes.c_void_p
-    lib.ring_search_launch.argtypes = [vp] + [ctypes.c_int] * 4 + [vp] * 17
+    lib.ring_search_launch.argtypes = ([vp] + [ctypes.c_int] * 4
+                                       + [vp, ctypes.c_int, ctypes.c_longlong]
+                                       + [vp] * 16)
     lib.ring_search_launch.restype = ctypes.c_int
+    lib.ring_search_enable_peer.argtypes = [ctypes.c_int] * 2
+    lib.ring_search_enable_peer.restype = ctypes.c_int
+    lib.ring_search_error_string.argtypes = [ctypes.c_int]
+    lib.ring_search_error_string.restype = ctypes.c_char_p
     lib.ring_search_lane_smem.argtypes = [ctypes.c_int] * 6
     lib.ring_search_lane_smem.restype = ctypes.c_longlong
     lib.ring_search_row_words.argtypes = [ctypes.c_int] * 2
     lib.ring_search_row_words.restype = ctypes.c_int
-    lib.ring_search_occupancy.argtypes = [ctypes.c_int] * 3 + [
+    lib.ring_search_occupancy.argtypes = [ctypes.c_int] * 4 + [
         ctypes.c_longlong]
     lib.ring_search_occupancy.restype = ctypes.c_int
     lib.ring_search_num_params.argtypes = []
@@ -199,15 +215,69 @@ def block_smem_bytes(S: RingStatics) -> int:
     return lane
 
 
-def resident_lanes(S: RingStatics) -> int:
-    """Lanes of a launch of this configuration that one SM holds at once:
-    the blocks an SM takes (cudaOccupancyMaxActiveBlocksPerMultiprocessor,
-    at the launch's shared memory a block) times the lanes a block."""
+def resident_lanes(S: RingStatics, sharded: bool = False) -> int:
+    """Lanes of a launch of this configuration (`sharded`: on a sharded
+    table) that one SM holds at once: the blocks an SM takes
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor, at the launch's shared
+    memory a block) times the lanes a block."""
     n = _load().ring_search_occupancy(int(S.multiref), int(S.fixed),
-                                      int(S.x64), block_smem_bytes(S))
+                                      int(S.x64), int(sharded),
+                                      block_smem_bytes(S))
     if n < 0:
         raise RuntimeError(f"occupancy query failed with CUDA error {-n}")
     return n
+
+
+def shard_args(didx: DeviceIndex) -> tuple[np.ndarray, int, int]:
+    """The table as `ring_search_launch` takes it: (MAX_TP pointers as
+    uint64, the shards' count tp, their rows nloc); tp = 1 and the whole
+    table for an unsharded index.  Raises ValueError for more than MAX_TP
+    shards, shards of unequal rows or of another type, width or layout
+    than the index's, or too few rows for the blocks the length needs (a
+    rank reads blocks up to (length - 2) // 128)."""
+    shards = didx.tp_tables or (didx.table,)
+    tp = len(shards)
+    if tp > MAX_TP:
+        raise ValueError(f"search kernel: a table of {tp} shards; at most "
+                         f"{MAX_TP} (one a card of a mesh row)")
+    width = 48 if didx.idt == torch.int64 else 32
+    nloc = shards[0].shape[0] if shards[0].dim() == 2 else 0
+    for t, sh in enumerate(shards):
+        if not (sh.dtype == torch.int32 and sh.dim() == 2
+                and sh.shape == (nloc, width) and sh.is_contiguous()):
+            raise ValueError(
+                f"search kernel: table shard {t} must be a contiguous "
+                f"[{nloc}, {width}] int32 tensor like shard 0; got "
+                f"{sh.dtype} {tuple(sh.shape)}")
+    if nloc < 1 or (int(didx.length) - 2) // 128 >= nloc * tp:
+        raise ValueError(f"search kernel: {tp} shard(s) of {nloc} rows do "
+                         f"not hold the blocks of an index of length "
+                         f"{int(didx.length)}")
+    ptrs = np.zeros(MAX_TP, dtype=np.uint64)
+    ptrs[:tp] = [sh.data_ptr() for sh in shards]
+    return ptrs, tp, nloc
+
+
+def _ordinal(d: torch.device) -> int:
+    return torch.cuda.current_device() if d.index is None else d.index
+
+
+def enable_peer(dev: torch.device, peer: torch.device) -> None:
+    """Let kernels launched on card `dev` read the memory of card `peer`
+    over NVLink (cudaDeviceEnablePeerAccess; a pair that PyTorch or an
+    earlier call already enabled is taken as it is); nothing for one card.
+    Raises RuntimeError with the CUDA error where `dev` cannot reach
+    `peer`: a shard is never copied to the launching card in its place."""
+    a, b = _ordinal(torch.device(dev)), _ordinal(torch.device(peer))
+    if a == b:
+        return
+    lib = _load()
+    rc = lib.ring_search_enable_peer(a, b)
+    if rc != 0:
+        raise RuntimeError(
+            f"peer access from cuda:{a} to cuda:{b} refused: CUDA error "
+            f"{rc} ({lib.ring_search_error_string(rc).decode()}); a table "
+            f"sharded over these cards cannot be searched from cuda:{a}")
 
 
 def _launch(entry: str, didx: DeviceIndex, rc_all: torch.Tensor,
@@ -219,11 +289,15 @@ def _launch(entry: str, didx: DeviceIndex, rc_all: torch.Tensor,
     read; `seeds` None or (seed_L, seed_U, seed_cnt)) and count the launch.
     Given a `timer`, sets `timer.events` to two CUDA events that
     `ring_search_launch` records on the current stream right before and
-    after the kernel launch.  Returns (q_alns, q_meta, q_paths, arena).
+    after the kernel launch.  On a range-sharded index it launches on the
+    card of shard 0, where the search state lives, and reads the other
+    shards there by peer access.  Returns (q_alns, q_meta, q_paths, arena).
     Does not synchronise."""
-    if didx.tp_tables is not None:
-        raise NotImplementedError(TP_CUDA)
     fixed = lanes is None
+    if not fixed and didx.tp_tables is not None:
+        raise ValueError(f"{entry}: a ring launch takes no sharded table "
+                         "(a mesh runs fixed batches only)")
+    ptrs, tp, nloc = shard_args(didx)
     idt = didx.idt
     x64 = idt == torch.int64
     if rc_all.dim() != 2 or (seeds is not None and seeds[0].dim() != 2):
@@ -238,6 +312,11 @@ def _launch(entry: str, didx: DeviceIndex, rc_all: torch.Tensor,
     if dev.type != "cuda":
         raise ValueError(f"{entry} launches a CUDA kernel: the index lives "
                          f"on {dev}")
+    for t, sh in enumerate(didx.tp_tables or ()):
+        if not sh.is_cuda:
+            raise ValueError(f"{entry}: table shard {t} lives on "
+                             f"{sh.device}, not on a CUDA device")
+        enable_peer(dev, sh.device)
     _check(didx.table, "table", torch.int32, 2, dev)
     _check(didx.Carr, "Carr", idt, 1, dev)
     _check(rc_all, "rc", torch.int8, 2, dev)
@@ -253,8 +332,9 @@ def _launch(entry: str, didx: DeviceIndex, rc_all: torch.Tensor,
                 or scnt.shape[0] != Q):
             raise ValueError(f"{entry}: inconsistent seed shapes")
         entry += "_seeded"
-    if (didx.table.shape[1] != (48 if x64 else 32)
-            or didx.Carr.shape[0] != 17
+    if tp > 1:
+        entry += "_tp"
+    if (didx.Carr.shape[0] != 17
             or lengths_all.shape[0] != Q
             or tuple(D_all.shape) != (Q, Lmax + 1, 2)
             or D_all.shape[0] != Ds_all.shape[0] or Ds_all.shape[2] != 2):
@@ -286,7 +366,7 @@ def _launch(entry: str, didx: DeviceIndex, rc_all: torch.Tensor,
         evp = [None] * 2 if ev is None else [e.cuda_event for e in ev]
         rc = lib.ring_search_launch(
             hp.ctypes.data, hp.size, int(S.multiref), int(fixed), int(x64),
-            didx.table.data_ptr(), didx.Carr.data_ptr(),
+            ptrs.ctypes.data, tp, nloc, didx.Carr.data_ptr(),
             rc_all.data_ptr(), lengths_all.data_ptr(), D_all.data_ptr(),
             Ds_all.data_ptr(), *sp, arena.data_ptr(), counter.data_ptr(),
             q_alns.data_ptr(), q_meta.data_ptr(), q_paths.data_ptr(), stream,

@@ -478,6 +478,7 @@ def deep_tier_cfg(base: EngineConfig, B: int, deep_B: int,
 
 LADDER = ((256, 2),)      # (lanes, kx) of each deep tier
 # the JAX package's ladder for its XLA body, which serves tp > 1 meshes
+# (here: of CPU devices)
 BODY_LADDER = ((1024, 8), (256, 8), (64, 16))
 
 
@@ -654,15 +655,18 @@ def align_reads_device(idx: FMIndex, didx: DeviceIndex, reads: Reads,
         pool = _GoldPool(idx, reads, params, precalc,
                          n_workers=max(1, int(params.n_threads)))
 
-    # The kernel runs the search whenever the index is not range-sharded:
-    # unsharded, or each dp member of a tp == 1 mesh at B // dp lanes (it
-    # takes any lane count).  Exact completion there runs over lists of up
-    # to 128 intervals, which cover the IUPAC-dense reads a handful of kx
-    # slots would ship to the host; a single genome keeps one interval, so
-    # kx slots are the fit there.  A tp > 1 mesh runs the plain body, as
-    # the JAX package's accelerator branch runs its XLA body there: the
-    # caller's xcap, that body's ladder and a 3/8 pre-routed share.
-    kernel_body = mesh is None or mesh.shape["tp"] == 1
+    # The kernel runs the search on every CUDA index, and on CPU tensors
+    # its plain version takes the same settings unless the index is
+    # range-sharded: unsharded, each dp member of a mesh at B // dp lanes
+    # (it takes any lane count), its table sharded or not.  Exact
+    # completion there runs over lists of up to 128 intervals, which cover
+    # the IUPAC-dense reads a handful of kx slots would ship to the host; a
+    # single genome keeps one interval, so kx slots are the fit there.  A
+    # tp > 1 mesh of CPU devices runs the plain body at the settings of
+    # the JAX package's XLA body, which serves tp > 1 there: the caller's
+    # xcap, that body's ladder and a 3/8 pre-routed share.
+    kernel_body = (mesh is None or mesh.shape["tp"] == 1
+                   or dev.type == "cuda")
     if kernel_body:
         cfg = dataclasses.replace(cfg, xcap=128 if params.is_multiref else 0)
     ladder = LADDER if kernel_body else BODY_LADDER

@@ -44,19 +44,13 @@ def popcount32(x: torch.Tensor) -> torch.Tensor:
             + ((x >> 24) & 0xFF))
 
 
-# the refusal of a range-sharded index on the card (parallel.shard's
-# Mesh.place, and the search kernel's wrapper)
-TP_CUDA = ("tp > 1 on CUDA tensors needs a kernel that reads its peers' "
-           "index shards (over NVLink); the port has none yet, and the "
-           "plain version does not run on the card in its place")
-
-
 def _take_rows(didx: DeviceIndex, k: torch.Tensor) -> torch.Tensor:
     """Rows of the fused table at global block ids k.
 
     On a tp-sharded index (`didx.tp_tables`) each shard holds a contiguous
-    block range: a shard's rows outside its range are masked to zero and
-    the shards' rows summed (exactly one shard owns each row), as the JAX
+    block range: each shard gathers on its own device, its rows outside
+    its range are masked to zero on the query's device and the shards'
+    rows summed there (exactly one shard owns each row), as the JAX
     package's psum over tp does."""
     if didx.tp_tables is None:
         return didx.table.index_select(0, k.long())

@@ -13,12 +13,18 @@ does:
   is dispatched before any member's result is collected (the kernel's
   wrapper does not synchronise).
 - **tp axis**: the index is range-sharded.  Each member of a mesh row holds
-  a contiguous range of the table's blocks; a rank query takes the owning
-  shard's row and the others contribute zeros (engine.rank._take_rows, the
-  JAX package's psum over tp).  The search state of a row lives on its
-  first member.  The JAX package serves tp > 1 only in its XLA body, so
-  here tp > 1 runs the plain version on CPU tensors; on CUDA tensors it
-  raises NotImplementedError (rank.TP_CUDA).
+  a contiguous range of the table's blocks, the last one zero-padded.  The
+  search state of a row lives on its first member.  On CUDA tensors the
+  search kernel, launched there, reads each rank row from the shard that
+  owns its block, on that card or on a peer card over NVLink: `place`
+  enables peer access from each row's first card to the row's other
+  cards, once a pair (a row that names one card several times, as a mesh
+  on one card does, needs none), and a pair that cannot reach its peer
+  raises; no shard is copied in its place.  The D pass and SA resolution
+  take rows through engine.rank._take_rows: each shard gathers on its own
+  device, the others contribute zeros, and the rows are summed on the
+  query's device (the JAX package's psum over tp).  On CPU tensors the
+  search runs the plain version on the same shards.
 
 Outputs come back on the device of the index given, in lane order: lanes
 padded to a dp multiple (zero-length reads) are cut off, the arena is
@@ -35,7 +41,7 @@ import torch
 from bwbble_tpu_torch.align.params import AlnParams
 from bwbble_tpu_torch.engine.device_index import DeviceIndex
 from bwbble_tpu_torch.engine.inexact import EngineConfig, inexact_search
-from bwbble_tpu_torch.engine.rank import TP_CUDA, sa_resolve
+from bwbble_tpu_torch.engine.rank import sa_resolve
 
 
 @dataclasses.dataclass(eq=False)
@@ -51,8 +57,10 @@ class Mesh:
 
     def place(self, didx: DeviceIndex) -> list[DeviceIndex]:
         """The index as each dp member holds it: a replica on the member's
-        first device, its table range-sharded over the row when tp > 1.
-        Made once an index (a batch's call finds it placed)."""
+        first device, its table range-sharded over the row when tp > 1 (on
+        CUDA devices with peer access from the row's first card to each
+        other card of the row, `peer_pairs`).  Made once an index (a
+        batch's call finds it placed)."""
         if self._placed is not None and self._placed[0] is didx:
             return self._placed[1]
         if any(dev.type != didx.device.type
@@ -61,7 +69,9 @@ class Mesh:
                              f"({didx.device}) differ in type")
         tp = self.shape["tp"]
         if tp > 1 and didx.device.type == "cuda":
-            raise NotImplementedError(TP_CUDA)
+            from bwbble_tpu_torch.engine import kernel
+            for dev, peer in peer_pairs(self):
+                kernel.enable_peer(dev, peer)
         table = pad_index_for_tp(didx, tp).table
         nloc = table.shape[0] // tp
         members = []
@@ -74,6 +84,17 @@ class Mesh:
                 sa0=didx.sa0, tp_tables=tables if tp > 1 else None))
         self._placed = (didx, members)
         return members
+
+
+def peer_pairs(mesh: Mesh) -> list[tuple]:
+    """(a row's first device, another device of that row) for every pair of
+    distinct devices across which a sharded launch reads, once each."""
+    out: list[tuple] = []
+    for row in mesh.devices:
+        for dev in row[1:]:
+            if dev != row[0] and (row[0], dev) not in out:
+                out.append((row[0], dev))
+    return out
 
 
 def make_mesh(dp: int, tp: int = 1, devices=None) -> Mesh:

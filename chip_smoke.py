@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--genome-bp N] [--workdir DIR]
+    python3 chip_smoke.py [--genome-bp N] [--workdir DIR] [--only mesh_cards]
 
 Drives the port's paths through the entry points a user calls, and holds
 every hand-written kernel entry against its plain PyTorch version on the
@@ -22,7 +22,16 @@ of the main world at the settings of the main path's two launches and of
 the fixed path's two tiers; mesh_path (`align -n 4 --mesh 1` through the
 CLI on the same world and reads: the fixed tiers over a mesh of the one
 card, `.aln` byte-equal to fixed_path's, and one launch of
-sharded_inexact_search equal to inexact_search); dist_path (two `--dist`
+sharded_inexact_search equal to inexact_search); tp_path (`--mesh 1,2`
+and `--mesh 2,2` in-process on mesh rows that name this card two times:
+the index range-sharded over tp, the sharded fixed kernel, `.aln`
+byte-equal to fixed_path's, and one sharded launch at (1, 2) equal to the
+unsharded one); mesh_cards (with two cards or more: the dependent-row
+latency of a peer card's rows beside this card's, then `--mesh 1,N`,
+`2,2`, `2` and `4` through the CLI across the cards, `.aln` byte-equal to
+fixed_path's, each dp member's search time and whether the members'
+launches overlapped; on one card a line saying that it did not run);
+dist_path (two `--dist`
 processes on the card, each with half of fixed_path's `-t`, the merged
 `.aln` byte-equal to fixed_path's); easy_path (the easy 5 Mbp world, fixed batches
 of 8 192); single_path (the same world as a plain 4-letter reference, `-S`);
@@ -43,7 +52,10 @@ main world's index in the int64 layout, aligned as fixed_path aligns it,
 version on main-world reads and on a virtual-offset index whose counts lie
 past 2^33); then the rest of the plain versions and every comparison line;
 then the `{"kernels": [...]}` line and the last line.  The small-world
-comparisons also run the int64 layout's instantiations.  Before each path
+comparisons also run the int64 layout's instantiations, and the sharded
+fixed instantiations on tables range-sharded over tp = 2 and 3 copies on
+this card (the small worlds in both alphabets and layouts, main-world
+reads, the virtual-offset index).  Before each path
 the launch counts are set to 0 and after it they are read: a path that did
 not launch its kernel fails.
 
@@ -61,6 +73,10 @@ wave of its lightest comparison.
 The build phase prints what `-Xptxas -v` says of each instantiation
 (registers, stack, spills); main_path.profile is one try of torch.profiler
 over the main path's call (the card's own busy share).
+
+`--only mesh_cards` runs the device and build phases, the main world, its
+index and fixed_path's CLI run, then mesh_cards alone: the call to make
+on a machine of several cards.
 """
 
 from __future__ import annotations
@@ -167,8 +183,10 @@ def _plain_job(index_file: str, host_in: list, seeds, params, cfg,
                                                  ring_search_plain)
     didx = _PLAIN_INDEX.get(index_file)
     if didx is None:
-        didx = _PLAIN_INDEX[index_file] = DeviceIndex(**torch.load(
-            index_file))
+        fields = torch.load(index_file)
+        if fields["tp_tables"] is not None:
+            fields["tp_tables"] = tuple(fields["tp_tables"])
+        didx = _PLAIN_INDEX[index_file] = DeviceIndex(**fields)
     a = [torch.from_numpy(x) for x in host_in]
     sd = None if seeds is None else tuple(torch.from_numpy(x) for x in seeds)
     t0 = time.time()
@@ -184,21 +202,219 @@ def _plain_job(index_file: str, host_in: list, seeds, params, cfg,
                 if k not in ("o_lane", "arena")}
 
 
+def sync_all() -> None:
+    """Wait for every card of the machine."""
+    import torch
+    for d in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(d)
+
+
+def timed_cli(argv):
+    """One CLI call: (exit code, seconds)."""
+    from bwbble_tpu_torch import cli
+    t0 = time.time()
+    code = cli.main(argv)
+    sync_all()
+    return code, time.time() - t0
+
+
+def cli_with_stats(argv):
+    """One CLI call whose align_reads_device call also fills a stats dict:
+    (exit code, CLI seconds, stats, seconds of that call)."""
+    from bwbble_tpu_torch.engine import pipeline as pipeline_mod
+    st: dict = {}
+    inner = [0.0]
+    align = pipeline_mod.align_reads_device
+
+    def timed(*a, **kw):
+        t0 = time.time()
+        out = align(*a, stats=st, **kw)
+        sync_all()
+        inner[0] = time.time() - t0
+        return out
+    pipeline_mod.align_reads_device = timed
+    mark = host_mark()
+    try:
+        code, sec = timed_cli(argv)
+    finally:
+        pipeline_mod.align_reads_device = align
+    st.update(host_since(mark))
+    return code, sec, st, inner[0]
+
+
+def mesh_cards(fa: str, fq: str, wdir: str, ref_aln: str, ref_seconds: float,
+               threads: int, card: str) -> None:
+    """First `peer_rows` (a peer card's row latency), then `align -n 4
+    --mesh ...` through the CLI across the cards of this machine, at
+    fixed_path's settings on its world and reads: `--mesh 1,N`
+    (N = min(4, cards): the table range-sharded over N cards, rows read by
+    peer access), `--mesh 2,2` (4 cards), `--mesh 2` and `--mesh 4` (dp >
+    1).  Each `.aln` must be byte-equal to `ref_aln` (fixed_path's CLI
+    `.aln`) and each run must launch its kernel.  A line a mesh: reads/s,
+    each dp member's search seconds (the events its launches record), and
+    whether the members' launches of a dispatch overlapped in time (their
+    events against a reference event recorded on every card at the start,
+    after a wait for every card).  A mesh that raises (as one would whose
+    cards cannot reach each other) is reported with its message; the phase
+    fails after the last mesh if any failed.  On one card: one line saying
+    that the phase did not run."""
+    import torch
+    from bwbble_tpu_torch.engine import kernel
+    from bwbble_tpu_torch.engine import pipeline as pipeline_mod
+    ncards = torch.cuda.device_count()
+    if ncards < 2:
+        emit("mesh_cards", ran=False, cards=ncards,
+             why="one card: a mesh across cards needs dp * tp of them "
+                 "(tp_path shards the table over this card instead)",
+             card=card)
+        return
+    failed = []
+    try:
+        peer_rows(card)
+    except RuntimeError as ex:                   # reported, then failed
+        emit("mesh_cards.peer_rows", ok=False, error=repr(ex)[:2000],
+             card=card)
+        failed.append("peer_rows")
+    specs = [f"1,{min(4, ncards)}", "2"]
+    if ncards >= 4:
+        specs += ["2,2", "4"]
+    base = pipeline_mod._LaunchTimer
+    for spec in specs:
+        dims = [int(x) for x in spec.split(",")]
+        dp, tp = dims[0], dims[1] if len(dims) > 1 else 1
+        out = os.path.join(wdir, f"mesh_cards_{dp}x{tp}.aln")
+        if os.path.exists(out):
+            os.remove(out)
+        timers: list = []
+
+        class Recorded(base):
+            def __init__(self, dev_):
+                super().__init__(dev_)
+                timers.append(self)
+        sync_all()
+        refs = []
+        for d in range(ncards):
+            with torch.cuda.device(d):
+                refs.append(torch.cuda.Event(enable_timing=True))
+                refs[-1].record()
+        for k in kernel.LAUNCHES:
+            kernel.LAUNCHES[k] = 0
+        pipeline_mod._LaunchTimer = Recorded
+        try:
+            rc, sec, st, dt = cli_with_stats(
+                ["align", "-n", "4", "-t", str(threads), "--mesh", spec, fa,
+                 fq, out])
+            error = None
+        except Exception as ex:                  # reported, then failed
+            rc, sec, st, dt, error = None, None, {}, None, repr(ex)[:2000]
+        finally:
+            pipeline_mod._LaunchTimer = base
+        key = "fixed_search_tp" if tp > 1 else "fixed_search"
+        launches = dict(kernel.LAUNCHES)
+        same = rc == 0 and filecmp.cmp(out, ref_aln, shallow=False)
+        # a dispatch makes one timer a dp member, in member order; member
+        # m launches on its row's first card, cuda:(m * tp) (make_mesh over
+        # every card in order, as the CLI makes it)
+        member_s = [0.0] * dp
+        groups = [] if error else [timers[i:i + dp]
+                                   for i in range(0, len(timers), dp)]
+        overlapped = 0
+        for g in groups:
+            spans = []
+            for m, tm_ in enumerate(g):
+                ev0, ev1 = tm_.events
+                ev1.synchronize()
+                ref = refs[m * tp]
+                spans.append((ref.elapsed_time(ev0), ref.elapsed_time(ev1)))
+                member_s[m] += (spans[-1][1] - spans[-1][0]) / 1e3
+            overlapped += len(g) > 1 and max(a for a, _ in spans) < min(
+                b for _, b in spans)
+        ok = bool(same and launches[key] > 0 and error is None
+                  and sum(launches.values()) == launches[key])
+        emit("mesh_cards", ok=ok, mesh=spec, dp=dp, tp=tp, cards=dp * tp,
+             same_as_fixed_path=same, error=error, returncode=rc,
+             reads_per_sec=None if dt is None else BENCH_READS / dt,
+             seconds=dt, cli_seconds=sec, fixed_cli_seconds=ref_seconds,
+             t_dbounds=st.get("t_dbounds"), t_search=st.get("t_search"),
+             t_host=st.get("t_host"), fallback_reads=st.get("fallback_reads"),
+             member_t_search=member_s, dispatches=len(groups),
+             overlapped_dispatches=overlapped if dp > 1 else None,
+             launches={k: v for k, v in launches.items() if v},
+             cpu_seconds=st.get("cpu_seconds"), card=card)
+        if not ok:
+            failed.append(spec)
+    if failed:
+        fail("mesh_cards", f"{failed}: peer rows refused or read wrong, or "
+                           "a mesh's `.aln` differs from fixed_path's, its "
+                           "run raised, or it did not launch its kernel "
+                           "(alone)")
+
+
+def peer_rows(card: str) -> None:
+    """The dependent-row latency of a peer card's rows beside this card's:
+    K4's wave kernel (512 lanes, 256 dependent waves of 512-byte rows of
+    the probe's 913 021-row table), launched on cuda:0 over the table on
+    cuda:0 and over a copy on cuda:1 read by peer access, in turns, three
+    rounds of five launches timed by events (its C launch called directly:
+    the wrapper takes one card's tensors; nothing is counted).  The two
+    outputs must be equal.  Raises RuntimeError where cuda:0 cannot reach
+    cuda:1."""
+    import torch
+    from bwbble_tpu_torch.benchmarks import dma_probe
+    from bwbble_tpu_torch.benchmarks import kernels as probe_k
+    from bwbble_tpu_torch.engine import kernel
+    c0, c1 = torch.device("cuda", 0), torch.device("cuda", 1)
+    kernel.enable_peer(c0, c1)
+    lib = probe_k._load()
+    lanes, waves, reps = 512, 256, 5
+    tbl, idxs = dma_probe.make_inputs(lanes, dma_probe.N, c0, seed=1, sets=1)
+    tables = {"local": tbl, "peer": tbl.to(c1)}
+    outs = {k: torch.empty_like(idxs[0]) for k in tables}
+    ns: dict = {k: [] for k in tables}
+    st = torch.cuda.current_stream(c0)
+    with torch.cuda.device(c0):
+        for _round in range(3):
+            for k, tb in tables.items():
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record(st)
+                for _ in range(reps):
+                    rc = lib.dma_wave_launch(
+                        idxs[0].data_ptr(), tb.data_ptr(), outs[k].data_ptr(),
+                        lanes, waves, dma_probe.N, 0, st.cuda_stream)
+                    if rc != 0:
+                        raise RuntimeError(f"dma_wave over the {k} table: "
+                                           f"CUDA error {rc}")
+                ev[1].record(st)
+                ev[1].synchronize()
+                ns[k].append(ev[0].elapsed_time(ev[1]) * 1e6 / reps / waves)
+    med = {k: sorted(v)[1] for k, v in ns.items()}
+    equal = torch.equal(outs["local"], outs["peer"])
+    emit("mesh_cards.peer_rows", ok=equal, lanes=lanes, waves=waves,
+         row_bytes=512, ns_a_wave_local=med["local"],
+         ns_a_wave_peer=med["peer"],
+         peer_over_local=med["peer"] / med["local"], rounds=ns,
+         outputs_equal=equal, card=card)
+    if not equal:
+        raise RuntimeError("dma_wave over the peer table differs from the "
+                           "local one")
+
+
 def ptxas_report(lines: list[str]) -> list[dict]:
     """Registers, stack and spills of each ring_search_kernel instantiation
-    from nvcc's `-Xptxas -v` report."""
+    from nvcc's `-Xptxas -v` report (`, tp`: on a sharded table)."""
     import re
     names = {"1": "multiref", "0": "single"}
     out, cur = [], None
     for ln in lines:
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
-            k = re.search(r"ring_search_kernelILb([01])ELb([01])E([ix])E",
-                          m.group(1))
+            k = re.search(r"ring_search_kernelILb([01])ELb([01])E([ix])"
+                          r"Lb([01])E", m.group(1))
             cur = None if k is None else {
                 "instantiation": f"<{names[k.group(1)]}, "
                 f"{'fixed' if k.group(2) == '1' else 'ring'}, "
-                f"{'i64' if k.group(3) == 'x' else 'i32'}>"}
+                f"{'i64' if k.group(3) == 'x' else 'i32'}"
+                f"{', tp' if k.group(4) == '1' else ''}>"}
             if cur is not None:
                 out.append(cur)
             continue
@@ -222,6 +438,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--genome-bp", type=int, default=GENOME_BP)
     ap.add_argument("--workdir", default=os.path.join(ROOT, ".bench_torch"))
+    ap.add_argument("--only", choices=("mesh_cards",), default=None)
     args = ap.parse_args()
     threads = max(1, min(8, os.cpu_count() or 1))   # host gold / D scan
     if args.genome_bp < 8_000_000:
@@ -267,9 +484,11 @@ def main() -> int:
     from bwbble_tpu_torch.gold.engine import calculate_d, exact_match
     from bwbble_tpu_torch.index.fmindex import FMIndex
     from bwbble_tpu_torch.native import get_native
-    from bwbble_tpu_torch.parallel import make_mesh, sharded_inexact_search
+    from bwbble_tpu_torch.parallel import (make_mesh, sharded_align_step,
+                                           sharded_inexact_search)
 
     dev = torch.device("cuda")
+    dev0 = torch.device("cuda", 0)
     gc.callbacks.append(_gc_clock)
 
     # ---------------------------------------------------------------- device
@@ -316,9 +535,38 @@ def main() -> int:
          kernel_libs=libs, ptxas=ptxas)
     for r in regs:
         emit("build.ptxas", kernel="ring_search_kernel", **r)
-    if len(regs) != 6:
-        fail("build", f"ring_search: not six instantiations in the ptxas "
+    if len(regs) != 10:
+        fail("build", f"ring_search: not ten instantiations in the ptxas "
                       f"report: {regs}")
+
+    def last_line() -> None:
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+
+    if args.only == "mesh_cards":
+        # the main world, its index and fixed_path's CLI run (the `.aln`
+        # each mesh is held against), then mesh_cards alone
+        wdir = os.path.join(args.workdir, f"chr21_{args.genome_bp}")
+        fa, fq_all = worlds.chr21_world(
+            wdir, genome_bp=args.genome_bp, num_reads=NUM_READS,
+            log=lambda m: emit("main_path.world", step=m))
+        fq = worlds.subset_fastq(fq_all, BENCH_READS)
+        if cli.main(["index", fa]) != 0:
+            fail("main_path", "index failed")
+        ref_aln = os.path.join(wdir, "fixed_cli.aln")
+        for k in kernel.LAUNCHES:
+            kernel.LAUNCHES[k] = 0
+        rc, t_cli = timed_cli(["align", "-n", "4", "-t", str(threads), fa, fq,
+                               ref_aln])
+        if rc != 0 or kernel.LAUNCHES["fixed_search"] == 0:
+            fail("fixed_path", f"CLI align rc={rc} launches={kernel.LAUNCHES}")
+        emit("fixed_path", ok=True, cli_only=True, cli_seconds=t_cli,
+             cli_launches=kernel.LAUNCHES["fixed_search"], card=card)
+        mesh_cards(fa, fq, wdir, ref_aln, t_cli, threads, card)
+        print(card, flush=True)
+        last_line()
+        return 0
 
     # --------------------------------------------------------------- kernels
     def exact_d(idx, rd, params):
@@ -346,8 +594,9 @@ def main() -> int:
                                 f"plain_index_{len(plain_index)}.pt")
             torch.save(dict(table=didx.table.cpu(), Carr=didx.Carr.cpu(),
                             sa_samples=didx.sa_samples.cpu(),
-                            length=int(didx.length), sa0=int(didx.sa0)),
-                       path)
+                            length=int(didx.length), sa0=int(didx.sa0),
+                            tp_tables=None if didx.tp_tables is None else
+                            [t.cpu() for t in didx.tp_tables]), path)
             plain_index[id(didx)] = (path, didx)
         return plain_index[id(didx)][0]
 
@@ -384,8 +633,10 @@ def main() -> int:
             torch.from_numpy(x).to(dev) for x in sd_host)
         n = a[0].shape[0]
         x64 = didx.idt == torch.int64
+        tp = 1 if didx.tp_tables is None else len(didx.tp_tables)
         entry = ("fixed_search" if lanes is None else "ring_search") + (
-            "" if seeds is None else "_seeded") + ("_i64" if x64 else "")
+            "" if seeds is None else "_seeded") + ("_tp" if tp > 1 else "") \
+            + ("_i64" if x64 else "")
         if lanes is None:
             def run(tm):
                 return kernel.fixed_search(didx, *a, params, cfg, sd, tm)
@@ -443,10 +694,10 @@ def main() -> int:
         smem = kernel.block_smem_bytes(S)
         # the lanes an SM holds at once, and the waves of them the launch
         # needs on this card
-        per_sm = kernel.resident_lanes(S)
+        per_sm = kernel.resident_lanes(S, sharded=tp > 1)
         used = n if lanes is None else min(lanes, n)
         line = dict(
-            world=name, entry=entry,
+            world=name, entry=entry, tp=tp,
             alphabet=16 if params.is_multiref else 4, reads=n,
             lanes_used=used,
             refills=0 if lanes is None else max(0, n - lanes),
@@ -546,13 +797,6 @@ def main() -> int:
         if wrong:
             fail("kernels", "kernel != plain version: " + "; ".join(wrong))
 
-    def timed_cli(argv):
-        """One CLI call: (exit code, seconds)."""
-        t0 = time.time()
-        code = cli.main(argv)
-        torch.cuda.synchronize()
-        return code, time.time() - t0
-
     def bound_ms(c):
         """Least time the card could take for the work these inputs need:
         the bytes moved (per-read inputs and outputs once, plus what the
@@ -596,6 +840,11 @@ def main() -> int:
                       over)
         return cf_, cr_
 
+    def sharded(didx_, tp):
+        """`didx_` range-sharded over a mesh row that names this card `tp`
+        times, as Mesh.place shards it (the last shard zero-padded)."""
+        return make_mesh(1, tp, [dev0] * tp).place(didx_)[0]
+
     p3 = AlnParams(max_diff=3, batch_size=128)
     idx_s, rd_s = worlds.mixed_world()
     D, Ds = exact_d(idx_s, rd_s, p3)
@@ -603,6 +852,15 @@ def main() -> int:
     cfg_s = EngineConfig(cap=4096, acap=24, kx=2, max_iters=20_000, xcap=128)
     compare("mixed", didx_s, rd_s.rc, rd_s.lengths, D, Ds, p3, cfg_s, 64)
     compare("mixed", didx_s, rd_s.rc, rd_s.lengths, D, Ds, p3, cfg_s, None)
+    # the sharded fixed instantiations: 63 blocks over tp = 2 (the last
+    # shard padded with a zero row) and tp = 3, unseeded and seeded
+    for tp in (2, 3):
+        compare("mixed", sharded(didx_s, tp), rd_s.rc, rd_s.lengths, D, Ds,
+                p3, cfg_s, None)
+    sd, over = seeds_of(gold_table(idx_s, 4), rd_s, 4, 8)
+    compare("mixed", sharded(didx_s, 2), rd_s.rc, rd_s.lengths, D, Ds,
+            dataclasses.replace(p3, precalc_len=4, use_precalc=True), cfg_s,
+            None, sd, over)
     # (a) seeded roots: a gold-built table at precalc_len 4 and 8 seed slots
     # (a 4-mer has dozens of intervals here: every read starts from 8 roots)
     p3s = dataclasses.replace(p3, precalc_len=4, use_precalc=True)
@@ -639,6 +897,9 @@ def main() -> int:
     if c4r["n_alns"] == 0 or c4r["n_alns"] != c4f["n_alns"]:
         fail("kernels", "the 4-letter searches reported no or unequal "
                         "alignments")
+    for tp in (2, 3):
+        compare("single_genome", sharded(didx_s, tp), rd_s.rc, ln_s, D, Ds,
+                ps, cfg_4, None)
     # (b) the 4-letter instantiations, seeded (one root a read on a single
     # genome)
     seeded_pair("single_genome", didx_s, rd_s, D, Ds,
@@ -651,11 +912,15 @@ def main() -> int:
     D, Ds = device_d(didx_s64, rd_s, ps, 16)
     compare("single_genome_i64", didx_s64, rd_s.rc, ln_s, D, Ds, ps, cfg_4,
             None)
+    compare("single_genome_i64", sharded(didx_s64, 2), rd_s.rc, ln_s, D, Ds,
+            ps, cfg_4, None)
     idx_s, rd_s = worlds.mixed_world()
     didx_s64 = from_fmindex(idx_s, use_int64=True, device=dev)
     D, Ds = (x.astype(np.int64) for x in exact_d(idx_s, rd_s, p3))
     compare("mixed_i64", didx_s64, rd_s.rc, rd_s.lengths, D, Ds, p3, cfg_s,
             None)
+    compare("mixed_i64", sharded(didx_s64, 3), rd_s.rc, rd_s.lengths, D, Ds,
+            p3, cfg_s, None)
     sd, over = seeds_of(gold_table(idx_s, 4), rd_s, 4, 8)
     compare("mixed_i64", didx_s64, rd_s.rc, rd_s.lengths, D, Ds, p3s, cfg_s,
             None, sd, over)
@@ -931,28 +1196,6 @@ def main() -> int:
     # pass at d_cap and the native scanner for the reads that overflow it
     # (engine/pipeline.py's mesh branches); then one launch of
     # sharded_inexact_search against inexact_search on the same inputs
-    def cli_with_stats(argv):
-        """One CLI call whose align_reads_device call also fills a stats
-        dict: (exit code, CLI seconds, stats, seconds of that call)."""
-        st: dict = {}
-        inner = [0.0]
-        align = pipeline_mod.align_reads_device
-
-        def timed(*a, **kw):
-            t0 = time.time()
-            out = align(*a, stats=st, **kw)
-            torch.cuda.synchronize()
-            inner[0] = time.time() - t0
-            return out
-        pipeline_mod.align_reads_device = timed
-        mark = host_mark()
-        try:
-            code, sec = timed_cli(argv)
-        finally:
-            pipeline_mod.align_reads_device = align
-        st.update(host_since(mark))
-        return code, sec, st, inner[0]
-
     mesh_aln = os.path.join(wdir, "mesh_cli.aln")
     zero_launches()
     rc, t_mesh, m_stats, m_dt = cli_with_stats(
@@ -960,9 +1203,10 @@ def main() -> int:
          mesh_aln])
     m_launches = dict(kernel.LAUNCHES)
     m_same = rc == 0 and filecmp.cmp(mesh_aln, fixed_cli_aln, shallow=False)
+    tm_one = LaunchEvents()
     one = inexact_search(didx, rc_c[:n_cmp], rd_c.lengths[:n_cmp],
                          Dc[:n_cmp], Dsc[:n_cmp], params, cfg_tier1,
-                         device=dev)
+                         device=dev, timer=tm_one)
     shd = sharded_inexact_search(make_mesh(1), didx, rc_c[:n_cmp],
                                  rd_c.lengths[:n_cmp], Dc[:n_cmp],
                                  Dsc[:n_cmp], params, cfg_tier1)
@@ -980,7 +1224,84 @@ def main() -> int:
         fail("mesh_path", "`.aln` differs from fixed_path's, the sharded "
                           "launch differs from the unsharded one, or the "
                           "path did not launch fixed_search")
-    del one, shd
+    del shd
+
+    # --------------------------------------------------------------- tp path
+    # `--mesh 1,2` and `--mesh 2,2` on the one card: the index range-sharded
+    # over a mesh row that names cuda:0 two times (and, at (2, 2), over
+    # each of two such rows), in-process through align_reads_device at
+    # fixed_path's settings on its world and reads (-n 4, --batch 2048,
+    # --arena 32768, -t), as the CLI's `--mesh` runs it: the sharded fixed
+    # kernel at tp = 1's settings; each `.aln` byte-equal to fixed_path's
+    # CLI `.aln`, every launch a sharded one.  Then one launch of
+    # sharded_inexact_search at (1, 2) on mesh_path's main-world reads
+    # against mesh_path's unsharded launch on them, every field but the
+    # arena, both timed by their events
+    tp_runs: dict = {}
+    for dp_, tp_ in ((1, 2), (2, 2)):
+        mesh_ = make_mesh(dp_, tp_, [dev0] * (dp_ * tp_))
+        t_alns, t_dt, t_stats, t_launches, t_peak = timed_align(
+            idx, didx, reads, p_fixed, cfg_fixed, mesh=mesh_)
+        tp_aln = os.path.join(wdir, f"tp_{dp_}x{tp_}.aln")
+        write_aln_file(tp_aln, t_alns)
+        del t_alns
+        t_same = filecmp.cmp(tp_aln, fixed_cli_aln, shallow=False)
+        n_tp = t_launches["fixed_search_tp"]
+        # a dispatch of the pipeline launches once a dp member
+        t_ok = bool(t_same and n_tp > 0
+                    and sum(t_launches.values()) == n_tp
+                    and t_stats.get("launches", 0) * dp_ == n_tp)
+        tp_runs[(dp_, tp_)] = (t_stats, n_tp)
+        emit("tp_path", ok=t_ok, same_as_fixed_path=t_same, dp=dp_, tp=tp_,
+             cards=1, shard_rows=mesh_.place(didx)[0].tp_tables[0].shape[0],
+             table_rows=didx.num_blocks, tp_launches=n_tp,
+             dispatches=t_stats.get("launches"), peak_device_gb=t_peak,
+             mesh_path_seconds=m_dt,
+             **path_line(reads.count, t_dt, t_stats, n_tp))
+        if not t_ok:
+            fail("tp_path", f"mesh ({dp_}, {tp_}): `.aln` differs from "
+                            "fixed_path's, or not every launch was a "
+                            f"sharded one: {t_launches}")
+        del mesh_
+    tm_shd = LaunchEvents()
+    shd = sharded_inexact_search(make_mesh(1, 2, [dev0] * 2), didx,
+                                 rc_c[:n_cmp], rd_c.lengths[:n_cmp],
+                                 Dc[:n_cmp], Dsc[:n_cmp], params, cfg_tier1,
+                                 timers=[tm_shd])
+    torch.cuda.synchronize()
+    t_equal = all(torch.equal(one[k], shd[k]) for k in one if k != "arena")
+    # the whole align step on those reads (D pass, search, SA resolution of
+    # each first alignment through the shards) at (2, 2) against (1, 1),
+    # on the main index with its SA samples (loaded only here)
+    didx_sa = dataclasses.replace(didx, sa_samples=torch.from_numpy(
+        np.array(FMIndex.load(fa + ".bwt", load_sa=True).sa,
+                 dtype=np.int32)).to(dev0))
+    seq_c = np.asarray(rd_c.seq, dtype=np.int8)[:n_cmp]
+    steps = [sharded_align_step(make_mesh(dp_, tp_, [dev0] * (dp_ * tp_)),
+                                didx_sa, seq_c, rc_c[:n_cmp],
+                                rd_c.lengths[:n_cmp], params, cfg_tier1)
+             for dp_, tp_ in ((1, 1), (2, 2))]
+    s_equal = all(torch.equal(steps[0][k], steps[1][k]) for k in steps[0]
+                  if k != "arena")
+    emit("tp_path.launch", ok=t_equal and s_equal,
+         sharded_equals_unsharded=t_equal, mesh={"dp": 1, "tp": 2},
+         reads=n_cmp,
+         sharded_ms=tm_shd.events[0].elapsed_time(tm_shd.events[1]),
+         unsharded_ms=tm_one.events[0].elapsed_time(tm_one.events[1]),
+         align_step_2x2_equals_1x1=s_equal,
+         ref_pos_resolved=int((steps[1]["ref_pos"] >= 0).sum()), card=card)
+    if not (t_equal and s_equal):
+        fail("tp_path", "the sharded launch differs from the unsharded one, "
+                        "or the align step at (2, 2) from (1, 1)")
+    del one, shd, steps, didx_sa
+    # the sharded fixed kernel against its plain version on the same
+    # sharded index at tier 1's settings, on those reads
+    cft = compare("main_world_fixed", sharded(didx, 2), rc_c[:n_cmp],
+                  rd_c.lengths[:n_cmp], Dc[:n_cmp], Dsc[:n_cmp], params,
+                  cfg_tier1, None)
+
+    # ------------------------------------------------------------ mesh cards
+    mesh_cards(fa, fq, wdir, fixed_cli_aln, fixed_cli_seconds, threads, card)
 
     # ------------------------------------------------------------- dist path
     # two `--dist` processes on the one card, each with half of
@@ -1579,6 +1900,16 @@ def main() -> int:
                  AlnParams(max_diff=1),
                  EngineConfig(cap=8192, acap=24, kx=2, max_iters=20_000,
                               xcap=16), None)
+    # the same search on the table range-sharded over tp = 2 and tp = 3
+    # (2^16 blocks: the last of three shards padded with two zero rows)
+    for tp in (2, 3):
+        compare("virtual_offset_i64", sharded(vd, tp), vreads.rc,
+                vreads.lengths,
+                np.zeros((vreads.count, vreads.max_len + 1, 2), np.int64),
+                np.zeros((vreads.count, 33, 2), np.int64),
+                AlnParams(max_diff=1),
+                EngineConfig(cap=8192, acap=24, kx=2, max_iters=20_000,
+                             xcap=16), None)
     v_high = int(cv["got"]["o_L"].max())
     emit("int64_path.virtual", ok=bool(v_rank_ok and v_high > 2**33),
          blocks=nblk_v, offset=OFF, rank_positions=int(vpos.size),
@@ -1625,6 +1956,9 @@ def main() -> int:
     ib_ms, ib_by = bound_ms(ci)
     i64_lines = cmps_of("fixed_search_i64") + cmps_of(
         "fixed_search_seeded_i64")
+    tp_lines = [x["line"] for x in cmps if "_tp" in x["line"]["entry"]]
+    tb_ms, tb_by = bound_ms(cft)
+    tp_st, tp_n = tp_runs[(1, 2)]
 
     def probe_entry(name, source_replaces, replaces_name, main, **extra):
         """A probe kernel's entry: the numbers of its comparison `main`,
@@ -1718,7 +2052,7 @@ def main() -> int:
                                "<single, fixed, i64>"],
             "launches": i_launches["fixed_search_i64"],
             "max_abs_err": max(x["err"] for x in cmps
-                               if x["line"]["entry"].endswith("_i64")),
+                               if x["line"] in i64_lines),
             "equal_to_plain": all(x["equal_to_plain"] for x in i64_lines),
             "reads": ci["reads"], "ms": ci["ms"],
             "plain_ms": ci["plain_ms"], "bound_ms": ib_ms,
@@ -1732,6 +2066,39 @@ def main() -> int:
             "registers": regs_of("<multiref, fixed, i64>",
                                  "<single, fixed, i64>"),
             "comparisons": i64_lines},
+    }, {
+        # K2 on a table range-sharded over tp (`--mesh DP,TP`): tp_path's
+        # timed run at (1, 2) on one card, and comparison main_world_fixed
+        # on the sharded index (768 main-world reads at tier 1)
+        "name": "fixed_search_tp", "route": "cuda", "source": src,
+        "replaces": "bwbble_tpu/engine/kernel.py:1127",
+        "replaces_name": "_resident_kernel[fixed] via run_loop_resident:1626"
+                         " on the tp shards of a mesh row (rows as the psum "
+                         "of bwbble_tpu/engine/rank.py:41-55 gives them)",
+        "entries": ["fixed_search_tp", "fixed_search_seeded_tp",
+                    "fixed_search_tp_i64"],
+        "instantiations": ["<multiref, fixed, i32, tp>",
+                           "<single, fixed, i32, tp>",
+                           "<multiref, fixed, i64, tp>",
+                           "<single, fixed, i64, tp>"],
+        "launches": tp_n, "launches_2x2": tp_runs[(2, 2)][1],
+        "max_abs_err": max(x["err"] for x in cmps
+                           if "_tp" in x["line"]["entry"]),
+        "equal_to_plain": all(x["equal_to_plain"] for x in tp_lines),
+        "reads": cft["reads"], "ms": cft["ms"], "plain_ms": cft["plain_ms"],
+        "bound_ms": tb_ms, "bound_by": tb_by, "library_ms": None,
+        "latency_bound_ms": cft["line"]["latency_bound_ms"],
+        "unsharded_ms": cf["ms"],
+        "tp_path_ms": tp_st.get("t_search", 0.0) * 1e3,
+        "tp_path_bound_ms": path_bound(tp_st),
+        "tp_path_latency_bound_ms": latency_ms(tp_st["chain_work"]),
+        "tp_path_2x2_ms": tp_runs[(2, 2)][0].get("t_search", 0.0) * 1e3,
+        "mesh_path_ms": m_stats.get("t_search", 0.0) * 1e3,
+        "registers": regs_of("<multiref, fixed, i32, tp>",
+                             "<single, fixed, i32, tp>",
+                             "<multiref, fixed, i64, tp>",
+                             "<single, fixed, i64, tp>"),
+        "comparisons": tp_lines,
     }, {
         # K3's work: seeded roots in both entries of the same template
         "name": "seeded_search", "route": "cuda", "source": src,
@@ -1785,9 +2152,7 @@ def main() -> int:
                     bound_with_floor_ms=k6_main["bound_with_floor_ms"],
                     l2_bound_ms=k6_main["l2_bound_ms"]),
     ]}), flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
+    last_line()
     return 0
 
 

@@ -7,7 +7,6 @@ import pkgutil
 import re
 import subprocess
 import sys
-import types
 
 import numpy as np
 import pytest
@@ -108,7 +107,10 @@ def test_kernel_wrapper_never_runs_the_plain_version(small):
     before = dict(kernel.LAUNCHES)
     assert set(before) == {"ring_search", "fixed_search",
                            "ring_search_seeded", "fixed_search_seeded",
-                           "fixed_search_i64", "fixed_search_seeded_i64"}
+                           "fixed_search_i64", "fixed_search_seeded_i64",
+                           "fixed_search_tp", "fixed_search_seeded_tp",
+                           "fixed_search_tp_i64",
+                           "fixed_search_seeded_tp_i64"}
     seeds = (torch.zeros((reads.count, 4), dtype=torch.int32),
              torch.zeros((reads.count, 4), dtype=torch.int32),
              torch.ones((reads.count,), dtype=torch.int32))
@@ -156,13 +158,14 @@ def test_probe_wrappers_never_run_the_plain_version_off_the_cpu(monkeypatch):
 
 
 def test_unported_paths_raise_not_implemented(small, tmp_path):
-    """What is still to port raises: a mesh with `-P` seeding (as in the
-    JAX package), a range-sharded index (tp > 1) on CUDA tensors, and a
-    queued search on the int64 layout (as in the JAX package).  (`-P`
-    seeding is ported: tests/test_torch_precalc.py; a seed table without
-    params.use_precalc, or the flag without a table, is refused.  Device
-    meshes and `--dist` are ported: tests/test_torch_parallel.py and
-    tests/test_torch_distributed.py.)"""
+    """What the port does not run raises: a mesh with `-P` seeding (as in
+    the JAX package), a ring launch on a range-sharded index and a table
+    of more than 8 shards (the kernel's limits), and a queued search on the
+    int64 layout (as in the JAX package).  (`-P` seeding is ported:
+    tests/test_torch_precalc.py; a seed table without params.use_precalc,
+    or the flag without a table, is refused.  Device meshes, tp > 1 on the
+    card and `--dist` are ported: tests/test_torch_parallel.py,
+    tests/test_torch_tp_kernel.py and tests/test_torch_distributed.py.)"""
     idx, reads = small
     didx = from_fmindex(idx, device="cpu")
     cfg = EngineConfig(cap=512)
@@ -177,18 +180,18 @@ def test_unported_paths_raise_not_implemented(small, tmp_path):
             align_reads_device(idx, didx, reads,
                                AlnParams(max_diff=1, use_precalc=True), cfg,
                                queued=queued, device="cpu")
-    # tp > 1 on the card: the mesh refuses to shard a CUDA index, and the
-    # kernel's wrapper refuses a sharded one before anything else
-    cuda_idx = types.SimpleNamespace(device=torch.device("cuda"))
-    with pytest.raises(NotImplementedError, match="tp > 1"):
-        make_mesh(1, 2, devices=["cuda:0", "cuda:1"]).place(cuda_idx)
+    # a sharded table: the kernel's wrapper refuses a ring launch on one,
+    # and more shards than the kernel takes, before anything else
     sharded = make_mesh(1, 2, devices=["cpu"] * 2).place(didx)[0]
     ln = torch.from_numpy(reads.lengths.astype(np.int32))
     rc = torch.from_numpy(np.asarray(reads.rc, dtype=np.int8))
     D = torch.zeros((reads.count, reads.max_len + 1, 2), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="tp > 1"):
-        kernel.fixed_search(sharded, rc, ln, D, D, AlnParams(max_diff=1),
-                            cfg)
+    with pytest.raises(ValueError, match="ring launch takes no sharded"):
+        kernel.ring_search(sharded, rc, ln, D, D, AlnParams(max_diff=1),
+                           cfg, lanes=4)
+    nine = make_mesh(1, 9, devices=["cpu"] * 9).place(didx)[0]
+    with pytest.raises(ValueError, match="at most 8"):
+        kernel.fixed_search(nine, rc, ln, D, D, AlnParams(max_diff=1), cfg)
     # the int64 whole-genome layout: 48-word rows are taken as int64, and
     # a queued search on them is refused
     d64 = from_arrays(np.zeros((4, 48), dtype=np.int32), np.zeros(17),

@@ -64,7 +64,8 @@ def emu_lib(tmp_path_factory):
 def _emulated(lib, didx, rc, ln, D, Ds, params, cfg, lanes, seeds,
               events=(None, None)):
     """kernel._launch's work on CPU tensors, through the emulated build
-    (`events`: the two event handles the launch records, or nulls)."""
+    (`events`: the two event handles the launch records, or nulls); a
+    range-sharded index (`didx.tp_tables`) goes in as its shards."""
     fixed = lanes is None
     x64 = didx.idt == torch.int64
     Q, Lmax = rc.shape
@@ -79,9 +80,10 @@ def _emulated(lib, didx, rc, ln, D, Ds, params, cfg, lanes, seeds,
     arena = torch.full((lanes, S.NFRAME, S.ROWW), -7, dtype=torch.int32)
     counter = torch.zeros((1,), dtype=torch.int32)
     sp = [x.data_ptr() for x in seeds] if seeds is not None else [None] * 3
+    ptrs, tp, nloc = kernel.shard_args(didx)
     rc_ = lib.ring_search_launch(
         hp.ctypes.data, hp.size, int(S.multiref), int(fixed), int(x64),
-        didx.table.data_ptr(), didx.Carr.data_ptr(), rc.data_ptr(),
+        ptrs.ctypes.data, tp, nloc, didx.Carr.data_ptr(), rc.data_ptr(),
         ln.data_ptr(), D.data_ptr(), Ds.data_ptr(), *sp, arena.data_ptr(),
         counter.data_ptr(), q_alns.data_ptr(), q_meta.data_ptr(),
         q_paths.data_ptr(), None, *events)
