@@ -195,9 +195,13 @@ def cmd_align(argv: list[str]) -> int:
             host = device is not None and torch.device(device).type != "cuda"
             mesh = make_mesh(dp, tp, [device] * (dp * tp) if host else None)
         didx = from_fmindex(idx, device=device)
+        st: dict = {}
         alns = align_reads_device(idx, didx, reads, params, cfg,
                                   precalc=precalc, queued=queued, mesh=mesh,
-                                  device=device)
+                                  device=device, stats=st)
+        if st.get("gold_pool"):
+            print(f"Gold pool: {st['gold_workers']} {st['gold_pool']}, "
+                  f"started in {st['gold_pool_start_s']:.2f} sec")
     print(f"Total read alignment time: {time.time() - t:.2f} sec")
     if dist_spec is not None:
         from bwbble_tpu_torch.formats.aln import encode_alns

@@ -40,12 +40,15 @@ batch, so no lane and no arena row exists for a read that is not there.
 Outside the streamed branch a launch is collected right after its dispatch:
 the JAX package's `window` of batches in flight has no counterpart here.
 
-The gold pool runs on threads, not forked processes: the index is already
-on the CUDA device when the pool is made, and a forked child of a process
-that holds a CUDA context must never touch it.  The workers spend their
-time inside the native gold engine, which ctypes calls with the GIL
-released and which keeps its scratch thread-local, so threads overlap the
-device launches just as well and need no copy of the index.
+The gold pool (and `gold_fallback_many`) never forks, as the JAX
+package's does: a forked child of a process that holds a CUDA context must
+not touch it.  Its kind follows from what its workers run
+(align/gold_pool.py): threads where they run the native multi-genome gold
+engine, which releases the GIL; `spawn`-context processes, which map the
+index and the seed table from one shared-memory segment, where they run
+the Python gold engine (`-P`, `-S`, no native library), which holds it.
+The stats name the kind (`gold_pool`), its workers and their start
+seconds.
 """
 
 from __future__ import annotations
@@ -58,6 +61,7 @@ import numpy as np
 import torch
 
 from bwbble_tpu_torch import constants as CN
+from bwbble_tpu_torch.align.gold_pool import NO_POOL, GoldPool
 from bwbble_tpu_torch.align.params import AlnParams
 from bwbble_tpu_torch.align.pipeline import align_read_gold
 from bwbble_tpu_torch.align.precalc import read_indices
@@ -518,14 +522,14 @@ def align_reads_device(idx: FMIndex, didx: DeviceIndex, reads: Reads,
                          "params.use_precalc, and only with it")
     if not device_params_ok(params, max(reads.max_len, 1)):
         counters = {"fallback_reads": reads.count, "retried_reads": 0,
-                    "t_dbounds": 0.0, "gold_routed": True}
-        if stats is not None:
-            stats.update(counters)
+                    "t_dbounds": 0.0, "gold_routed": True, **NO_POOL}
         out: list = [None] * reads.count
         for orig, alns in gold_fallback_many(
                 idx, reads, list(range(reads.count)), params, precalc,
-                int(params.n_threads)).items():
+                int(params.n_threads), counters).items():
             out[orig] = alns
+        if stats is not None:
+            stats.update(counters)
         return out
     if mesh is not None:
         # the mesh path (dp reads x tp index shards) is the fixed-batch
@@ -543,7 +547,7 @@ def align_reads_device(idx: FMIndex, didx: DeviceIndex, reads: Reads,
     B = int(params.batch_size)
     Lmax = max(reads.max_len, 1)
     root_plen = int(params.precalc_len) if precalc is not None else 0
-    counters = {"fallback_reads": 0, "retried_reads": 0}
+    counters = {"fallback_reads": 0, "retried_reads": 0, **NO_POOL}
     seed_seen = np.zeros(reads.count, dtype=bool)
     if precalc is not None:
         counters.update(no_seed_hit_reads=0, seed_over_reads=0)
@@ -645,15 +649,15 @@ def align_reads_device(idx: FMIndex, didx: DeviceIndex, reads: Reads,
     # reads WHILE the device runs.  It is made BEFORE the D pass so that
     # pre-routed reads (below) keep it busy during the D phase;
     # hardest-first tier order then surfaces the remaining overflow early.
-    pool: _GoldPool | None = None
+    pool: GoldPool | None = None
     if gold_overlap is None:
         nat0 = get_native()
         gold_overlap = (params.is_multiref and nat0 is not None
                         and getattr(nat0, "_has_gold", False)
                         and mesh is None and reads.count > B)
     if gold_overlap:
-        pool = _GoldPool(idx, reads, params, precalc,
-                         n_workers=max(1, int(params.n_threads)))
+        pool = GoldPool(idx, reads, params, precalc,
+                        n_workers=max(1, int(params.n_threads)))
 
     # The kernel runs the search on every CUDA index, and on CPU tensors
     # its plain version takes the same settings unless the index is
@@ -849,7 +853,8 @@ def align_reads_device(idx: FMIndex, didx: DeviceIndex, reads: Reads,
                     counters["fallback_reads"] += int(sel.size)
                     for orig, alns in gold_fallback_many(
                             idx, reads, [int(i) for i in sel], params,
-                            precalc, int(params.n_threads)).items():
+                            precalc, int(params.n_threads),
+                            counters).items():
                         results[orig] = alns
 
         if pool is not None:
@@ -858,6 +863,7 @@ def align_reads_device(idx: FMIndex, didx: DeviceIndex, reads: Reads,
             counters["fallback_reads"] += pool.submitted
             for orig, alns in pool.drain().items():
                 results[orig] = alns
+            counters.update(pool.stats())
             pool = None
     finally:
         if pool is not None:
@@ -873,54 +879,26 @@ def align_reads_device(idx: FMIndex, didx: DeviceIndex, reads: Reads,
     return results
 
 
-class _GoldPool:
-    """Host-gold worker threads that run concurrently with device launches
-    (see the module docstring for why threads).  Submissions ship read
-    indices; results are gathered by `drain`.  With a seed table (`-P`) the
-    workers run the Python gold engine, which holds the GIL."""
-
-    def __init__(self, idx, reads: Reads, params: AlnParams, precalc,
-                 n_workers: int = 1):
-        idx.bit_planes()              # materialize the shared rank planes
-        idx.fused_planes()            # before any worker needs them
-        self._idx, self._reads, self._params = idx, reads, params
-        self._precalc = precalc
-        self._ex = ThreadPoolExecutor(max(1, int(n_workers)))
-        self._futs: list = []
-        self.submitted = 0
-
-    def submit(self, sel) -> None:
-        for i in sel:
-            i = int(i)
-            self._futs.append((i, self._ex.submit(
-                _fb_single, self._idx, self._reads, i, self._params,
-                self._precalc)))
-            self.submitted += 1
-
-    def drain(self) -> dict[int, list]:
-        out = {i: f.result() for i, f in self._futs}
-        self._futs = []
-        self._ex.shutdown(wait=True)
-        return out
-
-    def terminate(self) -> None:
-        self._ex.shutdown(wait=True, cancel_futures=True)
-
-
 def gold_fallback_many(idx, reads: Reads, sel: list[int], params: AlnParams,
-                       precalc, n_threads: int) -> dict[int, list]:
+                       precalc, n_threads: int,
+                       stats: dict | None = None) -> dict[int, list]:
     """Gold-align reads[sel] (`precalc`: the `-P` seed table or None); with
-    n_threads > 1 worker threads spread the reads so overflow storms
-    degrade gracefully."""
+    n_threads > 1 a GoldPool of that many workers (threads or spawned
+    processes, by what they run) spreads the reads so overflow storms
+    degrade gracefully.  `stats` gets the pool's kind, workers and start
+    seconds when one ran."""
     if n_threads <= 1 or len(sel) <= 1:
         return {i: _fb_single(idx, reads, i, params, precalc) for i in sel}
-    pool = _GoldPool(idx, reads, params, precalc,
-                     min(int(n_threads), len(sel)))
+    pool = GoldPool(idx, reads, params, precalc,
+                    min(int(n_threads), len(sel)))
     try:
         pool.submit(sel)
-        return pool.drain()
+        out = pool.drain()
     finally:
         pool.terminate()
+    if stats is not None:
+        stats.update(pool.stats())
+    return out
 
 
 def _fb_single(idx, reads, i, params, precalc):
@@ -956,12 +934,13 @@ def _align_queued(idx, didx, reads: Reads, params: AlnParams,
 
     # overlapped host-gold pool, made before the D pass so pre-routed
     # reads keep the host busy while the device searches
-    pool: _GoldPool | None = None
+    pool: GoldPool | None = None
+    pool_stats = dict(NO_POOL)
     nat = get_native()
     if (params.is_multiref and nat is not None
             and getattr(nat, "_has_gold", False) and NR > lanes):
-        pool = _GoldPool(idx, reads, params, precalc,
-                         n_workers=max(1, int(params.n_threads)))
+        pool = GoldPool(idx, reads, params, precalc,
+                        n_workers=max(1, int(params.n_threads)))
 
     try:
         # one forward D pass: search bounds + difficulty ordering
@@ -1117,6 +1096,7 @@ def _align_queued(idx, didx, reads: Reads, params: AlnParams,
             n_fallback = pool.submitted
             for orig, alns in pool.drain().items():
                 out[orig] = alns
+            pool_stats = pool.stats()
             pool = None
         else:
             rest = sorted(set(failed)) + [int(i) for i in dov_sel]
@@ -1124,7 +1104,7 @@ def _align_queued(idx, didx, reads: Reads, params: AlnParams,
             if rest:
                 for orig, alns in gold_fallback_many(
                         idx, reads, rest, params, precalc,
-                        int(params.n_threads)).items():
+                        int(params.n_threads), pool_stats).items():
                     out[orig] = alns
     finally:
         if pool is not None:
@@ -1136,5 +1116,5 @@ def _align_queued(idx, didx, reads: Reads, params: AlnParams,
                      t_search=t_search,
                      t_host=round(_tm.time() - t_start - t_dbounds
                                   - t_search, 3),
-                     tiers=pass_log, **counters)
+                     tiers=pass_log, **pool_stats, **counters)
     return out

@@ -9,9 +9,14 @@ does:
 - **dp axis**: reads are data-parallel.  Each dp member runs the search on
   its own contiguous slice of the batch, with its own replica of the index
   on its own device; on CUDA tensors that is one launch of the fixed
-  kernel a member.  No communication on this axis.  Every member's work
-  is dispatched before any member's result is collected (the kernel's
-  wrapper does not synchronise).
+  kernel a member.  No communication on this axis.  Every member's inputs
+  are staged on its device before any member launches (`_stage`), then
+  every member's work is dispatched before any member's result is
+  collected (the kernel's wrapper does not synchronise), so the members'
+  launches run at once, as the dp members of the JAX package's
+  `shard_map` do.  A copy between cards is queued on the source card's
+  stream: staged inside its member's dispatch, it would wait there behind
+  the launch of the member before.
 - **tp axis**: the index is range-sharded.  Each member of a mesh row holds
   a contiguous range of the table's blocks, the last one zero-padded.  The
   search state of a row lives on its first member.  On CUDA tensors the
@@ -158,21 +163,31 @@ def _slices(n_total: int, dp: int):
     return [slice(d * n, (d + 1) * n) for d in range(dp)]
 
 
+def _stage(members: list, arrs, dtypes) -> list[tuple]:
+    """Each dp member's slice of each of `arrs` on the member's device, in
+    the type given (None: as it is), contiguous: the inputs its launch
+    takes as they are, all copied before any member launches."""
+    return [tuple(a[s].to(m.device, dt or a.dtype).contiguous()
+                  for a, dt in zip(arrs, dtypes))
+            for m, s in zip(members, _slices(arrs[0].shape[0],
+                                             len(members)))]
+
+
 def sharded_inexact_search(mesh: Mesh, didx: DeviceIndex, rc, lengths, D,
                            D_seed, params: AlnParams, cfg: EngineConfig,
                            timers=None) -> dict:
     """inexact_search over a (dp, tp) mesh; the same outputs, the batch
-    split on dp.  `timers`: None, or one timer a dp member, each handed to
-    its member's launch (inexact_search's `timer`)."""
+    split on dp.  Every member's inputs are staged on its device first,
+    then the members launch in order.  `timers`: None, or one timer a dp
+    member, each handed to its member's launch (inexact_search's
+    `timer`)."""
     members = mesh.place(didx)
-    (rc, lengths, D, D_seed), B = _pad_batch((rc, lengths, D, D_seed),
-                                             len(members))
-    outs = [inexact_search(m, rc[s], lengths[s], D[s], D_seed[s], params,
-                           cfg, device=m.device,
+    arrs, B = _pad_batch((rc, lengths, D, D_seed), len(members))
+    staged = _stage(members, arrs, (torch.int8, torch.int32, didx.idt,
+                                    didx.idt))
+    outs = [inexact_search(m, *x, params, cfg, device=m.device,
                            timer=None if timers is None else timers[d])
-            for d, (m, s) in enumerate(zip(members,
-                                           _slices(rc.shape[0],
-                                                   len(members))))]
+            for d, (m, x) in enumerate(zip(members, staged))]
     return _join(outs, didx.device, B)
 
 
@@ -200,18 +215,20 @@ def sharded_align_step(mesh: Mesh, didx: DeviceIndex, seq, rc, lengths,
     a batch (align_reads_inexact, inexact_match.c:46-66)."""
     from bwbble_tpu_torch.engine.pipeline import _calc_d_chunk
     members = mesh.place(didx)
-    (seq, rc, lengths), B = _pad_batch((seq, rc, lengths), len(members))
-    ln_np = lengths.cpu().numpy()
-    shards = list(zip(members, _slices(seq.shape[0], len(members))))
+    arrs, B = _pad_batch((seq, rc, lengths), len(members))
+    ln_np = arrs[2].cpu().numpy()
+    staged = _stage(members, arrs, (None, torch.int8, torch.int32))
     outs = []
-    for m, s in shards:          # every member's search dispatched first
-        D, Ds, dov = _calc_d_chunk(m, seq[s], lengths[s], ln_np[s], params,
-                                   d_cap)
-        out = inexact_search(m, rc[s], lengths[s], D, Ds, params, cfg,
+    # every member's inputs staged, then every member's search dispatched
+    # before any result is read
+    for m, s, (seq_m, rc_m, ln_m) in zip(
+            members, _slices(arrs[0].shape[0], len(members)), staged):
+        D, Ds, dov = _calc_d_chunk(m, seq_m, ln_m, ln_np[s], params, d_cap)
+        out = inexact_search(m, rc_m, ln_m, D, Ds, params, cfg,
                              device=m.device)
         out["overflow"] = out["overflow"] | dov
         outs.append(out)
-    for (m, _s), out in zip(shards, outs):
+    for m, out in zip(members, outs):
         found = out["n_alns"] > 0
         rows = torch.where(found, out["o_L"][:, 0], 0)
         out["ref_pos"] = torch.where(found, sa_resolve(m, rows), -1)

@@ -30,7 +30,8 @@ unsharded one); mesh_cards (with two cards or more: the dependent-row
 latency of a peer card's rows beside this card's, then `--mesh 1,N`,
 `2,2`, `2` and `4` through the CLI across the cards, `.aln` byte-equal to
 fixed_path's, each dp member's search time and whether the members'
-launches overlapped; on one card a line saying that it did not run);
+launches overlapped, which at dp > 1 they must in every dispatch; on one
+card a line saying that it did not run);
 dist_path (two `--dist`
 processes on the card, each with half of fixed_path's `-t`, the merged
 `.aln` byte-equal to fixed_path's); easy_path (the easy 5 Mbp world, fixed batches
@@ -39,7 +40,8 @@ kernel comparisons on the easy world at the lane counts, arenas and
 alphabets these two paths launch; precalc (the k = 12 seed table of the
 easy world built on the card, written as `.pre`, read back, and sampled
 against the gold engine); pre_path (`align -n 4 -P` on the easy world,
-fixed batches of 8 192: the seeded launches); seeded comparisons on the
+fixed batches of 8 192: the seeded launches, the gold pool on spawned
+processes, its kind, workers and start seconds); seeded comparisons on the
 small worlds, on the easy world at pre_path's settings and on main-world
 reads with a precalc_len-10 table built on the card; sam (`aln2sam` with
 SA rows resolved on the card); probes (the three row-fetch probes through
@@ -226,11 +228,13 @@ def cli_with_stats(argv):
     inner = [0.0]
     align = pipeline_mod.align_reads_device
 
-    def timed(*a, **kw):
+    def timed(*a, stats=None, **kw):
         t0 = time.time()
         out = align(*a, stats=st, **kw)
         sync_all()
         inner[0] = time.time() - t0
+        if stats is not None:
+            stats.update(st)
         return out
     pipeline_mod.align_reads_device = timed
     mark = host_mark()
@@ -254,7 +258,8 @@ def mesh_cards(fa: str, fq: str, wdir: str, ref_aln: str, ref_seconds: float,
     each dp member's search seconds (the events its launches record), and
     whether the members' launches of a dispatch overlapped in time (their
     events against a reference event recorded on every card at the start,
-    after a wait for every card).  A mesh that raises (as one would whose
+    after a wait for every card); at dp > 1 they must in every dispatch.
+    A mesh that raises (as one would whose
     cards cannot reach each other) is reported with its message; the phase
     fails after the last mesh if any failed.  On one card: one line saying
     that the phase did not run."""
@@ -329,8 +334,11 @@ def mesh_cards(fa: str, fq: str, wdir: str, ref_aln: str, ref_seconds: float,
                 member_s[m] += (spans[-1][1] - spans[-1][0]) / 1e3
             overlapped += len(g) > 1 and max(a for a, _ in spans) < min(
                 b for _, b in spans)
+        # dp > 1: every dispatch's member launches must overlap in time,
+        # as the dp members of the JAX package's shard_map run at once
         ok = bool(same and launches[key] > 0 and error is None
-                  and sum(launches.values()) == launches[key])
+                  and sum(launches.values()) == launches[key]
+                  and (dp == 1 or (groups and overlapped == len(groups))))
         emit("mesh_cards", ok=ok, mesh=spec, dp=dp, tp=tp, cards=dp * tp,
              same_as_fixed_path=same, error=error, returncode=rc,
              reads_per_sec=None if dt is None else BENCH_READS / dt,
@@ -346,8 +354,9 @@ def mesh_cards(fa: str, fq: str, wdir: str, ref_aln: str, ref_seconds: float,
     if failed:
         fail("mesh_cards", f"{failed}: peer rows refused or read wrong, or "
                            "a mesh's `.aln` differs from fixed_path's, its "
-                           "run raised, or it did not launch its kernel "
-                           "(alone)")
+                           "run raised, it did not launch its kernel "
+                           "(alone), or its dp members' launches did not "
+                           "overlap in every dispatch")
 
 
 def peer_rows(card: str) -> None:
@@ -1559,12 +1568,16 @@ def main() -> int:
     pre_same_cli = filecmp.cmp(pre_aln, pre_cli_aln, shallow=False)
     pre_same_queued = filecmp.cmp(pre_aln, pre_q_aln, shallow=False)
     pre_parity = bool(pre_gold_ok and pre_same_cli and pre_same_queued)
+    # under -P the gold pool's workers run the Python gold engine: spawned
+    # processes, never threads
     pr_ok = bool(pre_parity and pr_launches["fixed_search_seeded"] > 0
-                 and pq_launches["ring_search_seeded"] > 0)
+                 and pq_launches["ring_search_seeded"] > 0
+                 and pr_stats.get("gold_pool") == "processes"
+                 and pq_stats.get("gold_pool") == "processes")
     emit("pre_path", ok=pr_ok, parity=pre_parity,
          same_as_cli=pre_same_cli, same_as_queued=pre_same_queued,
          gold_reads=head.count, gold_equal=pre_gold_ok,
-         gold_seconds=round(t_pgold, 1), gold_workers=threads,
+         gold_seconds=round(t_pgold, 1), gold_reference_workers=threads,
          parity_against=f"first {head.count} reads: Python gold engine "
                         "with the same table; whole file: the CLI's and "
                         "the queued search's at 512 lanes",
@@ -1576,15 +1589,21 @@ def main() -> int:
          cli_seconds=round(t_pcli, 1),
          cli_launches=p_cli_launches["fixed_search_seeded"],
          queued_seconds=pq_dt, queued_reads_per_sec=ereads.count / pq_dt,
+         queued_t_dbounds=pq_stats.get("t_dbounds"),
          queued_t_search=pq_stats.get("t_search"),
          queued_t_host=pq_stats.get("t_host"),
+         **{f"{run}{k}": st_.get(k) for run, st_ in (("", pr_stats),
+                                                    ("queued_", pq_stats))
+            for k in ("gold_pool", "gold_workers", "gold_pool_start_s",
+                      "gold_pool_shared_bytes")},
          queued_launches=pq_launches["ring_search_seeded"],
          queued_fallback_reads=pq_stats.get("fallback_reads"),
          **path_line(ereads.count, pr_dt, pr_stats,
                      pr_launches["fixed_search_seeded"]))
     if not pr_ok:
-        fail("pre_path", "`-P` outputs disagree, or a path did not launch "
-                         "its seeded kernel")
+        fail("pre_path", "`-P` outputs disagree, a path did not launch "
+                         "its seeded kernel, or its gold pool did not run "
+                         "on processes")
 
     # (c) seeded comparisons at what pre_path launches: one fixed batch of
     # 8 192 lanes, and one queued launch of its second run (512 lanes, two

@@ -28,6 +28,7 @@ from bwbble_tpu.parallel import sharded_inexact_search as j_sharded_search
 
 from bwbble_tpu_torch import native as t_native
 from bwbble_tpu_torch.align.params import AlnParams
+from bwbble_tpu_torch.engine import inexact as t_inexact
 from bwbble_tpu_torch.engine.device_index import from_fmindex
 from bwbble_tpu_torch.engine.inexact import EngineConfig, inexact_search
 from bwbble_tpu_torch.engine.pipeline import (_calc_d_chunk,
@@ -38,6 +39,7 @@ from bwbble_tpu_torch.formats.fastq import read_fastq
 from bwbble_tpu_torch.index import FMIndex
 from bwbble_tpu_torch.parallel import (make_mesh, sharded_align_step,
                                        sharded_inexact_search)
+from bwbble_tpu_torch.parallel import shard
 from bwbble_tpu_torch.parallel.shard import sharded_calc_d_chunk
 from test_torch_fixed import PER_READ, as_numpy, both_indexes
 from test_torch_pipeline import no_native  # noqa: F401
@@ -97,6 +99,68 @@ def test_sharded_search_equals_one_device_and_jax(world, dp, tp):
         JConfig(cap=CAP, acap=ACAP, kx=KX, max_iters=MAX_ITERS,
                 backend="xla")))
     _contract(jout, g)
+
+
+@pytest.mark.parametrize("entry", ["search", "align_step"])
+def test_members_inputs_staged_before_the_first_launch(world, monkeypatch,
+                                                        entry):
+    """The dp members' launches overlap across cards only if no member's
+    inputs are copied inside its own dispatch: every member's inputs are
+    staged on its device before the first launch, each launch gets the
+    staged tensors, on its member's device, in the types its launch takes,
+    and `_search_inputs` copies none of them again.  Outputs unchanged."""
+    w = world
+    p = AlnParams(max_diff=2)
+    n = 10                                   # padded to 12 lanes at dp = 3
+    mesh = make_mesh(3, 1, devices=CPU8)
+    members = mesh.place(w["tdx"])
+
+    def run():
+        if entry == "search":
+            return shard.sharded_inexact_search(
+                mesh, w["tdx"], w["rc"][:n], w["ln"][:n], w["D"][:n],
+                w["Ds"][:n], p, CFG)
+        return shard.sharded_align_step(mesh, w["tdx"], w["seq"][:n],
+                                        w["rc"][:n], w["ln"][:n], p, CFG,
+                                        d_cap=16)
+
+    ref = run()
+    events: list = []
+    staged_ptrs: set = set()
+    real_stage, real_search = shard._stage, shard.inexact_search
+
+    def stage(ms, arrs, dtypes):
+        out = real_stage(ms, arrs, dtypes)
+        for m, xs in zip(ms, out):
+            events.append(("stage", m))
+            staged_ptrs.update(x.data_ptr() for x in xs)
+        return out
+
+    def search(m, rc, lengths, D, Ds, params, cfg, device=None, timer=None):
+        events.append(("launch", m))
+        assert device == m.device
+        for x, dt in ((rc, torch.int8), (lengths, torch.int32)):
+            assert x.device == m.device and x.dtype == dt
+            assert x.data_ptr() in staged_ptrs
+        got = t_inexact._search_inputs(m, rc, lengths, D, Ds, None, None,
+                                       None, device)
+        assert got[1] is rc and got[2] is lengths
+        if entry == "search":
+            assert got[3] is D and got[4] is Ds
+        return real_search(m, rc, lengths, D, Ds, params, cfg,
+                           device=device, timer=timer)
+
+    monkeypatch.setattr(shard, "_stage", stage)
+    monkeypatch.setattr(shard, "inexact_search", search)
+    got = run()
+    assert [k for k, _ in events] == ["stage"] * 3 + ["launch"] * 3
+    assert [m for _, m in events[3:]] == members
+    assert set(got) == set(ref)
+    for k in ref:
+        assert torch.equal(got[k], ref[k]), k
+    if entry == "search":
+        for k in w["one"]:
+            assert torch.equal(got[k], w["one"][k][:n]), k
 
 
 def test_tp_gather_equals_unsharded_rows(world):

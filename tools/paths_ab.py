@@ -1,5 +1,5 @@
-"""Time the easy and single paths of two source trees against each other,
-on one card, in one call.
+"""Time the easy, single and `-P` paths of two source trees against each
+other, on one card, in one call.
 
     python3 tools/paths_ab.py OTHER_ROOT [--order OTTO] [--workdir DIR]
 
@@ -13,9 +13,15 @@ once), and each times what chip_smoke.py times there:
   - `single_cli`: `align -n 4 -S --batch 8192` through `cli.main` in the
     process;
   - `single`: the same reads with `-S`, in-process;
-  - `single_queued`: the same at 512 lanes in the ring queue.
+  - `single_queued`: the same at 512 lanes in the ring queue;
+  - `pre`: chip_smoke.py's pre_path, `-P` from the k = 12 seed table
+    (built on the card by the first run into the work directory as
+    `<fasta>.pre`, read back by the later ones), a warm-up on 256 reads,
+    then the 16 384 reads in fixed batches of 8 192;
+  - `pre_queued`: the same at 512 lanes in the ring queue.
 Each run prints one JSON line a timed call: seconds, reads/s, `t_dbounds`,
-`t_search`, `t_host`, the tiers, and where the host time goes: the
+`t_search`, `t_host`, the tiers, the gold pool's kind, workers and start
+seconds (where the tree reports them), and where the host time goes: the
 process's CPU seconds, the seconds in the search calls (`inexact_search`,
 `inexact_search_queued`), in `_assemble` and in Python's garbage
 collector, and the host's load average.  Every run's `.aln` files must be
@@ -35,7 +41,7 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-CALLS = ("easy", "single", "single_queued")
+CALLS = ("easy", "single", "single_queued", "pre", "pre_queued")
 
 
 def _timed(fn, acc: dict, key: str):
@@ -54,6 +60,7 @@ def run_one(root: str, workdir: str, tag: str) -> None:
     import torch
     from bwbble_tpu_torch import build_native, cli, worlds
     from bwbble_tpu_torch.align.params import AlnParams
+    from bwbble_tpu_torch.align.precalc import load_or_build_precalc
     from bwbble_tpu_torch.engine import pipeline
     from bwbble_tpu_torch.engine.device_index import from_fmindex
     from bwbble_tpu_torch.engine.inexact import EngineConfig
@@ -74,6 +81,7 @@ def run_one(root: str, workdir: str, tag: str) -> None:
     edidx = from_fmindex(eidx, device=dev)
     p_easy = AlnParams(max_diff=4, batch_size=8192, n_threads=threads)
     p_single = dataclasses.replace(p_easy, is_multiref=False)
+    p_pre = dataclasses.replace(p_easy, use_precalc=True)
     cfg = EngineConfig(cap=32768, acap=24, kx=2, max_iters=500_000)
 
     acc: dict = {}
@@ -106,7 +114,10 @@ def run_one(root: str, workdir: str, tag: str) -> None:
                     loadavg_1min=load,
                     **{k: st.get(k) for k in ("t_dbounds", "t_search",
                                               "t_host", "tiers",
-                                              "fallback_reads")})
+                                              "fallback_reads", "prerouted",
+                                              "gold_pool", "gold_workers",
+                                              "gold_pool_start_s",
+                                              "gold_pool_shared_bytes")})
         print(json.dumps(line), flush=True)
         return out
 
@@ -123,6 +134,12 @@ def run_one(root: str, workdir: str, tag: str) -> None:
     out["single"] = timed("single", align(p_single, queued=False))
     out["single_queued"] = timed("single_queued", align(
         dataclasses.replace(p_single, batch_size=512), queued=True))
+    table = load_or_build_precalc(eidx, p_pre, efa + ".pre", device=dev)
+    align(p_pre, worlds.head_reads(ereads, 256), precalc=table)({})
+    out["pre"] = timed("pre", align(p_pre, queued=False, precalc=table))
+    out["pre_queued"] = timed("pre_queued", align(
+        dataclasses.replace(p_pre, batch_size=512), queued=True,
+        precalc=table))
     for call, alns in out.items():
         write_aln_file(os.path.join(workdir, f"{tag}_{call}.aln"), alns)
 
