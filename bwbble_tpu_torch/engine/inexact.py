@@ -858,7 +858,8 @@ def _search_inputs(didx, rc, lengths, D, Ds, seed_L, seed_U, seed_cnt,
 
 def inexact_search(didx: DeviceIndex, rc, lengths, D, D_seed,
                    params: AlnParams, cfg: EngineConfig, seed_L=None,
-                   seed_U=None, seed_cnt=None, device=None, timer=None):
+                   seed_U=None, seed_cnt=None, device=None, timer=None,
+                   defer: bool = False):
     """Fixed-batch search: one lane per read; outputs are per-read [B, ...]
     tensors on the device, in read order, plus `paths` (2-bit packed
     reverse-order state walks) and `arena`, the launch's frame rows
@@ -882,15 +883,20 @@ def inexact_search(didx: DeviceIndex, rc, lengths, D, D_seed,
       timer:     None, or an object whose `events` a CUDA launch sets to two
                  CUDA events recorded right around the kernel's launch
                  (engine/kernel.py); unused on the CPU.
+      defer:     return a callable that returns the outputs: on a CUDA
+                 device everything but the launch is done and the call
+                 launches (a mesh launches its members back to back); on
+                 the CPU the plain version has run.
     """
     dev, rc, lengths, D, D_seed, seeds = _search_inputs(
         didx, rc, lengths, D, D_seed, seed_L, seed_U, seed_cnt, device)
     if dev.type == "cpu":
-        return fixed_search_plain(didx, rc, lengths, D, D_seed, params, cfg,
-                                  seeds)
+        out = fixed_search_plain(didx, rc, lengths, D, D_seed, params, cfg,
+                                 seeds)
+        return (lambda: out) if defer else out
     from bwbble_tpu_torch.engine import kernel
     return kernel.fixed_search(didx, rc, lengths, D, D_seed, params, cfg,
-                               seeds, timer)
+                               seeds, timer, defer)
 
 
 def inexact_search_queued(didx: DeviceIndex, rc_all, lengths_all, D_all,

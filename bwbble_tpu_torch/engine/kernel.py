@@ -283,7 +283,7 @@ def enable_peer(dev: torch.device, peer: torch.device) -> None:
 def _launch(entry: str, didx: DeviceIndex, rc_all: torch.Tensor,
             lengths_all: torch.Tensor, D_all: torch.Tensor,
             Ds_all: torch.Tensor, params: AlnParams, cfg: EngineConfig,
-            lanes: int | None, seeds, timer=None):
+            lanes: int | None, seeds, timer=None, defer: bool = False):
     """Check the arguments, allocate outputs and scratch, launch one
     instantiation of the kernel (`lanes` None: fixed mode, one lane per
     read; `seeds` None or (seed_L, seed_U, seed_cnt)) and count the launch.
@@ -292,7 +292,10 @@ def _launch(entry: str, didx: DeviceIndex, rc_all: torch.Tensor,
     after the kernel launch.  On a range-sharded index it launches on the
     card of shard 0, where the search state lives, and reads the other
     shards there by peer access.  Returns (q_alns, q_meta, q_paths, arena).
-    Does not synchronise."""
+    Does not synchronise.  `defer`: do everything but the launch and
+    return `go`, whose call launches and returns those outputs: the
+    launches of a mesh's members then follow each other with no host work
+    between them."""
     fixed = lanes is None
     if not fixed and didx.tp_tables is not None:
         raise ValueError(f"{entry}: a ring launch takes no sharded table "
@@ -357,6 +360,8 @@ def _launch(entry: str, didx: DeviceIndex, rc_all: torch.Tensor,
     sp = [x.data_ptr() for x in seeds] if seeds is not None else [None] * 3
 
     with torch.cuda.device(dev):
+        _load_on_card(lib, dev, int(S.multiref), int(fixed), int(x64),
+                      int(tp > 1), smem)
         q_alns, q_meta, q_paths = alloc_outputs(Q, S, dev)
         arena = torch.empty((lanes, S.NFRAME, S.ROWW), dtype=torch.int32,
                             device=dev)
@@ -364,20 +369,43 @@ def _launch(entry: str, didx: DeviceIndex, rc_all: torch.Tensor,
         stream = torch.cuda.current_stream(dev).cuda_stream
         ev = None if timer is None else launch_events()
         evp = [None] * 2 if ev is None else [e.cuda_event for e in ev]
-        rc = lib.ring_search_launch(
-            hp.ctypes.data, hp.size, int(S.multiref), int(fixed), int(x64),
-            ptrs.ctypes.data, tp, nloc, didx.Carr.data_ptr(),
-            rc_all.data_ptr(), lengths_all.data_ptr(), D_all.data_ptr(),
-            Ds_all.data_ptr(), *sp, arena.data_ptr(), counter.data_ptr(),
-            q_alns.data_ptr(), q_meta.data_ptr(), q_paths.data_ptr(), stream,
-            *evp)
+
+    def go() -> tuple:
+        with torch.cuda.device(dev):
+            rc = lib.ring_search_launch(
+                hp.ctypes.data, hp.size, int(S.multiref), int(fixed),
+                int(x64), ptrs.ctypes.data, tp, nloc, didx.Carr.data_ptr(),
+                rc_all.data_ptr(), lengths_all.data_ptr(), D_all.data_ptr(),
+                Ds_all.data_ptr(), *sp, arena.data_ptr(),
+                counter.data_ptr(), q_alns.data_ptr(), q_meta.data_ptr(),
+                q_paths.data_ptr(), stream, *evp)
         if ev is not None:
             timer.events = ev
-    count_launch(LAUNCHES, entry, rc)
-    # the scratch tensors stay referenced by the caching allocator's stream
-    # ordering: later allocations on this stream cannot reuse them before
-    # the kernel has finished
-    return q_alns, q_meta, q_paths, arena
+        count_launch(LAUNCHES, entry, rc)
+        # the scratch tensors stay referenced by the caching allocator's
+        # stream ordering: later allocations on this stream cannot reuse
+        # them before the kernel has finished
+        return q_alns, q_meta, q_paths, arena
+
+    return go if defer else go()
+
+
+_ON_CARD: set = set()      # (card, instantiation) pairs already loaded
+
+
+def _load_on_card(lib, dev: torch.device, multiref: int, fixed: int,
+                  x64: int, sharded: int, smem: int) -> None:
+    """Have the card load an instantiation before its first launch there
+    (CUDA loads a kernel lazily, at its first use on a card, which would
+    otherwise sit between the launches of a mesh's members): one occupancy
+    query a card and instantiation, which raises on a CUDA error."""
+    key = (_ordinal(dev), multiref, fixed, x64, sharded)
+    if key in _ON_CARD:
+        return
+    n = lib.ring_search_occupancy(multiref, fixed, x64, sharded, smem)
+    if n < 0:
+        raise RuntimeError(f"occupancy query failed with CUDA error {-n}")
+    _ON_CARD.add(key)
 
 
 def ring_search(didx: DeviceIndex, rc_all: torch.Tensor,
@@ -399,7 +427,8 @@ def ring_search(didx: DeviceIndex, rc_all: torch.Tensor,
 
 def fixed_search(didx: DeviceIndex, rc: torch.Tensor, lengths: torch.Tensor,
                  D: torch.Tensor, Ds: torch.Tensor, params: AlnParams,
-                 cfg: EngineConfig, seeds=None, timer=None) -> dict:
+                 cfg: EngineConfig, seeds=None, timer=None,
+                 defer: bool = False):
     """Launch the fixed-batch search on CUDA tensors: lane b runs read b
     and nothing else, so there is a lane, and an arena column, for exactly
     the reads given; `seeds` and `timer` as for `ring_search`.  On the int64 index
@@ -408,8 +437,15 @@ def fixed_search(didx: DeviceIndex, rc: torch.Tensor, lengths: torch.Tensor,
     result dict in read order plus `arena`, the launch's frame rows
     [B, NFRAME, ROWW] (its scratch, valid once the launch has finished).
     Does not synchronise.  Raises for anything the kernel does not take —
-    there is no fallback to the plain version."""
-    q_alns, q_meta, q_paths, arena = _launch(
-        "fixed_search", didx, rc, lengths, D, Ds, params, cfg, None, seeds,
-        timer)
-    return dict(result_dict(q_alns, q_meta, q_paths), arena=arena)
+    there is no fallback to the plain version.  `defer`: return a callable
+    that launches and returns the result dict (`_launch`)."""
+    def results(q_alns, q_meta, q_paths, arena) -> dict:
+        # result_dict computes from the outputs: only after the launch
+        return dict(result_dict(q_alns, q_meta, q_paths), arena=arena)
+
+    if defer:
+        go = _launch("fixed_search", didx, rc, lengths, D, Ds, params, cfg,
+                     None, seeds, timer, defer=True)
+        return lambda: results(*go())
+    return results(*_launch("fixed_search", didx, rc, lengths, D, Ds,
+                            params, cfg, None, seeds, timer))

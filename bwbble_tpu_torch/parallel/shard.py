@@ -10,13 +10,14 @@ does:
   its own contiguous slice of the batch, with its own replica of the index
   on its own device; on CUDA tensors that is one launch of the fixed
   kernel a member.  No communication on this axis.  Every member's inputs
-  are staged on its device before any member launches (`_stage`), then
-  every member's work is dispatched before any member's result is
-  collected (the kernel's wrapper does not synchronise), so the members'
-  launches run at once, as the dp members of the JAX package's
-  `shard_map` do.  A copy between cards is queued on the source card's
-  stream: staged inside its member's dispatch, it would wait there behind
-  the launch of the member before.
+  are staged on its device before any member launches (`_stage`), every
+  member's launch is prepared (outputs, scratch, the kernel loaded on its
+  card), then the members launch back to back, and no result is
+  collected before the last launch (the kernel's wrapper does not
+  synchronise), so the members' launches run at once, as the dp members
+  of the JAX package's `shard_map` do.  A copy between cards is queued on
+  the source card's stream: staged inside its member's dispatch, it would
+  wait there behind the launch of the member before.
 - **tp axis**: the index is range-sharded.  Each member of a mesh row holds
   a contiguous range of the table's blocks, the last one zero-padded.  The
   search state of a row lives on its first member.  On CUDA tensors the
@@ -177,18 +178,24 @@ def sharded_inexact_search(mesh: Mesh, didx: DeviceIndex, rc, lengths, D,
                            D_seed, params: AlnParams, cfg: EngineConfig,
                            timers=None) -> dict:
     """inexact_search over a (dp, tp) mesh; the same outputs, the batch
-    split on dp.  Every member's inputs are staged on its device first,
-    then the members launch in order.  `timers`: None, or one timer a dp
-    member, each handed to its member's launch (inexact_search's
-    `timer`)."""
+    split on dp.  Every member's inputs are staged on its device and its
+    launch prepared first, then the members launch back to back.
+    `timers`: None, or one timer a dp member, each handed to its member's
+    launch (inexact_search's `timer`)."""
     members = mesh.place(didx)
     arrs, B = _pad_batch((rc, lengths, D, D_seed), len(members))
     staged = _stage(members, arrs, (torch.int8, torch.int32, didx.idt,
                                     didx.idt))
-    outs = [inexact_search(m, *x, params, cfg, device=m.device,
-                           timer=None if timers is None else timers[d])
-            for d, (m, x) in enumerate(zip(members, staged))]
-    return _join(outs, didx.device, B)
+    return _join(_launch_all([
+        inexact_search(m, *x, params, cfg, device=m.device, defer=True,
+                       timer=None if timers is None else timers[d])
+        for d, (m, x) in enumerate(zip(members, staged))]), didx.device, B)
+
+
+def _launch_all(prepared: list) -> list:
+    """Launch the members' prepared searches (inexact_search's `defer`
+    callables) back to back; their outputs."""
+    return [go() for go in prepared]
 
 
 def sharded_calc_d_chunk(mesh: Mesh, didx: DeviceIndex, seq, lengths,
@@ -218,16 +225,19 @@ def sharded_align_step(mesh: Mesh, didx: DeviceIndex, seq, rc, lengths,
     arrs, B = _pad_batch((seq, rc, lengths), len(members))
     ln_np = arrs[2].cpu().numpy()
     staged = _stage(members, arrs, (None, torch.int8, torch.int32))
-    outs = []
-    # every member's inputs staged, then every member's search dispatched
+    # every member's inputs staged, then its D pass (member by member),
+    # then every member's search prepared and launched back to back
     # before any result is read
+    prepared, dovs = [], []
     for m, s, (seq_m, rc_m, ln_m) in zip(
             members, _slices(arrs[0].shape[0], len(members)), staged):
         D, Ds, dov = _calc_d_chunk(m, seq_m, ln_m, ln_np[s], params, d_cap)
-        out = inexact_search(m, rc_m, ln_m, D, Ds, params, cfg,
-                             device=m.device)
+        prepared.append(inexact_search(m, rc_m, ln_m, D, Ds, params, cfg,
+                                       device=m.device, defer=True))
+        dovs.append(dov)
+    outs = _launch_all(prepared)
+    for out, dov in zip(outs, dovs):
         out["overflow"] = out["overflow"] | dov
-        outs.append(out)
     for m, out in zip(members, outs):
         found = out["n_alns"] > 0
         rows = torch.where(found, out["o_L"][:, 0], 0)

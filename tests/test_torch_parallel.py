@@ -29,6 +29,7 @@ from bwbble_tpu.parallel import sharded_inexact_search as j_sharded_search
 from bwbble_tpu_torch import native as t_native
 from bwbble_tpu_torch.align.params import AlnParams
 from bwbble_tpu_torch.engine import inexact as t_inexact
+from bwbble_tpu_torch.engine import kernel
 from bwbble_tpu_torch.engine.device_index import from_fmindex
 from bwbble_tpu_torch.engine.inexact import EngineConfig, inexact_search
 from bwbble_tpu_torch.engine.pipeline import (_calc_d_chunk,
@@ -105,10 +106,12 @@ def test_sharded_search_equals_one_device_and_jax(world, dp, tp):
 def test_members_inputs_staged_before_the_first_launch(world, monkeypatch,
                                                         entry):
     """The dp members' launches overlap across cards only if no member's
-    inputs are copied inside its own dispatch: every member's inputs are
-    staged on its device before the first launch, each launch gets the
-    staged tensors, on its member's device, in the types its launch takes,
-    and `_search_inputs` copies none of them again.  Outputs unchanged."""
+    inputs are copied inside its own dispatch and no host work sits
+    between the launches: every member's inputs are staged on its device
+    and every member's launch prepared before the first launch, each
+    launch gets the staged tensors, on its member's device, in the types
+    its launch takes, and `_search_inputs` copies none of them again.
+    Outputs unchanged."""
     w = world
     p = AlnParams(max_diff=2)
     n = 10                                   # padded to 12 lanes at dp = 3
@@ -136,9 +139,10 @@ def test_members_inputs_staged_before_the_first_launch(world, monkeypatch,
             staged_ptrs.update(x.data_ptr() for x in xs)
         return out
 
-    def search(m, rc, lengths, D, Ds, params, cfg, device=None, timer=None):
-        events.append(("launch", m))
-        assert device == m.device
+    def search(m, rc, lengths, D, Ds, params, cfg, device=None, timer=None,
+               defer=False):
+        events.append(("prepare", m))
+        assert device == m.device and defer
         for x, dt in ((rc, torch.int8), (lengths, torch.int32)):
             assert x.device == m.device and x.dtype == dt
             assert x.data_ptr() in staged_ptrs
@@ -147,20 +151,59 @@ def test_members_inputs_staged_before_the_first_launch(world, monkeypatch,
         assert got[1] is rc and got[2] is lengths
         if entry == "search":
             assert got[3] is D and got[4] is Ds
-        return real_search(m, rc, lengths, D, Ds, params, cfg,
-                           device=device, timer=timer)
+        go = real_search(m, rc, lengths, D, Ds, params, cfg, device=device,
+                         timer=timer, defer=True)
+
+        def launch():
+            events.append(("launch", m))
+            return go()
+        return launch
 
     monkeypatch.setattr(shard, "_stage", stage)
     monkeypatch.setattr(shard, "inexact_search", search)
     got = run()
-    assert [k for k, _ in events] == ["stage"] * 3 + ["launch"] * 3
-    assert [m for _, m in events[3:]] == members
+    assert [k for k, _ in events] == (["stage"] * 3 + ["prepare"] * 3
+                                      + ["launch"] * 3)
+    assert [m for _, m in events[3:6]] == members
+    assert [m for _, m in events[6:]] == members
     assert set(got) == set(ref)
     for k in ref:
         assert torch.equal(got[k], ref[k]), k
     if entry == "search":
         for k in w["one"]:
             assert torch.equal(got[k], w["one"][k][:n]), k
+
+
+def test_deferred_launch_reads_its_outputs_after_the_launch(world,
+                                                            monkeypatch):
+    """kernel.fixed_search(defer=True) launches nothing until its callable
+    is called, and builds its result dict from the outputs as the launch
+    left them: a stand-in launch that writes its outputs only when fired
+    (the wrapper's own launch needs a card)."""
+    w = world
+    p = AlnParams(max_diff=2)
+    fired: list = []
+
+    def launch(entry, didx, rc, lengths, D, Ds, params, cfg, lanes, seeds,
+               timer=None, defer=False):
+        S = t_inexact.ring_statics(params, cfg, rc.shape[1], Ds.shape[1],
+                                   fixed=True)
+        outs = t_inexact.alloc_outputs(rc.shape[0], S, "cpu") + (None,)
+
+        def go():
+            fired.append(entry)
+            outs[1][:, t_inexact.META_OVER] = 1
+            outs[1][:, t_inexact.META_WORK] = 5
+            return outs
+        return go if defer else go()
+
+    monkeypatch.setattr(kernel, "_launch", launch)
+    go = kernel.fixed_search(w["tdx"], w["rc"], w["ln"], w["D"], w["Ds"], p,
+                             CFG, defer=True)
+    assert fired == []
+    out = go()
+    assert fired == ["fixed_search"]
+    assert out["overflow"].all() and (out["n_work"] == 5).all()
 
 
 def test_tp_gather_equals_unsharded_rows(world):
