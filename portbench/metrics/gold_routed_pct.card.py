@@ -1,0 +1,7 @@
+"""`gold_routed_pct` in the cells whose end-to-end time is the card's
+(`card_ms_per_kread`)."""
+
+from portbench.metrics.gold_routed_pct import (  # noqa: F401
+    LAYER, SOURCE, UNIT, read)
+
+MOVES = "card_ms_per_kread"
