@@ -72,6 +72,8 @@ from bwbble_tpu_torch.engine.inexact import (NB_MAX, OV_LIST, EngineConfig,
                                              QUEUED_I64, inexact_search,
                                              inexact_search_queued,
                                              ring_statics, unpack_paths)
+from bwbble_tpu_torch.engine.spans import OFF, Spans
+from bwbble_tpu_torch.engine.spans import clock as span_clock
 from bwbble_tpu_torch.formats.fastq import Reads
 from bwbble_tpu_torch.gold.engine import Aln
 from bwbble_tpu_torch.index.fmindex import FMIndex
@@ -126,7 +128,7 @@ def _native_d_ok(didx: DeviceIndex, host_idx: FMIndex | None) -> bool:
 def probe_native_d(didx: DeviceIndex, reads: Reads, params: AlnParams,
                    d_cap: int, k_fast: int = 2,
                    host_idx: FMIndex | None = None,
-                   mesh=None) -> tuple[int, bool]:
+                   mesh=None, spans: Spans = OFF) -> tuple[int, bool]:
     """(K1, skip): K1 is the device D pass's first-try interval capacity,
     skip=True when the whole device pass should be bypassed for the native
     exact scanner.
@@ -138,30 +140,31 @@ def probe_native_d(didx: DeviceIndex, reads: Reads, params: AlnParams,
     the probe chunk, the whole K=d_cap device pass would be discarded
     wholesale for the native scanner, so skip it up front.  Under a `mesh`
     the probe chunk runs through sharded_calc_d_chunk and the native scan
-    is never chosen."""
+    is never chosen.  `spans`: the call's recorder (`dbounds.probe`)."""
     NR = reads.count
     Lmax = max(reads.max_len, 1)
     K1 = min(k_fast, d_cap) if params.is_multiref else d_cap
     if not (params.is_multiref and NR > 0 and d_cap > K1):
         return K1, False
-    nat_ok = mesh is None and _native_d_ok(didx, host_idx)
-    sq = np.zeros((min(256, max(NR, 1)), Lmax), dtype=np.int8)
-    nbp = min(256, NR, sq.shape[0])
-    sq[:nbp, :reads.seq.shape[1]] = reads.seq[:nbp]
-    lnp = np.zeros((sq.shape[0],), dtype=np.int32)
-    lnp[:nbp] = reads.lengths[:nbp]
-    if mesh is None:
-        _, _, dovp = _calc_d_chunk(didx, sq, lnp, lnp, params, K1)
-    else:
-        from bwbble_tpu_torch.parallel.shard import sharded_calc_d_chunk
-        _, _, dovp = sharded_calc_d_chunk(mesh, didx, sq, lnp, params, K1)
-    if dovp.cpu().numpy()[:nbp].mean() > 0.5:
-        K1 = d_cap
-        if nat_ok:
-            _, _, dovp2 = _calc_d_chunk(didx, sq, lnp, lnp, params, d_cap)
-            if dovp2.cpu().numpy()[:nbp].mean() > 0.9:
-                return K1, True
-    return K1, False
+    with spans("dbounds.probe"):
+        nat_ok = mesh is None and _native_d_ok(didx, host_idx)
+        sq = np.zeros((min(256, max(NR, 1)), Lmax), dtype=np.int8)
+        nbp = min(256, NR, sq.shape[0])
+        sq[:nbp, :reads.seq.shape[1]] = reads.seq[:nbp]
+        lnp = np.zeros((sq.shape[0],), dtype=np.int32)
+        lnp[:nbp] = reads.lengths[:nbp]
+        if mesh is None:
+            _, _, dovp = _calc_d_chunk(didx, sq, lnp, lnp, params, K1)
+        else:
+            from bwbble_tpu_torch.parallel.shard import sharded_calc_d_chunk
+            _, _, dovp = sharded_calc_d_chunk(mesh, didx, sq, lnp, params, K1)
+        if dovp.cpu().numpy()[:nbp].mean() > 0.5:
+            K1 = d_cap
+            if nat_ok:
+                _, _, dovp2 = _calc_d_chunk(didx, sq, lnp, lnp, params, d_cap)
+                if dovp2.cpu().numpy()[:nbp].mean() > 0.9:
+                    return K1, True
+        return K1, False
 
 
 def _native_d_read(nat, host_idx, planes, fused, nb_tab, seq, ln_r,
@@ -179,7 +182,8 @@ def _native_d_read(nat, host_idx, planes, fused, nb_tab, seq, ln_r,
 
 def calc_d_all(didx: DeviceIndex, reads: Reads, params: AlnParams,
                batch: int, d_cap: int = 16, k_fast: int = 2,
-               host_idx: FMIndex | None = None, on_chunk=None, mesh=None):
+               host_idx: FMIndex | None = None, on_chunk=None, mesh=None,
+               spans: Spans = OFF):
     """D/D_seed bounds for every read: one cheap K=k_fast pass (exact unless
     a read's interval list overflows k_fast slots), then a K=d_cap re-run
     for just the overflowing reads, then the native unbounded-list scanner
@@ -190,6 +194,9 @@ def calc_d_all(didx: DeviceIndex, reads: Reads, params: AlnParams,
     with the chunk's read indices and difficulty scores, so the caller can
     start routing work (the overlapped gold pool) while later chunks run.
     `mesh`: the device passes run through sharded_calc_d_chunk.
+    `spans`: the call's recorder: `dbounds.probe`, a `dbounds.device` span
+    a device pass, a `dbounds.native` span a scanned chunk or the serial
+    escalation, with a `dbounds.scan` span a scanning thread.
 
     The reference recomputes these per read with unbounded linked lists
     (calculate_d, inexact_match.c:171-254)."""
@@ -197,10 +204,10 @@ def calc_d_all(didx: DeviceIndex, reads: Reads, params: AlnParams,
     Lmax = max(reads.max_len, 1)
     dev = didx.device
     K1, skip = probe_native_d(didx, reads, params, d_cap, k_fast, host_idx,
-                              mesh)
+                              mesh, spans)
     if skip:
         return _calc_d_native_all(didx, host_idx, reads, params, batch,
-                                  on_chunk)
+                                  on_chunk, spans)
     if mesh is not None:
         from bwbble_tpu_torch.parallel.shard import sharded_calc_d_chunk
 
@@ -210,62 +217,70 @@ def calc_d_all(didx: DeviceIndex, reads: Reads, params: AlnParams,
         def chunk(sq, ln, K):
             return _calc_d_chunk(didx, sq, ln, ln, params, K)
     D_parts, Ds_parts, dov_parts = [], [], []
-    for s in range(0, NR, batch):
-        e = min(s + batch, reads.count)
-        nb = e - s
-        sq = np.zeros((batch, Lmax), dtype=np.int8)
-        sq[:nb, :reads.seq.shape[1]] = reads.seq[s:e]
-        ln = np.zeros((batch,), dtype=np.int32)
-        ln[:nb] = reads.lengths[s:e]
-        D, Ds, dov = chunk(sq, ln, K1)
-        D_parts.append(D[:nb])
-        Ds_parts.append(Ds[:nb])
-        dov_parts.append(dov.cpu().numpy()[:nb])
-        if on_chunk is not None:
-            on_chunk(np.arange(s, e, dtype=np.int64),
-                     _difficulty(D[:nb].cpu().numpy()))
-    D_all = torch.cat(D_parts)
-    Ds_all = torch.cat(Ds_parts)
-    dov_all = np.concatenate(dov_parts)
+    with spans("dbounds.device", K=K1, reads=NR):
+        for s in range(0, NR, batch):
+            e = min(s + batch, reads.count)
+            nb = e - s
+            sq = np.zeros((batch, Lmax), dtype=np.int8)
+            sq[:nb, :reads.seq.shape[1]] = reads.seq[s:e]
+            ln = np.zeros((batch,), dtype=np.int32)
+            ln[:nb] = reads.lengths[s:e]
+            D, Ds, dov = chunk(sq, ln, K1)
+            D_parts.append(D[:nb])
+            Ds_parts.append(Ds[:nb])
+            dov_parts.append(dov.cpu().numpy()[:nb])
+            if on_chunk is not None:
+                on_chunk(np.arange(s, e, dtype=np.int64),
+                         _difficulty(D[:nb].cpu().numpy()))
+        D_all = torch.cat(D_parts)
+        Ds_all = torch.cat(Ds_parts)
+        dov_all = np.concatenate(dov_parts)
 
     retry = np.flatnonzero(dov_all)
     if retry.size and d_cap > K1:
         dov_all = np.zeros(NR, dtype=bool)
-        for rs in range(0, retry.size, batch):
-            sub = retry[rs:rs + batch]
-            sel = np.concatenate([sub, np.full(batch - sub.size, sub[0],
-                                               dtype=sub.dtype)])
-            sq = np.zeros((batch, Lmax), dtype=np.int8)
-            sq[:, :reads.seq.shape[1]] = reads.seq[sel]
-            ln = reads.lengths[sel].astype(np.int32)
-            D, Ds, dov = chunk(sq, ln, d_cap)
-            sidx = torch.from_numpy(sub.astype(np.int64)).to(dev)
-            n = sub.size
-            D_all[sidx] = D[:n]
-            Ds_all[sidx] = Ds[:n]
-            dov_all[sub] = dov.cpu().numpy()[:n]
+        with spans("dbounds.device", K=d_cap, reads=int(retry.size)):
+            for rs in range(0, retry.size, batch):
+                sub = retry[rs:rs + batch]
+                sel = np.concatenate([sub, np.full(batch - sub.size, sub[0],
+                                                   dtype=sub.dtype)])
+                sq = np.zeros((batch, Lmax), dtype=np.int8)
+                sq[:, :reads.seq.shape[1]] = reads.seq[sel]
+                ln = reads.lengths[sel].astype(np.int32)
+                D, Ds, dov = chunk(sq, ln, d_cap)
+                sidx = torch.from_numpy(sub.astype(np.int64)).to(dev)
+                n = sub.size
+                D_all[sidx] = D[:n]
+                Ds_all[sidx] = Ds[:n]
+                dov_all[sub] = dov.cpu().numpy()[:n]
 
     # final escalation: reads whose interval lists exceed even d_cap slots
     # get exact D bounds from the native unbounded-list scanner, so D
     # overflow never forces whole-read gold fallback
     still = np.flatnonzero(dov_all)
     if still.size and params.is_multiref and _native_d_ok(didx, host_idx):
-        nat = get_native()
-        nb_tab = np.ascontiguousarray(CN.NUCL_BASES, dtype=np.uint8)
-        planes = host_idx.bit_planes()
-        fused = host_idx.fused_planes()
-        seed_len = int(params.seed_length)
-        np_dt = _np_dtype(didx)
-        Dp = np.zeros((still.size,) + tuple(D_all.shape[1:]), dtype=np_dt)
-        Dsp = np.zeros((still.size,) + tuple(Ds_all.shape[1:]), dtype=np_dt)
-        for t, r in enumerate(still):
-            _native_d_read(nat, host_idx, planes, fused, nb_tab,
-                           reads.seq[r], int(reads.lengths[r]), seed_len,
-                           Dp[t], Dsp[t])
-        sidx = torch.from_numpy(still.astype(np.int64)).to(dev)
-        D_all[sidx] = torch.from_numpy(Dp).to(dev)
-        Ds_all[sidx] = torch.from_numpy(Dsp).to(dev)
-        dov_all[still] = False
+        with spans("dbounds.native", threads=1, reads=int(still.size)):
+            nat = get_native()
+            nb_tab = np.ascontiguousarray(CN.NUCL_BASES, dtype=np.uint8)
+            planes = host_idx.bit_planes()
+            fused = host_idx.fused_planes()
+            seed_len = int(params.seed_length)
+            np_dt = _np_dtype(didx)
+            Dp = np.zeros((still.size,) + tuple(D_all.shape[1:]),
+                          dtype=np_dt)
+            Dsp = np.zeros((still.size,) + tuple(Ds_all.shape[1:]),
+                           dtype=np_dt)
+            w0, c0 = span_clock()
+            for t, r in enumerate(still):
+                _native_d_read(nat, host_idx, planes, fused, nb_tab,
+                               reads.seq[r], int(reads.lengths[r]), seed_len,
+                               Dp[t], Dsp[t])
+            w1, c1 = span_clock()
+            spans.add("dbounds.scan", w0, w1, cpu_ns=c1 - c0)
+            sidx = torch.from_numpy(still.astype(np.int64)).to(dev)
+            D_all[sidx] = torch.from_numpy(Dp).to(dev)
+            Ds_all[sidx] = torch.from_numpy(Dsp).to(dev)
+            dov_all[still] = False
     return D_all, Ds_all, dov_all
 
 
@@ -275,14 +290,16 @@ def _np_dtype(didx: DeviceIndex):
 
 
 def native_scan_chunks(host_idx: FMIndex, reads: Reads, params: AlnParams,
-                       batch: int, np_dt=np.int32):
+                       batch: int, np_dt=np.int32, spans: Spans = OFF):
     """Generator: exact D/D_seed bounds from the native unbounded-list
     scanner (the reference's calculate_d semantics at any interval-list
     width, inexact_match.c:171-254), one `batch`-read chunk at a time.
     Yields (indices, D_chunk, Ds_chunk, difficulty); the difficulty proxy
     comes from the exact scanned widths.  With params.n_threads > 1 the
     reads of a chunk are scanned on that many threads (the scanner runs
-    with the GIL released and keeps its scratch thread-local)."""
+    with the GIL released and keeps its scratch thread-local).  `spans`: the
+    call's recorder: a `dbounds.native` span a chunk, with a `dbounds.scan`
+    span a thread (its wall and CPU time), all closed before the yield."""
     nat = get_native()
     if nat is None or not getattr(nat, "_has_calc_d", False):
         raise RuntimeError(
@@ -302,21 +319,28 @@ def native_scan_chunks(host_idx: FMIndex, reads: Reads, params: AlnParams,
             Dsch = np.zeros((e - s, max(seed_len, 1) + 1, 2), dtype=np_dt)
 
             def scan(lo, hi, s=s, Dch=Dch, Dsch=Dsch):
+                w0, c0 = span_clock()
                 for r in range(lo, hi):
                     _native_d_read(nat, host_idx, planes, fused, nb_tab,
                                    reads.seq[r], int(reads.lengths[r]),
                                    seed_len, Dch[r - s], Dsch[r - s])
+                w1, c1 = span_clock()
+                return w0, w1, c1 - c0
 
             step = -(-(e - s) // n_threads)
-            for f in [ex.submit(scan, lo, min(lo + step, e))
-                      for lo in range(s, e, step)]:
-                f.result()
+            los = range(s, e, step)
+            with spans("dbounds.native", threads=len(los), reads=e - s):
+                for f in [ex.submit(scan, lo, min(lo + step, e))
+                          for lo in los]:
+                    w0, w1, cpu = f.result()
+                    spans.add("dbounds.scan", w0, w1, cpu_ns=cpu)
             yield (np.arange(s, e, dtype=np.int64), Dch, Dsch,
                    _difficulty(Dch))
 
 
 def _calc_d_native_all(didx: DeviceIndex, host_idx: FMIndex, reads: Reads,
-                       params: AlnParams, batch: int, on_chunk=None):
+                       params: AlnParams, batch: int, on_chunk=None,
+                       spans: Spans = OFF):
     """Materialized native_scan_chunks: exact D bounds for every read, with
     `on_chunk` routing as each chunk lands."""
     NR = reads.count
@@ -326,7 +350,7 @@ def _calc_d_native_all(didx: DeviceIndex, host_idx: FMIndex, reads: Reads,
     D_np = np.zeros((NR, Lmax + 1, 2), dtype=np_dt)
     Ds_np = np.zeros((NR, max(seed_len, 1) + 1, 2), dtype=np_dt)
     for gi, Dch, Dsch, zc in native_scan_chunks(host_idx, reads, params,
-                                                batch, np_dt):
+                                                batch, np_dt, spans):
         D_np[gi[0]:gi[-1] + 1] = Dch
         Ds_np[gi[0]:gi[-1] + 1] = Dsch
         if on_chunk is not None:
@@ -418,21 +442,27 @@ def _assemble(host: dict, pathcap: int, root_plen: int) -> list:
     return out
 
 
+def _since(t0_ns: int) -> float:
+    """Seconds on the host clock (`time.time_ns`) since `t0_ns`."""
+    return (_tm.time_ns() - t0_ns) / 1e9
+
+
 class _LaunchTimer:
     """Time of one search launch.  On a CUDA device the kernel's wrapper
     sets `events` to two CUDA events that its C launch records on the stream
     right before and after the kernel's launch (engine/kernel.py:_launch),
     so the time is the kernel's own, without the host work of the search
-    call; on the CPU it is the host clock from construction to `stop()`."""
+    call; on the CPU it is the host clock (`time_ns`) from construction to
+    `stop()`."""
 
     def __init__(self, dev):
         self._cuda = dev.type == "cuda"
         self.events = None
-        self._t0 = _tm.time()
+        self._t0 = _tm.time_ns()
         self._sec = 0.0
 
     def stop(self) -> None:
-        self._sec = _tm.time() - self._t0
+        self._sec = _since(self._t0)
 
     def seconds(self) -> float:
         """Blocks until the launch has finished."""
@@ -514,36 +544,54 @@ def align_reads_device(idx: FMIndex, didx: DeviceIndex, reads: Reads,
     fixed batches, each launch split over its dp members
     (sharded_inexact_search), D bounds through sharded_calc_d_chunk, no
     gold overlap unless asked for; `-P` is refused, as in the JAX package.
+    `stats`: a dict the call fills with its counters and, under "spans",
+    its spans (engine/spans.py); with None nothing is recorded.
     """
     cfg = cfg or EngineConfig()
     dev = index_device(didx, device)
     if (precalc is not None) != bool(params.use_precalc):
         raise ValueError("a seed table (precalc) goes with "
                          "params.use_precalc, and only with it")
-    if not device_params_ok(params, max(reads.max_len, 1)):
-        counters = {"fallback_reads": reads.count, "retried_reads": 0,
-                    "t_dbounds": 0.0, "gold_routed": True, **NO_POOL}
-        out: list = [None] * reads.count
-        for orig, alns in gold_fallback_many(
-                idx, reads, list(range(reads.count)), params, precalc,
-                int(params.n_threads), counters).items():
-            out[orig] = alns
-        if stats is not None:
-            stats.update(counters)
-        return out
-    if mesh is not None:
-        # the mesh path (dp reads x tp index shards) is the fixed-batch
-        # pipeline with the sharded search; results are byte-identical to
-        # one device's
-        if precalc is not None:
-            raise NotImplementedError("--mesh with -P seeding not yet wired")
-        queued = False
-    if queued and reads.count > int(params.batch_size):
-        if didx.idt == torch.int64:
-            raise NotImplementedError(QUEUED_I64)
-        return _align_queued(idx, didx, reads, params, cfg, d_cap, stats,
-                             precalc, seed_slots, sort_reads, qchunk=qchunk)
-    t_start = _tm.time()
+    sp = Spans(stats)
+    with sp("align"):
+        if not device_params_ok(params, max(reads.max_len, 1)):
+            counters = {"fallback_reads": reads.count, "retried_reads": 0,
+                        "t_dbounds": 0.0, "gold_routed": True, **NO_POOL}
+            out: list = [None] * reads.count
+            with sp("gold.drain"):
+                for orig, alns in gold_fallback_many(
+                        idx, reads, list(range(reads.count)), params,
+                        precalc, int(params.n_threads), counters).items():
+                    out[orig] = alns
+            if stats is not None:
+                stats.update(counters)
+            return out
+        if mesh is not None:
+            # the mesh path (dp reads x tp index shards) is the fixed-batch
+            # pipeline with the sharded search; results are byte-identical
+            # to one device's
+            if precalc is not None:
+                raise NotImplementedError(
+                    "--mesh with -P seeding not yet wired")
+            queued = False
+        if queued and reads.count > int(params.batch_size):
+            if didx.idt == torch.int64:
+                raise NotImplementedError(QUEUED_I64)
+            return _align_queued(idx, didx, reads, params, cfg, d_cap, stats,
+                                 precalc, seed_slots, sort_reads, sp,
+                                 qchunk=qchunk)
+        return _align_fixed(idx, didx, reads, params, cfg, d_cap, stats,
+                            precalc, seed_slots, sort_reads, mesh,
+                            deep_tiers, gold_overlap, dev, sp)
+
+
+def _align_fixed(idx, didx, reads: Reads, params: AlnParams,
+                 cfg: EngineConfig, d_cap: int, stats, precalc,
+                 seed_slots: int, sort_reads: bool, mesh, deep_tiers,
+                 gold_overlap, dev, sp: Spans) -> list:
+    """Fixed batches (`run_tier`), with the streamed scan-and-launch
+    branch and the escalation ladder: the default path of `align`."""
+    t_start = _tm.time_ns()
     B = int(params.batch_size)
     Lmax = max(reads.max_len, 1)
     root_plen = int(params.precalc_len) if precalc is not None else 0
@@ -572,77 +620,83 @@ def align_reads_device(idx: FMIndex, didx: DeviceIndex, reads: Reads,
 
         def dispatch(sel: np.ndarray) -> dict:
             """Launch one batch.  Nothing here waits for the device."""
-            rc = np.zeros((sel.shape[0], Lmax), dtype=np.int8)
-            rc[:, :reads.rc.shape[1]] = reads.rc[sel]
-            lengths = reads.lengths[sel].astype(np.int32)
-            seeds, seed_over = None, np.zeros(sel.shape[0], dtype=bool)
-            if precalc is not None:
-                seeds, seed_over = _lookup_seeds(
-                    precalc, rc, lengths, params, seed_slots, dev, sel,
-                    seed_seen, counters, didx.idt)
-            if isinstance(D_all, np.ndarray):
-                Dsel = torch.from_numpy(D_all[sel]).to(dev)
-                Dssel = torch.from_numpy(Ds_all[sel]).to(dev)
-            else:
-                selj = torch.from_numpy(sel.astype(np.int64)).to(dev)
-                Dsel = D_all.index_select(0, selj)
-                Dssel = Ds_all.index_select(0, selj)
-            timers = [_LaunchTimer(dev) for _ in range(dp)]
-            kw = {} if seeds is None else dict(
-                seed_L=seeds[0], seed_U=seeds[1], seed_cnt=seeds[2])
-            if mesh is None:
-                res = inexact_search(didx, rc, lengths, Dsel, Dssel, params,
-                                     tier_cfg, device=dev, timer=timers[0],
-                                     **kw)
-            else:
-                from bwbble_tpu_torch.parallel.shard import \
-                    sharded_inexact_search
-                res = sharded_inexact_search(mesh, didx, rc, lengths, Dsel,
-                                             Dssel, params, tier_cfg,
-                                             timers=timers)
-            for timer in timers:
-                timer.stop()
-            # the pipeline reads the packed paths; the arena goes back to
-            # the allocator here, and the next launch on this stream may
-            # take the same memory once this one has finished
-            del res["arena"]
-            return dict(sel=sel, res=res, timers=timers,
-                        seed_over=seed_over)
+            with sp("search.dispatch"):
+                rc = np.zeros((sel.shape[0], Lmax), dtype=np.int8)
+                rc[:, :reads.rc.shape[1]] = reads.rc[sel]
+                lengths = reads.lengths[sel].astype(np.int32)
+                seeds, seed_over = None, np.zeros(sel.shape[0], dtype=bool)
+                if precalc is not None:
+                    seeds, seed_over = _lookup_seeds(
+                        precalc, rc, lengths, params, seed_slots, dev, sel,
+                        seed_seen, counters, didx.idt)
+                if isinstance(D_all, np.ndarray):
+                    Dsel = torch.from_numpy(D_all[sel]).to(dev)
+                    Dssel = torch.from_numpy(Ds_all[sel]).to(dev)
+                else:
+                    selj = torch.from_numpy(sel.astype(np.int64)).to(dev)
+                    Dsel = D_all.index_select(0, selj)
+                    Dssel = Ds_all.index_select(0, selj)
+                timers = [_LaunchTimer(dev) for _ in range(dp)]
+                kw = {} if seeds is None else dict(
+                    seed_L=seeds[0], seed_U=seeds[1], seed_cnt=seeds[2])
+                if mesh is None:
+                    res = inexact_search(didx, rc, lengths, Dsel, Dssel,
+                                         params, tier_cfg, device=dev,
+                                         timer=timers[0], **kw)
+                else:
+                    from bwbble_tpu_torch.parallel.shard import \
+                        sharded_inexact_search
+                    res = sharded_inexact_search(mesh, didx, rc, lengths,
+                                                 Dsel, Dssel, params,
+                                                 tier_cfg, timers=timers)
+                for timer in timers:
+                    timer.stop()
+                # the pipeline reads the packed paths; the arena goes back to
+                # the allocator here, and the next launch on this stream may
+                # take the same memory once this one has finished
+                del res["arena"]
+                return dict(sel=sel, res=res, timers=timers,
+                            seed_over=seed_over)
 
         def collect(h: dict) -> None:
-            # a launch over a mesh takes as long as its slowest member
-            t_launch[0] += max(t.seconds() for t in h["timers"])
-            host = {k: v.cpu().numpy() for k, v in h["res"].items()}
-            _count_launch(counters, host)
+            with sp("search.collect"):
+                # a launch over a mesh takes as long as its slowest member
+                t_launch[0] += max(t.seconds() for t in h["timers"])
+                host = {k: v.cpu().numpy() for k, v in h["res"].items()}
+                _count_launch(counters, host)
             # a read with more seeds than slots was searched on a part of
             # its list: its result stands for nothing
             host["overflow"] = host["overflow"] | h["seed_over"]
             sel = h["sel"]
             launch_failed: list[int] = []
-            for b, alns in enumerate(_assemble(host, pathcap, root_plen)):
-                orig = int(sel[b])
-                if alns is None:
-                    launch_failed.append(orig)
-                    fail_why[orig] = int(host["ovwhy"][b])
-                    work_seen[orig] = int(host["n_work"][b])
-                else:
-                    results[orig] = alns
+            with sp("assemble"):
+                for b, alns in enumerate(_assemble(host, pathcap,
+                                                   root_plen)):
+                    orig = int(sel[b])
+                    if alns is None:
+                        launch_failed.append(orig)
+                        fail_why[orig] = int(host["ovwhy"][b])
+                        work_seen[orig] = int(host["n_work"][b])
+                    else:
+                        results[orig] = alns
             failed.extend(launch_failed)
             if on_failed is not None and launch_failed:
-                on_failed(launch_failed)
+                with sp("route"):
+                    on_failed(launch_failed)
 
-        if sel_gen is not None:
-            # one launch in flight: dispatch launch k, pull the next batch
-            # from the iterator (host-side scan), then block on k
-            it = iter(sel_gen)
-            nxt = next(it, None)
-            while nxt is not None:
-                h = dispatch(nxt)
+        with sp("tier"):
+            if sel_gen is not None:
+                # one launch in flight: dispatch launch k, pull the next
+                # batch from the iterator (host-side scan), then block on k
+                it = iter(sel_gen)
                 nxt = next(it, None)
-                collect(h)
-            return failed
-        for start in range(0, sel_all.shape[0], tier_B):
-            collect(dispatch(sel_all[start:start + tier_B]))
+                while nxt is not None:
+                    h = dispatch(nxt)
+                    nxt = next(it, None)
+                    collect(h)
+                return failed
+            for start in range(0, sel_all.shape[0], tier_B):
+                collect(dispatch(sel_all[start:start + tier_B]))
         return failed
 
     # Overlapped gold fallback: a host worker pool gold-aligns overflowing
@@ -656,8 +710,9 @@ def align_reads_device(idx: FMIndex, didx: DeviceIndex, reads: Reads,
                         and getattr(nat0, "_has_gold", False)
                         and mesh is None and reads.count > B)
     if gold_overlap:
-        pool = GoldPool(idx, reads, params, precalc,
-                        n_workers=max(1, int(params.n_threads)))
+        with sp("gold.start"):
+            pool = GoldPool(idx, reads, params, precalc,
+                            n_workers=max(1, int(params.n_threads)))
 
     # The kernel runs the search on every CUDA index, and on CPU tensors
     # its plain version takes the same settings unless the index is
@@ -688,8 +743,9 @@ def align_reads_device(idx: FMIndex, didx: DeviceIndex, reads: Reads,
             return
         thr = np.partition(zc, -k)[-k]
         sel = gi[zc >= thr]
-        routed[sel] = True
-        pool.submit(sel)
+        with sp("route"):
+            routed[sel] = True
+            pool.submit(sel)
 
     try:
         # Streamed scan+launch overlap: when the d_cap probe shows the
@@ -698,116 +754,129 @@ def align_reads_device(idx: FMIndex, didx: DeviceIndex, reads: Reads,
         # runs on the CPU BETWEEN each launch's dispatch and its blocking
         # collect, so the device starts searching after ONE scanned chunk
         # instead of after the full D phase.  Each launch takes the hardest
-        # B pending reads (failures surface early).
+        # B pending reads (failures surface early).  `t_dbounds` is the
+        # sum of the `dbounds` spans: the probe's, then one a scan piece.
+        streamed = False
         if (pool is not None and sort_reads and mesh is None
-                and precalc is None
-                and probe_native_d(didx, reads, params, d_cap,
-                                   host_idx=idx)[1]):
+                and precalc is None):
+            with sp("dbounds"):
+                streamed = probe_native_d(didx, reads, params, d_cap,
+                                          host_idx=idx, spans=sp)[1]
+        if streamed:
             seed_len = int(params.seed_length)
             np_dt = _np_dtype(didx)
             D_all = np.zeros((reads.count, Lmax + 1, 2), dtype=np_dt)
             Ds_all = np.zeros((reads.count, max(seed_len, 1) + 1, 2),
                               dtype=np_dt)
             z_all = np.zeros(reads.count, dtype=np.int64)
-            t_scan = [0.0]
 
             def _stream_batches():
+                # a scan piece runs from a resume to the next yield: the
+                # batches it makes are yielded after its span has closed
                 pend_i = np.empty(0, dtype=np.int64)
                 pend_z = np.empty(0, dtype=np.int64)
-                ts = _tm.monotonic()
-                for gi, Dch, Dsch, zc in native_scan_chunks(
-                        idx, reads, params, B, np_dt):
-                    D_all[gi[0]:gi[-1] + 1] = Dch
-                    Ds_all[gi[0]:gi[-1] + 1] = Dsch
-                    z_all[gi[0]:gi[-1] + 1] = zc
-                    _route_chunk(gi, zc)
-                    keep = ~routed[gi]
-                    pend_i = np.concatenate([pend_i, gi[keep]])
-                    pend_z = np.concatenate([pend_z, zc[keep]])
-                    while pend_i.size >= B:
-                        topk = np.argpartition(pend_z, -B)[-B:]
-                        sel = pend_i[topk]
-                        m = np.ones(pend_i.size, dtype=bool)
-                        m[topk] = False
-                        pend_i, pend_z = pend_i[m], pend_z[m]
-                        t_scan[0] += _tm.monotonic() - ts
-                        yield np.sort(sel)
-                        ts = _tm.monotonic()
-                rorder = np.argsort(-pend_z, kind="stable")
-                pend_i = pend_i[rorder]
-                t_scan[0] += _tm.monotonic() - ts
+                chunks = native_scan_chunks(idx, reads, params, B, np_dt, sp)
+                while True:
+                    ready = []
+                    with sp("dbounds"):
+                        got = next(chunks, None)
+                        if got is None:
+                            rorder = np.argsort(-pend_z, kind="stable")
+                            pend_i = pend_i[rorder]
+                            break
+                        gi, Dch, Dsch, zc = got
+                        D_all[gi[0]:gi[-1] + 1] = Dch
+                        Ds_all[gi[0]:gi[-1] + 1] = Dsch
+                        z_all[gi[0]:gi[-1] + 1] = zc
+                        _route_chunk(gi, zc)
+                        keep = ~routed[gi]
+                        pend_i = np.concatenate([pend_i, gi[keep]])
+                        pend_z = np.concatenate([pend_z, zc[keep]])
+                        while pend_i.size >= B:
+                            topk = np.argpartition(pend_z, -B)[-B:]
+                            ready.append(np.sort(pend_i[topk]))
+                            m = np.ones(pend_i.size, dtype=bool)
+                            m[topk] = False
+                            pend_i, pend_z = pend_i[m], pend_z[m]
+                    yield from ready
                 for s0 in range(0, pend_i.size, B):
                     yield pend_i[s0:s0 + B]
 
-            t0s = _tm.time()
+            t0s = _tm.time_ns()
             # primary-tier failures retry on the device's deep tier
             # instead of streaming to the host pool
             failed = run_tier(None, cfg, B, sel_gen=_stream_batches())
             counters["prerouted"] = int(routed.sum())
             counters["streamed"] = True
-            counters["t_dbounds"] = round(t_scan[0], 3)
+            counters["t_dbounds"] = round(sp.seconds("dbounds"), 3)
             counters["tiers"] = [dict(
                 B=B, cap=int(cfg.cap), reads=int(reads.count - routed.sum()),
-                failed=len(set(failed)), sec=round(_tm.time() - t0s, 2))]
+                failed=len(set(failed)), sec=round(_since(t0s), 2))]
             if failed:
                 # interval-list overflows go to gold (a deeper arena does
                 # not widen the list); everything else retries on the deep
                 # tier
-                kx_bound = [r for r in set(failed)
-                            if fail_why.get(r, 0) & OV_LIST]
-                if kx_bound:
-                    pool.submit(sorted(kx_bound))
-                failed = [r for r in set(failed)
-                          if not (fail_why.get(r, 0) & OV_LIST)]
-                # the measured-hardest slice (n_work at the tier cap is a
-                # lower bound on remaining work) goes to the host pool,
-                # which chews it while the deep tier runs; stay inside the
-                # 5% fallback budget overall
-                budget = max(int(0.045 * reads.count) - pool.submitted, 0)
-                hardest = sorted(
-                    failed, key=lambda r: (-z_all[r], -work_seen.get(r, 0)))
-                to_gold = hardest[:min(budget, len(failed) // 4)]
-                if to_gold:
-                    pool.submit(to_gold)
-                failed = hardest[len(to_gold):]
+                with sp("route"):
+                    kx_bound = [r for r in set(failed)
+                                if fail_why.get(r, 0) & OV_LIST]
+                    if kx_bound:
+                        pool.submit(sorted(kx_bound))
+                    failed = [r for r in set(failed)
+                              if not (fail_why.get(r, 0) & OV_LIST)]
+                    # the measured-hardest slice (n_work at the tier cap is
+                    # a lower bound on remaining work) goes to the host
+                    # pool, which chews it while the deep tier runs; stay
+                    # inside the 5% fallback budget overall
+                    budget = max(int(0.045 * reads.count) - pool.submitted,
+                                 0)
+                    hardest = sorted(failed, key=lambda r: (
+                        -z_all[r], -work_seen.get(r, 0)))
+                    to_gold = hardest[:min(budget, len(failed) // 4)]
+                    if to_gold:
+                        pool.submit(to_gold)
+                    failed = hardest[len(to_gold):]
                 for deep_B, deep_kx in ladder:
                     if not failed:
                         break
                     sel_d = np.array(failed, dtype=np.int64)
                     deep_cfg = deep_tier_cfg(cfg, B, deep_B, deep_kx)
-                    td0 = _tm.time()
+                    td0 = _tm.time_ns()
                     counters["retried_reads"] += int(sel_d.size)
                     failed = run_tier(sel_d, deep_cfg, deep_B)
                     counters["tiers"].append(dict(
                         B=deep_B, cap=int(deep_cfg.cap),
                         reads=int(sel_d.size), failed=len(set(failed)),
-                        sec=round(_tm.time() - td0, 2)))
+                        sec=round(_since(td0), 2)))
                 if failed:
-                    pool.submit(sorted(set(failed)))
+                    with sp("route"):
+                        pool.submit(sorted(set(failed)))
         else:
-            D_all, Ds_all, dov_all = calc_d_all(
-                didx, reads, params,
-                batch=max(1, min(B, reads.count)), d_cap=d_cap,
-                host_idx=idx,
-                on_chunk=_route_chunk if route_frac > 0 else None,
-                mesh=mesh)
-            # a mesh's D bounds are joined on `dev`: its sync waits for all
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-            counters["t_dbounds"] = round(_tm.time() - t_start, 3)
+            with sp("dbounds"):
+                D_all, Ds_all, dov_all = calc_d_all(
+                    didx, reads, params,
+                    batch=max(1, min(B, reads.count)), d_cap=d_cap,
+                    host_idx=idx,
+                    on_chunk=_route_chunk if route_frac > 0 else None,
+                    mesh=mesh, spans=sp)
+                # a mesh's D bounds are joined on `dev`: its sync waits for
+                # all
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+            counters["t_dbounds"] = round(sp.seconds("dbounds"), 3)
             counters["prerouted"] = int(routed.sum())
-            order = np.flatnonzero(~dov_all & ~routed).astype(np.int64)
-            if sort_reads and reads.count > B and order.size:
-                z = difficulty_scores(D_all)
-                order = order[np.argsort(z[order], kind="stable")]
-            if pool is not None:
-                if deep_tiers is None:
-                    deep_tiers = True
-                if sort_reads:
-                    order = order[::-1]
-                dov_sel = np.flatnonzero(dov_all & ~routed)
-                if dov_sel.size:
-                    pool.submit(dov_sel)
+            with sp("route"):
+                order = np.flatnonzero(~dov_all & ~routed).astype(np.int64)
+                if sort_reads and reads.count > B and order.size:
+                    z = difficulty_scores(D_all)
+                    order = order[np.argsort(z[order], kind="stable")]
+                if pool is not None:
+                    if deep_tiers is None:
+                        deep_tiers = True
+                    if sort_reads:
+                        order = order[::-1]
+                    dov_sel = np.flatnonzero(dov_all & ~routed)
+                    if dov_sel.size:
+                        pool.submit(dov_sel)
             if deep_tiers is None:
                 # with the native gold engine and no pool (a read set of
                 # one batch) hard reads go straight to gold; without it
@@ -835,7 +904,7 @@ def align_reads_device(idx: FMIndex, didx: DeviceIndex, reads: Reads,
                     break
                 if t > 0:
                     counters["retried_reads"] += sel.shape[0]
-                t0 = _tm.time()
+                t0 = _tm.time_ns()
                 stream = (pool.submit if pool is not None
                           and t == len(tiers) - 1 else None)
                 tier_B = min(tier_B_max, sel.shape[0])
@@ -843,7 +912,7 @@ def align_reads_device(idx: FMIndex, didx: DeviceIndex, reads: Reads,
                 tier_log.append(dict(
                     B=int(tier_B), cap=int(tier_cfg.cap),
                     reads=int(sel.shape[0]), failed=len(set(failed)),
-                    sec=round(_tm.time() - t0, 2)))
+                    sec=round(_since(t0), 2)))
                 sel = np.array(sorted(set(failed)), dtype=np.int64)
             counters["tiers"] = tier_log
             if pool is None:
@@ -851,18 +920,20 @@ def align_reads_device(idx: FMIndex, didx: DeviceIndex, reads: Reads,
                     [sel, np.flatnonzero(dov_all).astype(np.int64)])
                 if sel.size:
                     counters["fallback_reads"] += int(sel.size)
-                    for orig, alns in gold_fallback_many(
-                            idx, reads, [int(i) for i in sel], params,
-                            precalc, int(params.n_threads),
-                            counters).items():
-                        results[orig] = alns
+                    with sp("gold.drain"):
+                        for orig, alns in gold_fallback_many(
+                                idx, reads, [int(i) for i in sel], params,
+                                precalc, int(params.n_threads),
+                                counters).items():
+                            results[orig] = alns
 
         if pool is not None:
             # overflowing reads were submitted as they surfaced; just wait
             # for the workers
             counters["fallback_reads"] += pool.submitted
-            for orig, alns in pool.drain().items():
-                results[orig] = alns
+            with sp("gold.drain"):
+                for orig, alns in pool.drain().items():
+                    results[orig] = alns
             counters.update(pool.stats())
             pool = None
     finally:
@@ -871,9 +942,8 @@ def align_reads_device(idx: FMIndex, didx: DeviceIndex, reads: Reads,
     counters["t_search"] = t_launch[0]
     # in the streamed branch the D scan and the launches overlap, so the
     # parts can add up to more than the wall time
-    counters["t_host"] = round(max(_tm.time() - t_start
-                                   - counters["t_dbounds"] - t_launch[0],
-                                   0.0), 3)
+    counters["t_host"] = round(max(_since(t_start) - counters["t_dbounds"]
+                                   - t_launch[0], 0.0), 3)
     if stats is not None:
         stats.update(counters)
     return results
@@ -908,7 +978,7 @@ def _fb_single(idx, reads, i, params, precalc):
 
 def _align_queued(idx, didx, reads: Reads, params: AlnParams,
                   cfg: EngineConfig, d_cap: int, stats, precalc,
-                  seed_slots: int, sort_reads: bool,
+                  seed_slots: int, sort_reads: bool, sp: Spans,
                   qchunk: int = 16) -> list:
     """Continuous batching: engine launches stream reads through a fixed
     set of lanes (hardest reads first — LPT scheduling).
@@ -918,9 +988,9 @@ def _align_queued(idx, didx, reads: Reads, params: AlnParams,
     arbitrarily many reads; qchunk*lanes reads go into one launch.  Reads
     that overflow their per-read budget retry at a deep rung of fewer
     lanes and a larger budget, and only persistent failures reach the host
-    gold engine.
+    gold engine.  `sp`: the call's recorder.
     """
-    t_start = _tm.time()
+    t_start = _tm.time_ns()
     NR = reads.count
     dev = didx.device
     lanes = int(params.batch_size)      # the caller sends NR > batch_size
@@ -939,37 +1009,42 @@ def _align_queued(idx, didx, reads: Reads, params: AlnParams,
     nat = get_native()
     if (params.is_multiref and nat is not None
             and getattr(nat, "_has_gold", False) and NR > lanes):
-        pool = GoldPool(idx, reads, params, precalc,
-                        n_workers=max(1, int(params.n_threads)))
+        with sp("gold.start"):
+            pool = GoldPool(idx, reads, params, precalc,
+                            n_workers=max(1, int(params.n_threads)))
 
     try:
         # one forward D pass: search bounds + difficulty ordering
-        Dr_all, Dsr_all, dov_raw = calc_d_all(
-            didx, reads, params, batch=lanes,
-            d_cap=d_cap, host_idx=idx)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        t_dbounds = _tm.time() - t_start
-        z = difficulty_scores(Dr_all)
-        if sort_reads:
-            order = np.argsort(-z, kind="stable").astype(np.int64)
-        else:
-            order = np.arange(NR, dtype=np.int64)
+        with sp("dbounds"):
+            Dr_all, Dsr_all, dov_raw = calc_d_all(
+                didx, reads, params, batch=lanes,
+                d_cap=d_cap, host_idx=idx, spans=sp)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+        t_dbounds = sp.seconds("dbounds")
+        with sp("route"):
+            z = difficulty_scores(Dr_all)
+            if sort_reads:
+                order = np.argsort(-z, kind="stable").astype(np.int64)
+            else:
+                order = np.arange(NR, dtype=np.int64)
 
-        # Routing budget, derived from a <5% fallback target (4.5% leaves
-        # margin): the proxy's hardest reads are the ones that would burn
-        # the deepest ring budgets, and the ladder resolves everything else
-        # on the device, so the pre-routed slice is the fallback set.
-        budget = int(0.045 * NR) if (pool is not None and sort_reads) else 0
-        routed = np.zeros(NR, dtype=bool)
-        if budget >= 32:
-            pre = order[:budget]
-            routed[pre] = True
-            pool.submit(pre)
-        order = order[~(routed[order] | dov_raw[order])]
-        dov_sel = np.flatnonzero(dov_raw & ~routed)
-        if dov_sel.size and pool is not None:
-            pool.submit(dov_sel)
+            # Routing budget, derived from a <5% fallback target (4.5%
+            # leaves margin): the proxy's hardest reads are the ones that
+            # would burn the deepest ring budgets, and the ladder resolves
+            # everything else on the device, so the pre-routed slice is the
+            # fallback set.
+            budget = (int(0.045 * NR) if (pool is not None and sort_reads)
+                      else 0)
+            routed = np.zeros(NR, dtype=bool)
+            if budget >= 32:
+                pre = order[:budget]
+                routed[pre] = True
+                pool.submit(pre)
+            order = order[~(routed[order] | dov_raw[order])]
+            dov_sel = np.flatnonzero(dov_raw & ~routed)
+            if dov_sel.size and pool is not None:
+                pool.submit(dov_sel)
 
         Lmax = max(reads.max_len, 1)
         pathcap = cfg.pathcap or (Lmax + 32)
@@ -1010,37 +1085,40 @@ def _align_queued(idx, didx, reads: Reads, params: AlnParams,
             need = (int(qchunk_p) + 2) * nframe + 4096
             cfg_r = dataclasses.replace(
                 cfg_p, max_iters=max(int(cfg_p.max_iters), need))
-            t0p = _tm.time()
+            t0p = _tm.time_ns()
             wk0 = counters["work_units"]
             failed_p: list[int] = []
 
             def dispatch(cs: int) -> dict:
-                ce = min(cs + Q, NQ)
-                kw = {} if seeds_s is None else dict(
-                    seed_L=seeds_s[0][cs:ce], seed_U=seeds_s[1][cs:ce],
-                    seed_cnt=seeds_s[2][cs:ce])
-                timer = _LaunchTimer(dev)
-                res = inexact_search_queued(
-                    didx, rc_d[cs:ce], len_d[cs:ce], D_s[cs:ce],
-                    Ds_s[cs:ce], params, cfg_r, lanes=lanes_p, device=dev,
-                    timer=timer, **kw)
-                timer.stop()
-                return dict(cs=cs, nb=ce - cs, res=res, timer=timer)
+                with sp("search.dispatch"):
+                    ce = min(cs + Q, NQ)
+                    kw = {} if seeds_s is None else dict(
+                        seed_L=seeds_s[0][cs:ce], seed_U=seeds_s[1][cs:ce],
+                        seed_cnt=seeds_s[2][cs:ce])
+                    timer = _LaunchTimer(dev)
+                    res = inexact_search_queued(
+                        didx, rc_d[cs:ce], len_d[cs:ce], D_s[cs:ce],
+                        Ds_s[cs:ce], params, cfg_r, lanes=lanes_p,
+                        device=dev, timer=timer, **kw)
+                    timer.stop()
+                    return dict(cs=cs, nb=ce - cs, res=res, timer=timer)
 
             def collect_h(h: dict) -> None:
                 """Block on the launch and extract the cheap outputs
                 (failed ids, counters); the Python-side Aln assembly is
                 deferred so it can run while the next launch computes."""
                 nonlocal t_search
-                cs, nb, res = h["cs"], h["nb"], h["res"]
-                t_search += h["timer"].seconds()
-                host = {k: v.cpu().numpy() for k, v in res.items()}
-                _count_launch(counters, host)
-                host["overflow"] = host["overflow"] | seed_over[cs:cs + nb]
-                for r in np.flatnonzero(host["overflow"]):
-                    failed_p.append(int(sub[cs + r]))
-                pending_assembly.append(dict(sub=sub, cs=cs, nb=nb,
-                                             res=host))
+                with sp("search.collect"):
+                    cs, nb, res = h["cs"], h["nb"], h["res"]
+                    t_search += h["timer"].seconds()
+                    host = {k: v.cpu().numpy() for k, v in res.items()}
+                    _count_launch(counters, host)
+                    host["overflow"] = (host["overflow"]
+                                        | seed_over[cs:cs + nb])
+                    for r in np.flatnonzero(host["overflow"]):
+                        failed_p.append(int(sub[cs + r]))
+                    pending_assembly.append(dict(sub=sub, cs=cs, nb=nb,
+                                                 res=host))
 
             # one-launch lookahead: dispatch k+1 before collecting k, so
             # per-launch host work overlaps the next launch's device time
@@ -1055,20 +1133,23 @@ def _align_queued(idx, didx, reads: Reads, params: AlnParams,
                 collect_h(pending)
             pass_log.append(dict(B=lanes_p, cap=int(cfg_p.cap),
                                  reads=int(NQ), failed=len(failed_p),
-                                 sec=round(_tm.time() - t0p, 2),
+                                 sec=round(_since(t0p), 2),
                                  work=counters["work_units"] - wk0))
             return failed_p
 
         def drain_assembly() -> None:
             """Build the Aln lists of every collected launch (Python-side;
             runs while a later launch occupies the device)."""
-            while pending_assembly:
-                h = pending_assembly.pop(0)
-                sub_l = h["sub"][h["cs"]:h["cs"] + h["nb"]].tolist()
-                for r, alns in enumerate(_assemble(h["res"], pathcap,
-                                                   root_plen)):
-                    if alns is not None:
-                        out[sub_l[r]] = alns
+            if not pending_assembly:
+                return
+            with sp("assemble"):
+                while pending_assembly:
+                    h = pending_assembly.pop(0)
+                    sub_l = h["sub"][h["cs"]:h["cs"] + h["nb"]].tolist()
+                    for r, alns in enumerate(_assemble(h["res"], pathcap,
+                                                       root_plen)):
+                        if alns is not None:
+                            out[sub_l[r]] = alns
 
         n_retry = 0
         # Escalation ladder, all rungs continuous-batching: the primary
@@ -1078,7 +1159,10 @@ def _align_queued(idx, didx, reads: Reads, params: AlnParams,
         # host gold pool, which has been chewing the pre-routed slice the
         # whole time.
         cell = max(int(cfg.cap) * lanes, 1 << 25)
-        failed = ring_pass(order, lanes, cfg, qchunk) if order.size else []
+        failed = []
+        if order.size:
+            with sp("tier"):
+                failed = ring_pass(order, lanes, cfg, qchunk)
         deep_B = 128
         if failed and deep_B < lanes:
             n_retry += len(failed)
@@ -1088,24 +1172,28 @@ def _align_queued(idx, didx, reads: Reads, params: AlnParams,
             sub = np.array(sorted(set(failed)), dtype=np.int64)
             if sort_reads:
                 sub = sub[np.argsort(-z[sub], kind="stable")]
-            failed = ring_pass(sub, deep_B, deep_cfg, qchunk_p=16)
+            with sp("tier"):
+                failed = ring_pass(sub, deep_B, deep_cfg, qchunk_p=16)
         if pool is not None and failed:
-            pool.submit(sorted(set(failed)))
+            with sp("route"):
+                pool.submit(sorted(set(failed)))
         drain_assembly()
         if pool is not None:
             n_fallback = pool.submitted
-            for orig, alns in pool.drain().items():
-                out[orig] = alns
+            with sp("gold.drain"):
+                for orig, alns in pool.drain().items():
+                    out[orig] = alns
             pool_stats = pool.stats()
             pool = None
         else:
             rest = sorted(set(failed)) + [int(i) for i in dov_sel]
             n_fallback = len(rest)
             if rest:
-                for orig, alns in gold_fallback_many(
-                        idx, reads, rest, params, precalc,
-                        int(params.n_threads), pool_stats).items():
-                    out[orig] = alns
+                with sp("gold.drain"):
+                    for orig, alns in gold_fallback_many(
+                            idx, reads, rest, params, precalc,
+                            int(params.n_threads), pool_stats).items():
+                        out[orig] = alns
     finally:
         if pool is not None:
             pool.terminate()
@@ -1114,7 +1202,6 @@ def _align_queued(idx, didx, reads: Reads, params: AlnParams,
                      prerouted=int(routed.sum()),
                      t_dbounds=round(t_dbounds, 3),
                      t_search=t_search,
-                     t_host=round(_tm.time() - t_start - t_dbounds
-                                  - t_search, 3),
+                     t_host=round(_since(t_start) - t_dbounds - t_search, 3),
                      tiers=pass_log, **pool_stats, **counters)
     return out

@@ -1065,7 +1065,6 @@ def main() -> int:
             reads=n_reads, seconds=dt, reads_per_sec=n_reads / dt,
             t_dbounds=stats.get("t_dbounds"), t_search=stats.get("t_search"),
             t_host=stats.get("t_host"),
-            search_kernel_idle_share=1.0 - (stats.get("t_search") or 0.0) / dt,
             streamed=bool(stats.get("streamed")), tiers=stats.get("tiers"),
             fallback_reads=stats.get("fallback_reads"),
             retried_reads=stats.get("retried_reads"),
