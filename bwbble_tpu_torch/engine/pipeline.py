@@ -617,7 +617,8 @@ def _align_fixed(idx, didx, reads: Reads, params: AlnParams,
     dp = mesh.shape["dp"] if mesh is not None else 1
 
     def run_tier(sel_all: np.ndarray | None, tier_cfg: EngineConfig,
-                 tier_B: int, on_failed=None, sel_gen=None) -> list[int]:
+                 tier_B: int, on_failed=None, sel_gen=None,
+                 rung: int = 0) -> list[int]:
         """Process reads[sel_all] with tier_cfg in batches of tier_B; fill
         `results` for resolved reads, return the original indices that
         overflowed.  `on_failed` (streaming gold overlap): called with each
@@ -625,7 +626,10 @@ def _align_fixed(idx, didx, reads: Reads, params: AlnParams,
         still run.  `sel_gen` (scan+launch overlap): an iterator of launch
         index arrays pulled BETWEEN a launch's dispatch, which does not
         wait for the device, and its blocking collect, so host work inside
-        the iterator (the native D scan) runs while the device searches."""
+        the iterator (the native D scan) runs while the device searches.
+        `rung`: 0 for the first pass, 1 and up for each deep tier; the
+        `tier` span carries it beside its lanes, its reads and whether it
+        streamed."""
         failed: list[int] = []
         pathcap = tier_cfg.pathcap or (Lmax + 32)
 
@@ -695,16 +699,21 @@ def _align_fixed(idx, didx, reads: Reads, params: AlnParams,
                 with sp("route"):
                     on_failed(launch_failed)
 
-        with sp("tier"):
+        with sp("tier", rung=rung, lanes=int(tier_B),
+                reads=0 if sel_all is None else int(sel_all.shape[0]),
+                streamed=int(sel_gen is not None)) as span:
             if sel_gen is not None:
                 # one launch in flight: dispatch launch k, pull the next
                 # batch from the iterator (host-side scan), then block on k
                 it = iter(sel_gen)
                 nxt = next(it, None)
+                n_sel = 0
                 while nxt is not None:
                     h = dispatch(nxt)
+                    n_sel += int(nxt.shape[0])
                     nxt = next(it, None)
                     collect(h)
+                span["reads"] = n_sel
                 return failed
             for start in range(0, sel_all.shape[0], tier_B):
                 collect(dispatch(sel_all[start:start + tier_B]))
@@ -846,14 +855,14 @@ def _align_fixed(idx, didx, reads: Reads, params: AlnParams,
                     if to_gold:
                         pool.submit(to_gold)
                     failed = hardest[len(to_gold):]
-                for deep_B, deep_kx in ladder:
+                for rung, (deep_B, deep_kx) in enumerate(ladder, 1):
                     if not failed:
                         break
                     sel_d = np.array(failed, dtype=np.int64)
                     deep_cfg = deep_tier_cfg(cfg, B, deep_B, deep_kx)
                     td0 = _tm.time_ns()
                     counters["retried_reads"] += int(sel_d.size)
-                    failed = run_tier(sel_d, deep_cfg, deep_B)
+                    failed = run_tier(sel_d, deep_cfg, deep_B, rung=rung)
                     counters["tiers"].append(dict(
                         B=deep_B, cap=int(deep_cfg.cap),
                         reads=int(sel_d.size), failed=len(set(failed)),
@@ -919,7 +928,8 @@ def _align_fixed(idx, didx, reads: Reads, params: AlnParams,
                 stream = (pool.submit if pool is not None
                           and t == len(tiers) - 1 else None)
                 tier_B = min(tier_B_max, sel.shape[0])
-                failed = run_tier(sel, tier_cfg, tier_B, on_failed=stream)
+                failed = run_tier(sel, tier_cfg, tier_B, on_failed=stream,
+                                  rung=t)
                 tier_log.append(dict(
                     B=int(tier_B), cap=int(tier_cfg.cap),
                     reads=int(sel.shape[0]), failed=len(set(failed)),
@@ -1172,7 +1182,8 @@ def _align_queued(idx, didx, reads: Reads, params: AlnParams,
         cell = max(int(cfg.cap) * lanes, 1 << 25)
         failed = []
         if order.size:
-            with sp("tier"):
+            with sp("tier", rung=0, lanes=lanes, reads=int(order.size),
+                    streamed=0):
                 failed = ring_pass(order, lanes, cfg, qchunk)
         deep_B = 128
         if failed and deep_B < lanes:
@@ -1183,7 +1194,8 @@ def _align_queued(idx, didx, reads: Reads, params: AlnParams,
             sub = np.array(sorted(set(failed)), dtype=np.int64)
             if sort_reads:
                 sub = sub[np.argsort(-z[sub], kind="stable")]
-            with sp("tier"):
+            with sp("tier", rung=1, lanes=deep_B, reads=int(sub.size),
+                    streamed=0):
                 failed = ring_pass(sub, deep_B, deep_cfg, qchunk_p=16)
         if pool is not None and failed:
             with sp("route"):

@@ -6,7 +6,10 @@ laid beside the device trace; `parent`, the index in the same list of the
 span that encloses it (None for the outermost); and whatever the caller adds
 (`reads`, `K`, `threads`; `kernel` on a device D pass's span; `cpu_ns` on
 a scan thread's span: that thread's CPU time over the span,
-`time.thread_time_ns()`).
+`time.thread_time_ns()`; on every `tier` span `rung`, 0 for the first pass
+and 1 and up for each deep rung, `lanes`, `reads`, as many as the tier was
+given or, where it streamed, as many as it launched, and `streamed`, 1 for
+the scan-and-launch tier and else 0).
 
 The recorder travels with the call: `Spans(stats)` keeps its list under
 `stats["spans"]`, and `Spans(None)` records nothing.  Spans nest on the

@@ -2,10 +2,15 @@
 (engine/spans.py), on the CPU at tiny sizes: the queued multi-genome branch
 with the whole threaded scan (the probe's skip) and with a device pass plus
 the serial escalation, the fixed single-genome (`-S`) branch and the
-streamed scan-and-launch branch.  Each call's spans nest, lie on the
-`time.time_ns()` clock around the call, count one scan span a thread a
-chunk and one dispatch and one collect a launch, and give `t_dbounds`;
-without `stats` nothing is recorded and the `.aln` bytes are the same."""
+streamed scan-and-launch branch, each of the three also with a deep rung.
+Each call's spans nest, lie on the `time.time_ns()` clock around the call,
+count one scan span a thread a chunk and one dispatch and one collect a
+launch, give `t_dbounds`, and say of each tier its rung, lanes, reads and
+whether it streamed; without `stats` nothing is recorded and the `.aln`
+bytes are the same.  At the quick start's settings (`align -n 4`: fixed
+batches, the default arena and D cap) a multi-genome whose IUPAC codes
+overflow the D cap on nearly every read takes the streamed branch, and
+its records are the gold engine's."""
 
 import collections
 import time
@@ -15,6 +20,7 @@ import torch
 
 from bwbble_tpu_torch import native as t_native
 from bwbble_tpu_torch.align.params import AlnParams
+from bwbble_tpu_torch.align.pipeline import align_reads_gold
 from bwbble_tpu_torch.engine import pipeline
 from bwbble_tpu_torch.engine.device_index import from_fmindex
 from bwbble_tpu_torch.engine.inexact import EngineConfig
@@ -30,17 +36,24 @@ from test_torch_pipeline import native_lib  # noqa: F401
 
 torch.set_num_threads(1)
 
-# branch: (world, native library, d_cap, queued).  On the multi-genome
-# world the probe skips the device pass at d_cap 3 and, at d_cap 6, runs
-# it at K = 6 and leaves reads to the serial escalation.
+# branch: (world, native library, d_cap, queued, batch, arena cap).  On the
+# multi-genome world the probe skips the device pass at d_cap 3 and, at
+# d_cap 6, runs it at K = 6 and leaves reads to the serial escalation.  A
+# deep rung runs where reads overflow the first pass and the rung has
+# fewer lanes than it (the streamed branch's ladder runs whatever the
+# first pass's lanes): 144 lanes above the queued rung's 128, 512 above
+# the fixed ladder's 256, whose arena of 256 rows a read few finish in.
 BRANCHES = {
-    "queued_probe_skip": ("mg", True, 3, True),
-    "queued_escalation": ("mg", True, 6, True),
-    "fixed_single": ("single", False, 16, False),
-    "streamed": ("mg", True, 3, False),
+    "queued_probe_skip": ("mg", True, 3, True, 128, 4096),
+    "queued_escalation": ("mg", True, 6, True, 128, 4096),
+    "queued_deep": ("mg", True, 3, True, 144, 4096),
+    "fixed_single": ("single", False, 16, False, 128, 4096),
+    "fixed_single_deep": ("single", False, 16, False, 512, 256),
+    "streamed": ("mg", True, 3, False, 128, 4096),
 }
-PARAMS = {"mg": AlnParams(max_diff=2, batch_size=128, n_threads=2),
-          "single": AlnParams(max_diff=2, batch_size=128, is_multiref=False)}
+DEEP = {"queued_deep", "fixed_single_deep", "streamed"}
+PARAMS = {"mg": dict(max_diff=2, n_threads=2),
+          "single": dict(max_diff=2, is_multiref=False)}
 # the parents a span may have
 PARENTS = {
     "gold.start": {"align"},
@@ -69,6 +82,8 @@ EXPECTED = {
     "streamed": COMMON | {"gold.start", "dbounds.probe", "dbounds.native",
                           "dbounds.scan", "gold.drain"},
 }
+EXPECTED["queued_deep"] = EXPECTED["queued_probe_skip"]
+EXPECTED["fixed_single_deep"] = EXPECTED["fixed_single"]
 ABSENT = {
     "queued_probe_skip": {"dbounds.device"},
     "queued_escalation": set(),
@@ -76,6 +91,9 @@ ABSENT = {
                      "dbounds.scan"},
     "streamed": {"dbounds.device"},
 }
+ABSENT["queued_deep"] = ABSENT["queued_probe_skip"]
+ABSENT["fixed_single_deep"] = ABSENT["fixed_single"]
+TIER_KEYS = ("rung", "lanes", "reads", "streamed")
 
 
 @pytest.fixture(scope="module")
@@ -89,6 +107,20 @@ def single_world(tmp_path_factory):
     return dict(idx=FMIndex.build(codes), reads=read_fastq(fq))
 
 
+@pytest.fixture(scope="module")
+def dense_world(tmp_path_factory):
+    """A multi-genome with an IUPAC code at a tenth of its positions: at the
+    default D cap of 32 the probe finds nearly every read overflowing, as
+    on a chr21 multi-genome, and skips the device D pass."""
+    d = tmp_path_factory.mktemp("spans_dense")
+    fa, fq = str(d / "d.fa"), str(d / "d.fq")
+    random_genome_fasta(fa, {"21": 24_000}, seed=21, iupac_frac=0.1)
+    simulate_reads_fastq(fa, fq, 160, read_len=36, mm_poisson=1.0, mm_cap=2,
+                         indel_frac=0.1, max_indel=1, seed=22)
+    codes, _ = fasta2ref(fa, fa + ".ref", fa + ".ann")
+    return dict(idx=FMIndex.build(codes), reads=read_fastq(fq))
+
+
 @pytest.fixture
 def branch_run(pipe_world, single_world, native_lib,  # noqa: F811
                monkeypatch):
@@ -96,7 +128,7 @@ def branch_run(pipe_world, single_world, native_lib,  # noqa: F811
     after); `params` in place of the branch's world's."""
 
     def run(branch, stats, params=None):
-        world, native, d_cap, queued = BRANCHES[branch]
+        world, native, d_cap, queued, batch, cap = BRANCHES[branch]
         w = pipe_world if world == "mg" else single_world
         monkeypatch.setattr(t_native, "_native", native_lib if native
                             else None)
@@ -104,8 +136,9 @@ def branch_run(pipe_world, single_world, native_lib,  # noqa: F811
         didx = from_fmindex(w["idx"], device="cpu")
         t0 = time.time_ns()
         alns = pipeline.align_reads_device(
-            w["idx"], didx, w["reads"], params or PARAMS[world],
-            EngineConfig(cap=4096, acap=24), d_cap=d_cap, queued=queued,
+            w["idx"], didx, w["reads"],
+            params or AlnParams(batch_size=batch, **PARAMS[world]),
+            EngineConfig(cap=cap, acap=24), d_cap=d_cap, queued=queued,
             qchunk=1, stats=stats, device="cpu")
         t1 = time.time_ns()
         return b"".join(encode_alns(a) for a in alns), t0, t1
@@ -154,6 +187,19 @@ def test_spans_of_each_branch(branch_run, branch):
         assert spans[native[0]]["reads"] > 0
     if branch == "queued_probe_skip":
         assert all(spans[i]["threads"] == 2 for i in native)
+    # each tier says its rung (in order), lanes and reads, as the tier log
+    # does, and whether it streamed: the streamed branch's first tier only
+    tiers = [s for s in spans if s["name"] == "tier"]
+    assert all(set(TIER_KEYS) <= set(s) for s in tiers)
+    assert [s["rung"] for s in tiers] == list(range(len(tiers)))
+    assert [(s["lanes"], s["reads"]) for s in tiers] == [
+        (t["B"], t["reads"]) for t in stats["tiers"]]
+    assert [s["streamed"] for s in tiers] == [
+        int(branch == "streamed" and r == 0) for r in range(len(tiers))]
+    assert (len(tiers) >= 2) == (branch in DEEP)
+    if branch in DEEP:
+        assert tiers[-1]["rung"] >= 1 and 0 < tiers[-1]["reads"] \
+            < tiers[0]["reads"]
     if branch == "streamed":
         # the probe's piece, then scan pieces inside the first tier
         assert stats["streamed"] is True
@@ -179,6 +225,31 @@ def test_without_stats_nothing_is_recorded(branch_run, branch, monkeypatch):
     loud, _, _ = branch_run(branch, stats)
     assert made[1].spans is stats["spans"] and stats["spans"]
     assert quiet == loud
+
+
+def test_quick_start_settings_stream_and_match_gold(dense_world,
+                                                   native_lib,  # noqa: F811
+                                                   monkeypatch):
+    """`align -n 4` as the quick start types it, with `-t 2` and batches
+    scaled to a world of 160 reads: fixed batches, the default arena and
+    D cap, no `--queued`.  The call streams its scan between the launches
+    of its first tier, and its records are the gold engine's."""
+    monkeypatch.setattr(t_native, "_native", native_lib)
+    monkeypatch.setattr(t_native, "_tried", True)
+    params = AlnParams(max_diff=4, batch_size=64, n_threads=2)
+    idx, reads = dense_world["idx"], dense_world["reads"]
+    stats: dict = {}
+    alns = pipeline.align_reads_device(
+        idx, from_fmindex(idx, device="cpu"), reads, params,
+        EngineConfig(cap=int(params.arena_cap)), stats=stats, device="cpu")
+    assert stats["streamed"] is True and stats["launches"] >= 3
+    tiers = [s for s in stats["spans"] if s["name"] == "tier"]
+    assert (tiers[0]["rung"], tiers[0]["streamed"]) == (0, 1)
+    assert tiers[0]["lanes"] == 64
+    assert tiers[0]["reads"] == reads.count - stats["prerouted"]
+    gold = align_reads_gold(idx, reads, params)
+    assert b"".join(encode_alns(a) for a in alns) == \
+        b"".join(encode_alns(a) for a in gold)
 
 
 def test_gold_routed_call_spans(branch_run):
