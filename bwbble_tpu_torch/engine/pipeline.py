@@ -707,13 +707,12 @@ def _align_fixed(idx, didx, reads: Reads, params: AlnParams,
                 # batch from the iterator (host-side scan), then block on k
                 it = iter(sel_gen)
                 nxt = next(it, None)
-                n_sel = 0
                 while nxt is not None:
                     h = dispatch(nxt)
-                    n_sel += int(nxt.shape[0])
                     nxt = next(it, None)
                     collect(h)
-                span["reads"] = n_sel
+                # every read the scan did not route to gold was launched
+                span["reads"] = int(reads.count - routed.sum())
                 return failed
             for start in range(0, sel_all.shape[0], tier_B):
                 collect(dispatch(sel_all[start:start + tier_B]))

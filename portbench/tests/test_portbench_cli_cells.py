@@ -1,8 +1,10 @@
 """The quick start's cell (`chr21_mg_cli.wgsim`) and the low-error cell
 (`chr21_mg.lowerr`): the readers of the deep tier and of the streamed
 tier's collects against spans made by hand, what each cell reports, the
-world and the donor they share with `chr21_mg.wgsim`, and a whole run of
-the quick start's settings on a tiny multi-genome on the CPU."""
+world and the donor they share with `chr21_mg.wgsim`, a whole run of the
+quick start's settings on a tiny multi-genome on the CPU, and the control
+at `-n` one lower (`control_budget.py`), which the low-error traffic
+cannot pass."""
 
 import json
 import os
@@ -183,3 +185,62 @@ def test_quick_start_run_on_the_cpu(tmp_path):
     assert res["correct"] is True and forbidden == []
     assert set(NEW) <= set(res["metrics"])
     assert res["metrics"]["collect_wait_ms_per_kread.card"]["value"] >= 0
+
+
+@pytest.fixture(scope="module")
+def lowerr_checkout(tmp_path_factory):
+    """A checkout with the tiny cells and `tiny_mg.lowerr`, the low-error
+    traffic on the tiny multi-genome."""
+    ck = make_checkout(str(tmp_path_factory.mktemp("lowerr")))
+    bench_path = os.path.join(ck, "BENCHMARK.json")
+    with open(bench_path) as f:
+        bench = json.load(f)
+    bench["workloads"].append({"name": "tiny_mg.lowerr", "config": "tiny_mg",
+                               "traffic": "lowerr", "chips": 1,
+                               "why": "test"})
+    add_to_metric(bench, "reads_per_s", ["tiny_mg.lowerr"])
+    with open(bench_path, "w") as f:
+        json.dump(bench, f)
+    return ck
+
+
+# (cell, budget): one lower than the configuration's `-n 4` where the
+# traffic's reads reach it, `-n 1` on the low-error reads, which seldom
+# carry more than one difference
+@pytest.mark.parametrize("workload, max_diff", [
+    ("tiny_mg.lowerr", 1), ("tiny_mg.wgsim", None),
+    ("tiny_single.wgsim", None)])
+@pytest.mark.parametrize("seed", [2**31 + 23, 2**40 + 29])
+def test_budget_control_fails_the_comparison(lowerr_checkout, workload,
+                                             max_diff, seed, monkeypatch):
+    from portbench.control_budget import control_reading
+    monkeypatch.chdir(lowerr_checkout)
+    r = control_reading(workload, seed, n_calls=8,
+                        root=os.path.join(lowerr_checkout, "portbench"),
+                        workers=2, max_diff=max_diff)
+    assert r["checked_reads"] > 0 and r["max_diff"] == (max_diff or 3)
+    assert r["control_wrong_reads"] > 0 and r["correct"] is False
+    assert r["checks"]["wrong_reads"]["value"] == r["control_wrong_reads"]
+
+
+# the program searched with the whole budget `-n 1`, in every call
+NARROWED = """
+import dataclasses
+import bwbble_tpu_torch.engine.pipeline as P
+_orig = P.align_reads_device
+def narrowed(idx, didx, reads, params, *a, **k):
+    return _orig(idx, didx, reads, dataclasses.replace(params, max_diff=1),
+                 *a, **k)
+P.align_reads_device = narrowed
+"""
+
+
+def test_program_at_a_narrower_budget_is_not_correct(lowerr_checkout):
+    """Through the run's own comparison: on low-error reads, a program
+    that searches with `-n 1` in place of the configuration's `-n 4` is
+    caught."""
+    _, res, _ = run_cpu(lowerr_checkout, "tiny_mg.lowerr", seed=2**31 + 31,
+                        seconds=2.0, patch=NARROWED)
+    assert res["correct"] is False
+    assert res["checks"]["wrong_reads"]["value"] > 0
+    assert res["checks"]["unanswered_reads"]["value"] == 0
