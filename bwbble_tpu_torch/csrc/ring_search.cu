@@ -1111,6 +1111,325 @@ dbound_1to1_kernel(const int32_t* __restrict__ table,
     ov[b] = 0;
 }
 
+// ---- dbound_mg: the multi-genome D and D_seed bounds of a chunk ----------
+//
+// Replaces: no Pallas kernel.  It stands for the XLA-compiled position loop
+// of bwbble_tpu/engine/dbound.py:calc_d (a position: expand_step and
+// merge_compact of bwbble_tpu/engine/intervals.py), which
+// bwbble_tpu/engine/pipeline.py:_calc_d_chunk runs twice a multi-genome
+// chunk (D, then D_seed).  Its plain version is
+// engine/dbound.py:calc_d_chunk_plain (that loop twice), which on the card
+// issued dozens of small PyTorch ops a read position from the host.
+// Seen from outside it is that pair: per read, the forward exact scan of
+// calculate_d (inexact_match.c:206-254) over a list of at most K disjoint
+// SA intervals.  Each base expands every interval of the list by the up to
+// seven IUPAC codes that contain it (NUCL_BASES), in slot-major, base-minor
+// order; the widths of the non-empty candidates are summed; the candidates
+// merge in order into runs of adjoining intervals (a candidate joins the
+// run before it iff its L is the previous non-empty candidate's U + 1).
+// More than K runs keep the first K, set the read's overflow flag, and the
+// walk goes on with them.  An empty list, or an N, counts a difference and
+// restarts from the whole range, reporting the full width.  D[b][s] =
+// (differences, width sum) after step s, D[b][len] = (differences + 1, 0);
+// D_seed as dbound_1to1's; the flag D's, or D_seed's where the read uses a
+// seed.
+//
+// What bounds it on an H100: the latency of dependent row reads.  A step's
+// rows, two an interval of the list, hang on the list the last step made,
+// so a chain is up to Lmax rounds of row reads (a chr21 multi-genome index,
+// 205 MB, is read from HBM); bytes and arithmetic are far from their peaks.
+// What the design does about it:
+// - a block a read and a warp a chain: warp 0 walks D, warp 1 D_seed, side
+//   by side, so a read costs its longer chain;
+// - thread t owns slots t and t + 32 of each 64 of the list, and asks for
+//   the rows of both (the 16 plane words and the seven codes' checkpoint
+//   counts, at L - 1 and at U) before it counts any: a list of up to 64
+//   intervals costs one round trip a step;
+// - the merge across the warp, as the search's exact completion merges: a
+//   thread's seven candidates are consecutive in the order; whether its
+//   first joins comes from the nearest lower thread with a non-empty
+//   candidate (ballot, shuffle), run indices from a prefix count of
+//   ballots.  A run's U is its last candidate's: a joining candidate starts
+//   right after the previous one's U, so the U of a run only grows and its
+//   last is the max of its chain.  Unlike the exact completion, which stops
+//   at overflow, runs past K are counted and dropped;
+// - the list double-buffered in shared memory, beside the read's codes and
+//   C;
+// - the search's rank code (row_addr, count_code), so the int32 and int64
+//   rows and a table range-sharded over tp cards come with it;
+// - every output word written by the kernel: no memset, one launch a chunk.
+
+#define DBM_THREADS 64       // a block of dbound_mg: one read, a warp a chain
+#define DBM_KMAX 1024        // the largest list capacity dbound_mg takes
+
+// A block's shared memory, byte offsets (16-byte aligned): C [17], the
+// read's codes [Lmax], the two chains' lists [2][2 buffers][K][L, U], the
+// chains' overflow flags [2] (int).
+struct DbmSmem {
+    size_t carr, rc, lists, flags, bytes;
+    __host__ __device__ DbmSmem(int K, int Lmax, int it) {
+        size_t o = 0;
+        carr = o;  o += LaneSmem::up16(17 * (size_t)it);
+        rc = o;    o += LaneSmem::up16((size_t)Lmax);
+        lists = o; o += LaneSmem::up16((size_t)8 * K * it);
+        flags = o; o += 16;
+        bytes = o;
+    }
+};
+
+// A rank row as load_row reads it, with the checkpoint counts of the seven
+// codes a step ranks (q[]) instead of one.
+template <typename IT>
+struct Row7 {
+    int4 p0, p1, p2, p3;
+    IT ck[7];
+    int off, edge;
+};
+
+template <typename IT, bool TP>
+__device__ __forceinline__ Row7<IT> load_row7(
+        const int32_t* __restrict__ table, const Shards& sh, IT LEN, IT i,
+        const int (&q)[7]) {
+    Row7<IT> r;
+    const IT len_m1 = LEN - 1;
+    r.edge = i == len_m1 ? 1 : (i < 0 ? 2 : 0);
+    if (r.edge) return r;
+    const IT hi = len_m1 - 1 > 0 ? len_m1 - 1 : 0;
+    const IT ic = i < hi ? i : hi;
+    const int32_t* row = row_addr<IT, TP>(table, sh, ic);
+    r.off = (int)(ic & 127);
+    const int4* r4 = reinterpret_cast<const int4*>(row);
+    r.p0 = __ldg(r4); r.p1 = __ldg(r4 + 1); r.p2 = __ldg(r4 + 2);
+    r.p3 = __ldg(r4 + 3);
+#pragma unroll
+    for (int k = 0; k < 7; k++) {
+        if constexpr (Layout<IT>::X64)
+            r.ck[k] = ((IT)__ldg(row + 32 + q[k]) << 32)
+                    | (uint32_t)__ldg(row + 16 + q[k]);
+        else
+            r.ck[k] = __ldg(row + 16 + q[k]);
+    }
+    return r;
+}
+
+// The seven candidates of a slot: code q[k]'s bounds at its rows of L - 1
+// (+1) and of U (+0), as engine/rank.py:rank_all_exact forms them; bit k of
+// the result set where candidate k is non-empty, whose width joins `width`.
+template <typename IT, typename UT>
+__device__ __forceinline__ unsigned dbm_form(const Row7<IT>& lo,
+                                             const Row7<IT>& hi,
+                                             const IT* carr,
+                                             const int (&q)[7], IT (&cL)[7],
+                                             IT (&cU)[7], UT& width) {
+    unsigned vb = 0;
+#pragma unroll
+    for (int k = 0; k < 7; k++) {
+        cL[k] = lo.edge == 1 ? carr[q[k] + 1] + 1
+              : lo.edge == 2 ? carr[q[k]] + 1
+              : count_code<false>(lo.p0, lo.p1, lo.p2, lo.p3, lo.ck[k],
+                                  lo.off, carr, 1, q[k]);
+        cU[k] = hi.edge == 1 ? carr[q[k] + 1]
+              : hi.edge == 2 ? carr[q[k]]
+              : count_code<false>(hi.p0, hi.p1, hi.p2, hi.p3, hi.ck[k],
+                                  hi.off, carr, 0, q[k]);
+        if (cL[k] <= cU[k]) {
+            vb |= 1u << k;
+            width += (UT)(cU[k] - cL[k] + 1);
+        }
+    }
+    return vb;
+}
+
+// A step's merge so far, the same in every thread: the runs started (past
+// K too), and whether a non-empty candidate came before, with its U.
+template <typename IT>
+struct DbmMerge {
+    int runs;
+    bool tail;
+    IT tailU;
+};
+
+// Merge one round of 32 slots into `nxt`: thread t's candidates (non-empty
+// where bit k of vb is set) follow thread t - 1's in the order.  A run's L
+// is written at its first candidate and its U at its last of the round (a
+// run that goes on into the next round is written again there); runs past
+// K nowhere.
+template <typename IT>
+__device__ __forceinline__ void dbm_round(DbmMerge<IT>& M,
+                                          const IT (&cL)[7],
+                                          const IT (&cU)[7], unsigned vb,
+                                          int K, IT* nxt, int t) {
+    IT lastU = 0;
+#pragma unroll
+    for (int k = 0; k < 7; k++)
+        if ((vb >> k) & 1u) lastU = cU[k];
+    const unsigned lt = (1u << t) - 1u;
+    const unsigned vm = __ballot_sync(RS_FULL, vb != 0);
+    const unsigned lower = vm & lt;
+    const IT pU = __shfl_sync(RS_FULL, lastU, lower ? 31 - __clz(lower) : t);
+    bool has = lower != 0 || M.tail;
+    IT prev = lower ? pU : M.tailU;
+    unsigned hb = 0;                      // candidates that start a run
+#pragma unroll
+    for (int k = 0; k < 7; k++)
+        if ((vb >> k) & 1u) {
+            if (!(has && cL[k] == prev + 1)) hb |= 1u << k;
+            prev = cU[k];
+            has = true;
+        }
+    // runs started by lower threads (a thread starts at most seven)
+    const int nh = __popc(hb);
+    const unsigned h0 = __ballot_sync(RS_FULL, nh & 1),
+                   h1 = __ballot_sync(RS_FULL, nh & 2),
+                   h2 = __ballot_sync(RS_FULL, nh & 4);
+    // whether the next thread with a non-empty candidate starts a run there
+    const unsigned fh = __ballot_sync(RS_FULL, (hb & vb & (0u - vb)) != 0);
+    const unsigned higher = vm & ~(lt | (1u << t));
+    const bool last_ends = higher == 0 || ((fh >> (__ffs(higher) - 1)) & 1u);
+    int r = M.runs + __popc(h0 & lt) + 2 * __popc(h1 & lt)
+          + 4 * __popc(h2 & lt) - 1;
+#pragma unroll
+    for (int k = 0; k < 7; k++)
+        if ((vb >> k) & 1u) {
+            if ((hb >> k) & 1u) {
+                r++;
+                if (r < K) nxt[2 * r] = cL[k];
+            }
+            const unsigned after = vb & ~((2u << k) - 1u);
+            const bool ends = after ? ((hb >> (__ffs(after) - 1)) & 1u)
+                                    : last_ends;
+            if (ends && r < K) nxt[2 * r + 1] = cU[k];
+        }
+    M.runs += __popc(h0) + 2 * __popc(h1) + 4 * __popc(h2);
+    if (vm) {
+        M.tailU = __shfl_sync(RS_FULL, lastU, 31 - __clz(vm));
+        M.tail = true;
+    }
+    __syncwarp();
+}
+
+// One chain of a read, walked by one warp: n steps over the bases end - 1,
+// end - 2, ... of the read's codes rc (positions past Lmax read its last),
+// the list in `lists` (two buffers of K intervals), D rows 0..n-1 into out.
+// Returns whether a step overflowed K; z the differences counted.
+template <typename IT, bool TP>
+__device__ __forceinline__ bool dbm_chain(const int32_t* __restrict__ table,
+                                          const Shards& sh, const IT* carr,
+                                          IT LEN, const int8_t* rc, int Lmax,
+                                          int n, int end, int K, IT* lists,
+                                          IT* __restrict__ out, int t,
+                                          IT& z) {
+    typedef typename std::make_unsigned<IT>::type UT;
+    typedef Alpha<true> AL;
+    constexpr uint32_t NEED0 = AL::need(0), NEED1 = AL::need(1),
+                       NEED2 = AL::need(2), NEED3 = AL::need(3);
+    IT* cur = lists;
+    IT* nxt = lists + 2 * K;
+    if (t == 0) { cur[0] = 0; cur[1] = LEN - 1; }
+    __syncwarp();
+    int cnt = 1;
+    bool over = false;
+    z = 0;
+    for (int s = 0; s < n; s++) {
+        const int p = end - 1 - s;
+        const int v = rc[p < Lmax ? p : Lmax - 1];
+        // the codes that contain the base, in increasing order (a negative
+        // code ranks as A, as engine/intervals.py clamps it; an N has none)
+        const uint32_t need = v <= 0 ? NEED0 : v == 1 ? NEED1
+                            : v == 2 ? NEED2 : v == 3 ? NEED3 : 0u;
+        int q[7];
+        uint32_t m = need;
+#pragma unroll
+        for (int k = 0; k < 7; k++) {
+            q[k] = m ? __ffs(m) - 1 : 1;
+            m &= m - 1;
+        }
+        DbmMerge<IT> M = {0, false, 0};
+        UT width = 0;
+        for (int h = 0; need && h < cnt; h += 2 * RS_WARP) {
+            // both slots' rows asked for before either is counted
+            const int e0 = h + t, e1 = h + RS_WARP + t;
+            Row7<IT> a0, b0, a1, b1;
+            if (e0 < cnt) {
+                a0 = load_row7<IT, TP>(table, sh, LEN, cur[2 * e0] - 1, q);
+                b0 = load_row7<IT, TP>(table, sh, LEN, cur[2 * e0 + 1], q);
+            }
+            if (e1 < cnt) {
+                a1 = load_row7<IT, TP>(table, sh, LEN, cur[2 * e1] - 1, q);
+                b1 = load_row7<IT, TP>(table, sh, LEN, cur[2 * e1 + 1], q);
+            }
+            IT cL[7], cU[7];
+            unsigned vb = e0 < cnt ? dbm_form(a0, b0, carr, q, cL, cU, width)
+                                   : 0u;
+            dbm_round(M, cL, cU, vb, K, nxt, t);
+            if (h + RS_WARP < cnt) {
+                vb = e1 < cnt ? dbm_form(a1, b1, carr, q, cL, cU, width) : 0u;
+                dbm_round(M, cL, cU, vb, K, nxt, t);
+            }
+        }
+        IT w = (IT)warp_sum(width);
+        over |= M.runs > K;
+        cnt = M.runs < K ? M.runs : K;
+        if (cnt == 0) {          // empty: restart from the whole range
+            z += 1;
+            w = LEN;
+            cnt = 1;
+            if (t == 0) { nxt[0] = 0; nxt[1] = LEN - 1; }
+        }
+        if (t == 0) { out[2 * s] = z; out[2 * s + 1] = w; }
+        IT* tmp = cur; cur = nxt; nxt = tmp;
+        __syncwarp();
+    }
+    return over;
+}
+
+template <typename IT, bool TP>
+__global__ void __launch_bounds__(DBM_THREADS)
+dbound_mg_kernel(const int32_t* __restrict__ table,
+                 const __grid_constant__ Shards sh,
+                 const IT* __restrict__ carr_g, IT LEN,
+                 const int8_t* __restrict__ seq,
+                 const int32_t* __restrict__ lens, int Lmax, int seed_len,
+                 int K, IT* __restrict__ D, IT* __restrict__ Ds,
+                 uint8_t* __restrict__ ov) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    const DbmSmem SL(K, Lmax, (int)sizeof(IT));
+    IT* const carr = reinterpret_cast<IT*>(smem_raw + SL.carr);
+    int8_t* const sRc = reinterpret_cast<int8_t*>(smem_raw + SL.rc);
+    int* const flags = reinterpret_cast<int*>(smem_raw + SL.flags);
+    const int b = blockIdx.x, tid = threadIdx.x;
+    const int w = tid / RS_WARP, t = tid % RS_WARP;
+    const int8_t* const rd = seq + (size_t)b * Lmax;
+    for (int p = tid; p < Lmax; p += DBM_THREADS) sRc[p] = rd[p];
+    if (tid < 17) carr[tid] = carr_g[tid];
+    __syncthreads();
+    const int len = lens[b];
+    const int srows = (seed_len > 1 ? seed_len : 1) + 1;   // D_seed rows
+    const bool seeded = seed_len > 0 && len > seed_len;
+    // warp 0: D over the whole read; warp 1: D_seed over its first
+    // seed_len bases, all zero for a read that uses no seed
+    const int nd = len < 0 ? 0 : (len < Lmax ? len : Lmax);
+    const int n = w == 0 ? nd
+                : (seeded ? (seed_len < Lmax ? seed_len : Lmax) : 0);
+    IT* const out = w == 0 ? D + (size_t)b * (Lmax + 1) * 2
+                           : Ds + (size_t)b * srows * 2;
+    const int rows = w == 0 ? Lmax + 1 : srows;
+    const int tail = w == 0 ? nd : (seeded ? seed_len : -1);
+    IT z;
+    const bool over = dbm_chain<IT, TP>(
+        table, sh, carr, LEN, sRc, Lmax, n, w == 0 ? len : seed_len, K,
+        reinterpret_cast<IT*>(smem_raw + SL.lists) + (size_t)w * 4 * K, out,
+        t, z);
+    // the rows after the walk: zero, but for (z + 1, 0) at the tail
+    for (int s = n + t; s < rows; s += RS_WARP) {
+        out[2 * s] = s == tail ? z + 1 : 0;
+        out[2 * s + 1] = 0;
+    }
+    if (t == 0) flags[w] = over;
+    __syncthreads();
+    if (tid == 0) ov[b] = (uint8_t)(flags[0] | flags[1]);
+}
+
 extern "C" int ring_search_num_params() {
     return (int)(sizeof(RSParams) / sizeof(int));
 }
@@ -1298,18 +1617,50 @@ extern "C" const char* ring_search_error_string(int e) {
     return cudaGetErrorString((cudaError_t)e);
 }
 
+// Launches a D-bound kernel on `stream` (its shared memory set first where
+// it needs more than 48 KB); returns the CUDA error.
+template <typename Kern, typename... Args>
+static int db_go(Kern kern, int grid, int threads, size_t smem, void* stream,
+                 Args... args) {
+    if (smem > 48 * 1024) {
+        cudaError_t e = cudaFuncSetAttribute(
+            kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (e != cudaSuccess) return (int)e;
+    }
+    kern<<<grid, threads, smem, (cudaStream_t)stream>>>(args...);
+    return (int)cudaGetLastError();
+}
+
+// The table of a D-bound launch: false when the shapes are empty, the
+// shards are not 1 to RS_TP_MAX non-null tables of nloc rows that hold every
+// block a rank reads, or an int32 index is 2^31 positions long or more.
+static bool db_table(Shards& sh, int x64, const void* const* shards, int tp,
+                     long long nloc, long long len, int B, int Lmax) {
+    if (B < 1 || Lmax < 1 || len < 2 || (!x64 && len > INT_MAX)) return false;
+    if (!shards || tp < 1 || tp > RS_TP_MAX || nloc < 1
+            || (!x64 && nloc > INT_MAX / RS_TP_MAX)
+            || ((len - 2) >> 7) >= nloc * tp)
+        return false;
+    sh = {};
+    for (int s = 0; s < tp; s++) {
+        if (!shards[s]) return false;
+        sh.p[s] = (const int32_t*)shards[s];
+    }
+    sh.nloc = nloc;
+    sh.tp = tp;
+    return true;
+}
+
 template <typename IT, bool TP>
 static int dbound_launch(const Shards& sh, IT len, const void* carr,
                          const void* seq, const void* lens, int B, int Lmax,
                          int seed_len, void* D, void* Ds, void* ov,
                          void* stream) {
-    auto kern = dbound_1to1_kernel<IT, TP>;
-    const int grid = (B + DB_THREADS - 1) / DB_THREADS;
-    kern<<<grid, DB_THREADS, 0, (cudaStream_t)stream>>>(
-        sh.p[0], sh, (const IT*)carr, len, (const int8_t*)seq,
-        (const int32_t*)lens, B, Lmax, seed_len, (IT*)D, (IT*)Ds,
-        (uint8_t*)ov);
-    return (int)cudaGetLastError();
+    return db_go(dbound_1to1_kernel<IT, TP>,
+                 (B + DB_THREADS - 1) / DB_THREADS, DB_THREADS, 0, stream,
+                 sh.p[0], sh, (const IT*)carr, len, (const int8_t*)seq,
+                 (const int32_t*)lens, B, Lmax, seed_len, (IT*)D, (IT*)Ds,
+                 (uint8_t*)ov);
 }
 
 // The single-genome D and D_seed bounds of a chunk of B reads (seq [B,
@@ -1317,30 +1668,56 @@ static int dbound_launch(const Shards& sh, IT len, const void* carr,
 // Lmax + 1, 2], Ds [B, max(seed_len, 1) + 1, 2] in the index's type (int64
 // where x64) and ov [B] (bytes, all 0), every word written.  The table as
 // for ring_search_launch (`shards`, `tp`, `nloc`; `len` the index's
-// length).  Returns the CUDA error of the launch (0 on success), or -1 when
-// the shapes are empty, the shards are not 1 to RS_TP_MAX non-null tables
-// of nloc rows that hold every block a rank reads, or an int32 index is
-// 2^31 positions long or more.
+// length).  Returns the CUDA error of the launch (0 on success), or -1 for
+// what db_table refuses.
 extern "C" int dbound_1to1_launch(int x64, const void* const* shards, int tp,
                                   long long nloc, long long len,
                                   const void* carr, const void* seq,
                                   const void* lens, int B, int Lmax,
                                   int seed_len, void* D, void* Ds, void* ov,
                                   void* stream) {
-    if (B < 1 || Lmax < 1 || len < 2 || (!x64 && len > INT_MAX)) return -1;
-    if (!shards || tp < 1 || tp > RS_TP_MAX || nloc < 1
-            || (!x64 && nloc > INT_MAX / RS_TP_MAX)
-            || ((len - 2) >> 7) >= nloc * tp)
-        return -1;
-    Shards sh = {};
-    for (int s = 0; s < tp; s++) {
-        if (!shards[s]) return -1;
-        sh.p[s] = (const int32_t*)shards[s];
-    }
-    sh.nloc = nloc;
-    sh.tp = tp;
+    Shards sh;
+    if (!db_table(sh, x64, shards, tp, nloc, len, B, Lmax)) return -1;
 #define DB_LAUNCH(T, S) dbound_launch<T, S>(sh, (T)len, carr, seq, lens, B, \
         Lmax, seed_len, D, Ds, ov, stream)
+    if (x64)
+        return tp > 1 ? DB_LAUNCH(long long, true)
+                      : DB_LAUNCH(long long, false);
+    return tp > 1 ? DB_LAUNCH(int, true) : DB_LAUNCH(int, false);
+#undef DB_LAUNCH
+}
+
+template <typename IT, bool TP>
+static int dbound_mg_go(const Shards& sh, IT len, const void* carr,
+                        const void* seq, const void* lens, int B, int Lmax,
+                        int seed_len, int K, size_t smem, void* D, void* Ds,
+                        void* ov, void* stream) {
+    return db_go(dbound_mg_kernel<IT, TP>, B, DBM_THREADS, smem, stream,
+                 sh.p[0], sh, (const IT*)carr, len, (const int8_t*)seq,
+                 (const int32_t*)lens, Lmax, seed_len, K, (IT*)D, (IT*)Ds,
+                 (uint8_t*)ov);
+}
+
+// The multi-genome D and D_seed bounds of a chunk of B reads at list
+// capacity K, in one launch on `stream`: the arguments and outputs as
+// dbound_1to1_launch's, ov [B] the overflow flags (bytes, 0 or 1).  Returns
+// the CUDA error of the launch (0 on success), or -1 for what db_table
+// refuses, a K outside 1..DBM_KMAX, or a block's shared memory past the
+// card's.
+extern "C" int dbound_mg_launch(int x64, const void* const* shards, int tp,
+                                long long nloc, long long len,
+                                const void* carr, const void* seq,
+                                const void* lens, int B, int Lmax,
+                                int seed_len, int K, void* D, void* Ds,
+                                void* ov, void* stream) {
+    Shards sh;
+    if (!db_table(sh, x64, shards, tp, nloc, len, B, Lmax) || K < 1
+            || K > DBM_KMAX)
+        return -1;
+    const size_t smem = DbmSmem(K, Lmax, x64 ? 8 : 4).bytes;
+    if (smem > RS_SMEM_MAX) return -1;
+#define DB_LAUNCH(T, S) dbound_mg_go<T, S>(sh, (T)len, carr, seq, lens, B, \
+        Lmax, seed_len, K, smem, D, Ds, ov, stream)
     if (x64)
         return tp > 1 ? DB_LAUNCH(long long, true)
                       : DB_LAUNCH(long long, false);

@@ -4,7 +4,8 @@
 // OS threads, its blocks one after another; each warp intrinsic (shuffle,
 // ballot, vote, match, reduce, __syncwarp) is an exchange through a buffer
 // of the warp between two barriers, so threads run independently between
-// intrinsics, as on a card with independent thread scheduling.  Event
+// intrinsics, as on a card with independent thread scheduling;
+// __syncthreads is a barrier of the block's threads.  Event
 // records and launches are logged in order (emu_trace).  Peer access is a
 // table of EMU_NDEV cards, each able to reach every other, with the
 // runtime's last-error rule: enabling a pair twice fails with
@@ -87,11 +88,13 @@ struct EmuWarp {
     uint64_t buf[32];
 };
 inline thread_local EmuWarp* emu_w = nullptr;
+inline thread_local std::barrier<>* emu_b = nullptr;
 inline thread_local unsigned char* emu_sm = nullptr;
 inline int emu_lane() { return threadIdx.x & 31; }
 template <class T> inline uint64_t emu_bits(T v) { uint64_t b = 0; std::memcpy(&b, &v, sizeof(T)); return b; }
 template <class T> inline T emu_from(uint64_t b) { T v; std::memcpy(&v, &b, sizeof(T)); return v; }
 inline void __syncwarp(unsigned = 0xFFFFFFFFu) { std::atomic_thread_fence(std::memory_order_seq_cst); emu_w->bar.arrive_and_wait(); }
+inline void __syncthreads() { std::atomic_thread_fence(std::memory_order_seq_cst); emu_b->arrive_and_wait(); }
 template <class T> inline T emu_xchg(T v, int src) {
     emu_w->buf[emu_lane()] = emu_bits(v);
     emu_w->bar.arrive_and_wait();
@@ -142,11 +145,13 @@ void emu_launch(K kern, int blocks, int threads, size_t smem, A... args) {
     for (int b = 0; b < blocks; b++) {
         std::vector<unsigned char> sm(smem + 16);
         std::vector<EmuWarp> warps(threads / 32);
+        std::barrier<> block_bar(threads);
         std::vector<std::thread> th;
         for (int i = 0; i < threads; i++)
             th.emplace_back([&, i] {
                 threadIdx.x = i; blockIdx.x = b; blockDim.x = threads;
                 emu_w = &warps[i / 32];
+                emu_b = &block_bar;
                 emu_sm = sm.data();
                 kern(args...);
             });

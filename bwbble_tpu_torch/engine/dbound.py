@@ -6,7 +6,9 @@ the read that counts how many times the match set empties (z) and the
 surviving SA width per position.  Multi-genome mode runs over interval
 lists (engine.intervals); single-genome mode is a one-interval walk.
 Output D[b, t] = (num_diff, sa_intv_width) for t in [0, read_len], indexed
-from the read's end like the reference.
+from the read's end like the reference.  A chunk's D and D_seed passes
+are one launch of a hand-written kernel on a CUDA index (calc_d_chunk,
+calc_d_1to1_chunk); calc_d and calc_d_1to1 are their plain versions.
 """
 
 from __future__ import annotations
@@ -73,6 +75,38 @@ def calc_d(didx: DeviceIndex, seq, lengths, K: int = 32,
     tail = torch.stack([z + 1, torch.zeros_like(z)], dim=1)
     D[torch.arange(B, device=dev), lengths.clamp(0, max_len).long()] = tail
     return D, over
+
+
+def calc_d_chunk(didx: DeviceIndex, seq, lengths, seed_len: int, K: int):
+    """D and D_seed bounds of a chunk of multi-genome reads at list capacity
+    K, the multi-genome pass of engine/pipeline.py:_calc_d_chunk: (D [B,
+    Lmax+1, 2], Ds [B, max(seed_len, 1)+1, 2] in the index's type, overflow
+    bool [B]: D's, or D_seed's where the read uses a seed).  Ds as for
+    calc_d_1to1_chunk.  On a CUDA index one launch of the hand-written
+    kernel (engine/kernel.py:dbound_mg; seq int8 and lengths int32 on its
+    card); on the CPU the plain version."""
+    if didx.device.type == "cuda":
+        from bwbble_tpu_torch.engine import kernel
+        return kernel.dbound_mg(didx, seq, lengths, seed_len, K)
+    return calc_d_chunk_plain(didx, seq, lengths, seed_len, K)
+
+
+def calc_d_chunk_plain(didx: DeviceIndex, seq, lengths, seed_len: int,
+                       K: int):
+    """The plain version of calc_d_chunk, on the index's device: calc_d for
+    D and again for D_seed, masked."""
+    dev = didx.device
+    seq = torch.as_tensor(seq).to(dev)
+    lengths = torch.as_tensor(lengths).to(dev).to(torch.int32)
+    use_seed = (lengths > seed_len) & (seed_len > 0)
+    sl = torch.where(use_seed, seed_len, 0).to(torch.int32)
+    D, dov1 = calc_d(didx, seq, lengths, K=K, device=dev)
+    Ds, dov2 = calc_d(didx, seq, sl, K=K, max_len=max(seed_len, 1),
+                      device=dev)
+    # reads not using a seed keep an all-zero D_seed (calloc semantics,
+    # inexact_match.c:36,62-64)
+    Ds = torch.where(use_seed[:, None, None], Ds, torch.zeros_like(Ds))
+    return D, Ds, dov1 | (dov2 & use_seed)
 
 
 def calc_d_1to1(didx: DeviceIndex, seq, lengths, max_len: int | None = None,

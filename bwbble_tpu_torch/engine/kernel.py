@@ -16,9 +16,11 @@ its block, on the launching card or on a peer card over NVLink
 batches only.  The kernel source is csrc/ring_search.cu (one template, ten
 instantiations); the plain PyTorch versions are
 engine/inexact.py:ring_search_plain and fixed_search_plain.  The same
-source holds `dbound_1to1`, the single-genome D and D_seed bounds of a
-chunk in one launch on the same rank code (every layout the fixed search
-takes); its plain version is engine/dbound.py:calc_d_1to1_chunk on the CPU.
+source holds the D and D_seed bounds of a chunk in one launch on the same
+rank code (every layout the fixed search takes): `dbound_1to1` for a single
+genome, `dbound_mg` for a multi-genome at a list capacity K; their plain
+versions are engine/dbound.py:calc_d_1to1_chunk_plain and
+calc_d_chunk_plain, which their chunk entries take on the CPU.
 
 Build: at first use, `nvcc` compiles the source for sm_90a into a shared
 library with a plain C interface under `build/` at the repository root,
@@ -66,10 +68,14 @@ LAUNCHES = {"ring_search": 0, "fixed_search": 0, "ring_search_seeded": 0,
             "fixed_search_seeded_tp": 0, "fixed_search_tp_i64": 0,
             "fixed_search_seeded_tp_i64": 0, "dbound_1to1": 0,
             "dbound_1to1_i64": 0, "dbound_1to1_tp": 0,
-            "dbound_1to1_tp_i64": 0}
+            "dbound_1to1_tp_i64": 0, "dbound_mg": 0, "dbound_mg_i64": 0,
+            "dbound_mg_tp": 0, "dbound_mg_tp_i64": 0}
 
 # shards a table may have (csrc/ring_search.cu RS_TP_MAX)
 MAX_TP = 8
+
+# the largest list capacity `dbound_mg` takes (csrc/ring_search.cu DBM_KMAX)
+DB_KMAX = 1024
 
 # dynamic shared memory a block may have on an H100 (227 KB)
 SMEM_MAX = 232448
@@ -137,6 +143,10 @@ def _bind_ring_search(lib: ctypes.CDLL) -> None:
                                        + [ctypes.c_longlong] * 2 + [vp] * 3
                                        + [ctypes.c_int] * 3 + [vp] * 4)
     lib.dbound_1to1_launch.restype = ctypes.c_int
+    lib.dbound_mg_launch.argtypes = ([ctypes.c_int, vp, ctypes.c_int]
+                                     + [ctypes.c_longlong] * 2 + [vp] * 3
+                                     + [ctypes.c_int] * 4 + [vp] * 4)
+    lib.dbound_mg_launch.restype = ctypes.c_int
 
 
 def _load(name: str = "ring_search", bind=_bind_ring_search) -> ctypes.CDLL:
@@ -462,8 +472,8 @@ def fixed_search(didx: DeviceIndex, rc: torch.Tensor, lengths: torch.Tensor,
 
 
 def dbound_outputs(B: int, Lmax: int, seed_len: int, idt, dev) -> tuple:
-    """`dbound_1to1`'s outputs, which the kernel writes whole: D [B, Lmax +
-    1, 2] and Ds [B, max(seed_len, 1) + 1, 2] in the index's type, the
+    """A D-bound kernel's outputs, which it writes whole: D [B, Lmax + 1,
+    2] and Ds [B, max(seed_len, 1) + 1, 2] in the index's type, the
     overflow flags [B] bool."""
     return (torch.empty((B, Lmax + 1, 2), dtype=idt, device=dev),
             torch.empty((B, max(seed_len, 1) + 1, 2), dtype=idt, device=dev),
@@ -472,29 +482,27 @@ def dbound_outputs(B: int, Lmax: int, seed_len: int, idt, dev) -> tuple:
 
 def dbound_call(lib: ctypes.CDLL, didx: DeviceIndex, seq: torch.Tensor,
                 lengths: torch.Tensor, seed_len: int, D: torch.Tensor,
-                Ds: torch.Tensor, ov: torch.Tensor, stream) -> int:
-    """`dbound_1to1_launch` of `lib` on these tensors (`dbound_1to1` checks
-    them first); returns its CUDA error, 0 on success."""
+                Ds: torch.Tensor, ov: torch.Tensor, stream,
+                K: int | None = None) -> int:
+    """`dbound_1to1_launch` of `lib` on these tensors, or `dbound_mg_launch`
+    at list capacity K where K is given (`dbound_1to1` and `dbound_mg`
+    check them first); returns its CUDA error, 0 on success."""
     ptrs, tp, nloc = shard_args(didx)
     B, Lmax = seq.shape
-    return lib.dbound_1to1_launch(
-        int(didx.idt == torch.int64), ptrs.ctypes.data, tp, nloc,
-        int(didx.length), didx.Carr.data_ptr(), seq.data_ptr(),
-        lengths.data_ptr(), B, Lmax, int(seed_len), D.data_ptr(),
-        Ds.data_ptr(), ov.data_ptr(), stream)
+    head = (int(didx.idt == torch.int64), ptrs.ctypes.data, tp, nloc,
+            int(didx.length), didx.Carr.data_ptr(), seq.data_ptr(),
+            lengths.data_ptr(), B, Lmax, int(seed_len))
+    tail = (D.data_ptr(), Ds.data_ptr(), ov.data_ptr(), stream)
+    if K is None:
+        return lib.dbound_1to1_launch(*head, *tail)
+    return lib.dbound_mg_launch(*head, int(K), *tail)
 
 
-def dbound_1to1(didx: DeviceIndex, seq: torch.Tensor, lengths: torch.Tensor,
-                seed_len: int) -> tuple:
-    """Launch the single-genome D-bound kernel on a chunk of reads (seq
-    [B, Lmax] int8 nt4 codes, lengths [B] int32, on the index's card):
-    returns (D, Ds, overflow) as engine/dbound.py:calc_d_1to1_chunk does,
-    the overflow flags all false.  On a range-sharded index it launches on
-    the card of shard 0 and reads the other shards by peer access.  Does
-    not synchronise.  Raises for anything the kernel does not take, and
-    for a launch that returns a CUDA error — there is no fallback to the
-    plain version."""
-    what = "dbound_1to1"
+def _dbound(what: str, didx: DeviceIndex, seq: torch.Tensor,
+            lengths: torch.Tensor, seed_len: int,
+            K: int | None = None) -> tuple:
+    """Check a D-bound launch's arguments, allocate its outputs, launch
+    (`dbound_call`) and count it under `what` with its layout's suffix."""
     dev = didx.table.device
     if dev.type != "cuda":
         raise ValueError(f"{what} launches a CUDA kernel: the index lives "
@@ -519,6 +527,34 @@ def dbound_1to1(didx: DeviceIndex, seq: torch.Tensor, lengths: torch.Tensor,
     with torch.cuda.device(dev):
         D, Ds, ov = dbound_outputs(B, Lmax, seed_len, idt, dev)
         rc = dbound_call(lib, didx, seq, lengths, seed_len, D, Ds, ov,
-                         torch.cuda.current_stream(dev).cuda_stream)
+                         torch.cuda.current_stream(dev).cuda_stream, K)
     count_launch(LAUNCHES, entry, rc)
     return D, Ds, ov
+
+
+def dbound_1to1(didx: DeviceIndex, seq: torch.Tensor, lengths: torch.Tensor,
+                seed_len: int) -> tuple:
+    """Launch the single-genome D-bound kernel on a chunk of reads (seq
+    [B, Lmax] int8 nt4 codes, lengths [B] int32, on the index's card):
+    returns (D, Ds, overflow) as engine/dbound.py:calc_d_1to1_chunk does,
+    the overflow flags all false.  On a range-sharded index it launches on
+    the card of shard 0 and reads the other shards by peer access.  Does
+    not synchronise.  Raises for anything the kernel does not take, and
+    for a launch that returns a CUDA error — there is no fallback to the
+    plain version."""
+    return _dbound("dbound_1to1", didx, seq, lengths, seed_len)
+
+
+def dbound_mg(didx: DeviceIndex, seq: torch.Tensor, lengths: torch.Tensor,
+              seed_len: int, K: int) -> tuple:
+    """Launch the multi-genome D-bound kernel on a chunk of reads at list
+    capacity K (1 to DB_KMAX; seq and lengths as for `dbound_1to1`):
+    returns (D, Ds, overflow) as engine/dbound.py:calc_d_chunk does.  A
+    range-sharded index, the synchronisation, the refusals and the absence
+    of a fallback as for `dbound_1to1`; a K out of range raises
+    ValueError, and a launch the card cannot hold (a block's shared memory,
+    which grows with K and Lmax, past 227 KB) a RuntimeError."""
+    if not 1 <= int(K) <= DB_KMAX:
+        raise ValueError(f"dbound_mg: list capacity K = {K}; it takes 1 to "
+                         f"{DB_KMAX}")
+    return _dbound("dbound_mg", didx, seq, lengths, seed_len, int(K))

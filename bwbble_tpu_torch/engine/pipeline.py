@@ -3,7 +3,7 @@ back to the host gold engine per read on any capacity overflow, so output is
 byte-identical to the reference at every capacity setting.
 
 Counterpart of bwbble_tpu/engine/pipeline.py, all of it: the D-bound passes
-(device `calc_d` / `calc_d_1to1_chunk`, the native unbounded-list scanner
+(device `calc_d_chunk` / `calc_d_1to1_chunk`, the native unbounded-list scanner
 and the probe that chooses between them), difficulty ordering and
 pre-routing, the fixed-batch tiers (`run_tier`: the default path of
 `align`, with its streamed scan-and-launch branch and escalation ladder),
@@ -66,7 +66,7 @@ from bwbble_tpu_torch.align.params import AlnParams
 from bwbble_tpu_torch.align.pipeline import align_read_gold
 from bwbble_tpu_torch.align.precalc import read_indices
 from bwbble_tpu_torch.engine import index_device, kernel
-from bwbble_tpu_torch.engine.dbound import calc_d, calc_d_1to1_chunk
+from bwbble_tpu_torch.engine.dbound import calc_d_1to1_chunk, calc_d_chunk
 from bwbble_tpu_torch.engine.device_index import DeviceIndex
 from bwbble_tpu_torch.engine.inexact import (NB_MAX, OV_LIST, EngineConfig,
                                              QUEUED_I64, inexact_search,
@@ -95,27 +95,17 @@ def _reconstruct_path(rev_row: np.ndarray, plen: int, out_len: int,
 
 def _calc_d_chunk(didx, seq, lengths, lengths_np, params, K):
     """D and D_seed for one padded chunk at interval capacity K; returns
-    (D, Ds, overflow) device tensors.  lengths_np mirrors `lengths` for
-    host-side masking.  A single-genome chunk is one launch of the D-bound
-    kernel on a CUDA index (calc_d_1to1_chunk)."""
+    (D, Ds, overflow) device tensors.  `lengths_np`, a host copy of
+    `lengths`, is not read (the JAX package's signature).  On a CUDA index
+    a chunk is one launch of a D-bound kernel: calc_d_1to1_chunk for a
+    single genome, calc_d_chunk for a multi-genome."""
     dev = didx.device
     seed_len = int(params.seed_length)
-    seq = torch.as_tensor(seq).to(dev)
-    lengths = torch.as_tensor(lengths).to(dev)
+    seq = torch.as_tensor(seq).to(dev).to(torch.int8).contiguous()
+    lengths = torch.as_tensor(lengths).to(dev).to(torch.int32).contiguous()
     if not params.is_multiref:
-        return calc_d_1to1_chunk(didx, seq.to(torch.int8).contiguous(),
-                                 lengths.to(torch.int32).contiguous(),
-                                 seed_len)
-    use_seed = (lengths_np > seed_len) & (seed_len > 0)
-    sl = torch.from_numpy(np.where(use_seed, seed_len, 0).astype(np.int32))
-    D, dov1 = calc_d(didx, seq, lengths, K=K, device=dev)
-    Ds, dov2 = calc_d(didx, seq, sl.to(dev), K=K, max_len=max(seed_len, 1),
-                      device=dev)
-    # reads not using a seed keep an all-zero D_seed (calloc semantics,
-    # inexact_match.c:36,62-64)
-    use_seed_d = torch.from_numpy(use_seed).to(dev)
-    Ds = torch.where(use_seed_d[:, None, None], Ds, torch.zeros_like(Ds))
-    return D, Ds, dov1 | (dov2 & use_seed_d)
+        return calc_d_1to1_chunk(didx, seq, lengths, seed_len)
+    return calc_d_chunk(didx, seq, lengths, seed_len, K)
 
 
 def _native_d_ok(didx: DeviceIndex, host_idx: FMIndex | None) -> bool:
@@ -140,13 +130,16 @@ def probe_native_d(didx: DeviceIndex, reads: Reads, params: AlnParams,
     the probe chunk, the whole K=d_cap device pass would be discarded
     wholesale for the native scanner, so skip it up front.  Under a `mesh`
     the probe chunk runs through sharded_calc_d_chunk and the native scan
-    is never chosen.  `spans`: the call's recorder (`dbounds.probe`)."""
+    is never chosen.  `spans`: the call's recorder (`dbounds.probe`, whose
+    `kernel` says whether its passes launched a D-bound kernel)."""
     NR = reads.count
     Lmax = max(reads.max_len, 1)
     K1 = min(k_fast, d_cap) if params.is_multiref else d_cap
     if not (params.is_multiref and NR > 0 and d_cap > K1):
         return K1, False
-    with spans("dbounds.probe"):
+    skip = False
+    with spans("dbounds.probe") as span:
+        n0 = _d_launches()
         nat_ok = mesh is None and _native_d_ok(didx, host_idx)
         sq = np.zeros((min(256, max(NR, 1)), Lmax), dtype=np.int8)
         nbp = min(256, NR, sq.shape[0])
@@ -162,9 +155,9 @@ def probe_native_d(didx: DeviceIndex, reads: Reads, params: AlnParams,
             K1 = d_cap
             if nat_ok:
                 _, _, dovp2 = _calc_d_chunk(didx, sq, lnp, lnp, params, d_cap)
-                if dovp2.cpu().numpy()[:nbp].mean() > 0.9:
-                    return K1, True
-        return K1, False
+                skip = bool(dovp2.cpu().numpy()[:nbp].mean() > 0.9)
+        span["kernel"] = int(_d_launches() > n0)
+    return K1, skip
 
 
 def _native_d_read(nat, host_idx, planes, fused, nb_tab, seq, ln_r,
@@ -289,10 +282,11 @@ def calc_d_all(didx: DeviceIndex, reads: Reads, params: AlnParams,
 
 
 def _d_launches() -> int:
-    """Launches of the D-bound kernel so far, in every layout: a
-    `dbounds.device` span's `kernel` says whether its pass launched it."""
+    """Launches of the D-bound kernels so far (`dbound_1to1`, `dbound_mg`),
+    in every layout: a `dbounds.probe` or `dbounds.device` span's `kernel`
+    says whether its passes launched one."""
     return sum(v for k, v in kernel.LAUNCHES.items()
-               if k.startswith("dbound_1to1"))
+               if k.startswith("dbound_"))
 
 
 def _np_dtype(didx: DeviceIndex):

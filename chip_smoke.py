@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--genome-bp N] [--workdir DIR]
-                          [--only mesh_cards|dbound]
+                          [--only mesh_cards|dbound|dbound_mg]
 
 Drives the port's paths through the entry points a user calls, and holds
 every hand-written kernel entry against its plain PyTorch version on the
@@ -17,7 +17,10 @@ output, path, flag and counter: the ring search and the fixed-batch search,
 each in multi-genome and in single-genome mode, on the small test worlds);
 main_path (`index` + `align -n 4 --queued` on the chr21-scale multi-genome
 world: CLI, then the timed in-process run, `.aln` byte-compared with the
-gold engine's); fixed_path (`align -n 4` as the quick start types it, no
+gold engine's); dbound_mg (the multi-genome D-bound kernel at the probe's
+shapes, the main path's first 256 reads at K = 2 and 64, beside its plain
+version on the card, outputs equal, also with Ns planted, with its latency
+and byte bounds); fixed_path (`align -n 4` as the quick start types it, no
 `--queued`, on the same world and reads); more kernel comparisons on reads
 of the main world at the settings of the main path's two launches and of
 the fixed path's two tiers; mesh_path (`align -n 4 --mesh 1` through the
@@ -83,7 +86,9 @@ over the main path's call (the card's own busy share).
 `--only mesh_cards` runs the device and build phases, the main world, its
 index and fixed_path's CLI run, then mesh_cards alone: the call to make
 on a machine of several cards.  `--only dbound` runs the device and build
-phases, the easy world and its index, then the dbound phase alone.
+phases, the easy world and its index, then the dbound phase alone;
+`--only dbound_mg` the device and build phases, the main world and its
+index, then the dbound_mg phase alone.
 """
 
 from __future__ import annotations
@@ -342,7 +347,8 @@ def mesh_cards(fa: str, fq: str, wdir: str, ref_aln: str, ref_seconds: float,
         # dp > 1: every dispatch's member launches must overlap in time,
         # as the dp members of the JAX package's shard_map run at once
         ok = bool(same and launches[key] > 0 and error is None
-                  and sum(launches.values()) == launches[key]
+                  and launched_only(launches, key,
+                                    "dbound_mg_tp" if tp > 1 else "dbound_mg")
                   and (dp == 1 or (groups and overlapped == len(groups))))
         emit("mesh_cards", ok=ok, mesh=spec, dp=dp, tp=tp, cards=dp * tp,
              same_as_fixed_path=same, error=error, returncode=rc,
@@ -359,9 +365,17 @@ def mesh_cards(fa: str, fq: str, wdir: str, ref_aln: str, ref_seconds: float,
     if failed:
         fail("mesh_cards", f"{failed}: peer rows refused or read wrong, or "
                            "a mesh's `.aln` differs from fixed_path's, its "
-                           "run raised, it did not launch its kernel "
-                           "(alone), or its dp members' launches did not "
+                           "run raised, it did not launch its kernel, or "
+                           "launched others than it and its D-bound "
+                           "kernel, or its dp members' launches did not "
                            "overlap in every dispatch")
+
+
+def launched_only(launches: dict, *entries: str) -> bool:
+    """Whether every launch counted in `launches` was one of `entries` (a
+    path's search entry and its D-bound entry: a multi-genome D pass
+    launches `dbound_mg`, on a sharded table `dbound_mg_tp`)."""
+    return all(v == 0 or k in entries for k, v in launches.items())
 
 
 def peer_rows(card: str) -> None:
@@ -415,8 +429,8 @@ def peer_rows(card: str) -> None:
 
 def ptxas_report(lines: list[str]) -> list[dict]:
     """Registers, stack and spills of each instantiation of
-    ring_search_kernel and dbound_1to1_kernel from nvcc's `-Xptxas -v`
-    report (`, tp`: on a sharded table)."""
+    ring_search_kernel, dbound_1to1_kernel and dbound_mg_kernel from nvcc's
+    `-Xptxas -v` report (`, tp`: on a sharded table)."""
     import re
     names = {"1": "multiref", "0": "single"}
     out, cur = [], None
@@ -425,7 +439,8 @@ def ptxas_report(lines: list[str]) -> list[dict]:
         if m:
             k = re.search(r"ring_search_kernelILb([01])ELb([01])E([ix])"
                           r"Lb([01])E", m.group(1))
-            d = re.search(r"dbound_1to1_kernelI([ix])Lb([01])E", m.group(1))
+            d = re.search(r"(dbound_1to1|dbound_mg)_kernelI([ix])Lb([01])E",
+                          m.group(1))
             cur = None
             if k is not None:
                 cur = {"kernel": "ring_search_kernel", "instantiation":
@@ -434,9 +449,9 @@ def ptxas_report(lines: list[str]) -> list[dict]:
                        f"{'i64' if k.group(3) == 'x' else 'i32'}"
                        f"{', tp' if k.group(4) == '1' else ''}>"}
             elif d is not None:
-                cur = {"kernel": "dbound_1to1_kernel", "instantiation":
-                       f"<{'i64' if d.group(1) == 'x' else 'i32'}"
-                       f"{', tp' if d.group(2) == '1' else ''}>"}
+                cur = {"kernel": f"{d.group(1)}_kernel", "instantiation":
+                       f"<{'i64' if d.group(2) == 'x' else 'i32'}"
+                       f"{', tp' if d.group(3) == '1' else ''}>"}
             if cur is not None:
                 out.append(cur)
             continue
@@ -456,51 +471,34 @@ def ptxas_report(lines: list[str]) -> list[dict]:
     return out
 
 
-def dbound_timing(didx, reads, seed_len: int, regs: dict, card: str,
-                  graph_calls: int = 20, replays: int = 10) -> dict:
-    """The single-genome D-bound kernel at the main path's shape (a chunk of
-    BENCH_READS reads staged as calc_d_all stages it) beside its plain
-    version on the card, both on the same inputs, outputs equal.  The
-    kernel's ms a launch: a CUDA graph of `graph_calls` launches replayed
-    `replays` times between two CUDA events (the index's rows warm in L2,
-    as the search leaves them); the wrapper's host ms a launch; the plain
-    version's ms a chunk on the host clock around a synchronised call (the
-    median of three).  Its latency bound: the chain's steps (the longest
-    read's) times the card's latency of one dependent row (K4's wave at 512
-    lanes, measured here)."""
+def _d_chunk(didx, reads, n: int):
+    """The first n reads staged as calc_d_all stages a chunk, on the
+    index's card: (seq [n, Lmax] int8, lengths [n] int32, the longest
+    read's steps)."""
     import numpy as np
     import torch
-    from bwbble_tpu_torch.benchmarks import dma_probe
-    from bwbble_tpu_torch.engine import dbound, kernel
-    n = min(BENCH_READS, reads.count)
     seq = np.zeros((n, max(reads.max_len, 1)), dtype=np.int8)
     seq[:, :reads.seq.shape[1]] = reads.seq[:n]
-    sq = torch.from_numpy(seq).to(didx.device)
-    ln = torch.from_numpy(reads.lengths[:n].astype(np.int32)).to(
-        didx.device)
-    got = dbound.calc_d_1to1_chunk(didx, sq, ln, seed_len)     # warm-up
-    torch.cuda.synchronize()
-    plain_s = []
-    for _ in range(3):
-        t = time.perf_counter()
-        ref = dbound.calc_d_1to1_chunk_plain(didx, sq, ln, seed_len)
-        torch.cuda.synchronize()
-        plain_s.append(time.perf_counter() - t)
-    equal = all(torch.equal(a, b) for a, b in zip(got, ref))
-    t = time.perf_counter()
-    for _ in range(graph_calls):
-        kernel.dbound_1to1(didx, sq, ln, seed_len)
-    host_ms = (time.perf_counter() - t) * 1e3 / graph_calls
-    torch.cuda.synchronize()
+    ln = reads.lengths[:n].astype(np.int32)
+    return (torch.from_numpy(seq).to(didx.device),
+            torch.from_numpy(ln).to(didx.device),
+            int(min(int(ln.max()), seq.shape[1])))
+
+
+def _graph_ms(launch, graph_calls: int = 20, replays: int = 10) -> float:
+    """ms a call of `launch` (no host sync inside): a CUDA graph of
+    `graph_calls` calls replayed `replays` times between two CUDA events
+    (the index's rows warm in L2, as the search leaves them)."""
+    import torch
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        kernel.dbound_1to1(didx, sq, ln, seed_len)
+        launch()
     torch.cuda.current_stream().wait_stream(side)
     g = torch.cuda.CUDAGraph()
     with torch.cuda.graph(g):
         for _ in range(graph_calls):
-            kernel.dbound_1to1(didx, sq, ln, seed_len)
+            launch()
     g.replay()
     torch.cuda.synchronize()
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
@@ -509,31 +507,142 @@ def dbound_timing(didx, reads, seed_len: int, regs: dict, card: str,
         g.replay()
     ev[1].record()
     torch.cuda.synchronize()
-    ms = ev[0].elapsed_time(ev[1]) / (replays * graph_calls)
+    return ev[0].elapsed_time(ev[1]) / (replays * graph_calls)
+
+
+def _plain_ms(plain) -> tuple:
+    """(the plain version's result, its median ms of three synchronised
+    calls on the host clock)."""
+    import torch
+    secs = []
+    for _ in range(3):
+        t = time.perf_counter()
+        ref = plain()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t)
+    return ref, sorted(secs)[1] * 1e3
+
+
+def _host_ms(launch, calls: int = 20) -> float:
+    """The wrapper's host ms a call (no sync)."""
+    t = time.perf_counter()
+    for _ in range(calls):
+        launch()
+    return (time.perf_counter() - t) * 1e3 / calls
+
+
+def _row_latency_ns() -> float:
+    """The card's latency of one dependent row fetch: K4's wave at 512
+    lanes over its chr21-scale table."""
+    from bwbble_tpu_torch.benchmarks import dma_probe
     wave = next(r for r in dma_probe.main(["512", "256"])
                 if r["variant"] == "wave")
-    latency_ns = wave["ms"] * 1e6 / 256
-    steps = int(min(int(reads.lengths[:n].max()), seq.shape[1]))
+    return wave["ms"] * 1e6 / 256
+
+
+def dbound_timing(didx, reads, seed_len: int, regs: dict, card: str,
+                  graph_calls: int = 20, replays: int = 10) -> dict:
+    """The single-genome D-bound kernel at the main path's shape (a chunk of
+    BENCH_READS reads staged as calc_d_all stages it) beside its plain
+    version on the card, both on the same inputs, outputs equal.  The
+    kernel's ms a launch by _graph_ms; the wrapper's host ms a launch; the
+    plain version's ms a chunk on the host clock around a synchronised call
+    (the median of three).  Its latency bound: the chain's steps (the
+    longest read's) times the card's latency of one dependent row (K4's
+    wave at 512 lanes, measured here)."""
+    import torch
+    from bwbble_tpu_torch.engine import dbound, kernel
+    n = min(BENCH_READS, reads.count)
+    sq, ln, steps = _d_chunk(didx, reads, n)
+    got = dbound.calc_d_1to1_chunk(didx, sq, ln, seed_len)     # warm-up
+    torch.cuda.synchronize()
+    ref, plain_ms = _plain_ms(
+        lambda: dbound.calc_d_1to1_chunk_plain(didx, sq, ln, seed_len))
+    equal = all(torch.equal(a, b) for a, b in zip(got, ref))
+
+    def launch():
+        kernel.dbound_1to1(didx, sq, ln, seed_len)
+
+    host_ms = _host_ms(launch, graph_calls)
+    torch.cuda.synchronize()
+    ms = _graph_ms(launch, graph_calls, replays)
+    latency_ns = _row_latency_ns()
     bound_ms = steps * latency_ns / 1e6
     return dict(ok=bool(equal), equal_to_plain=bool(equal), reads=n,
-                Lmax=int(seq.shape[1]), seed_len=int(seed_len),
+                Lmax=int(sq.shape[1]), seed_len=int(seed_len),
                 x64=didx.idt == torch.int64, ms=ms,
-                wrapper_host_ms=host_ms,
-                plain_ms=sorted(plain_s)[1] * 1e3,
+                wrapper_host_ms=host_ms, plain_ms=plain_ms,
                 latency_bound_ms=bound_ms, steps=steps,
                 latency_ns_per_dependent_row=latency_ns,
                 time_over_latency_bound=ms / bound_ms,
-                plain_over_kernel=sorted(plain_s)[1] * 1e3 / ms,
+                plain_over_kernel=plain_ms / ms,
                 registers=regs, timed_by=f"CUDA graph of {graph_calls} "
                 f"launches x {replays} replays between two events",
                 card=card)
+
+
+def dbound_mg_timing(didx, reads, seed_len: int, Ks, regs: dict, card: str,
+                     n: int = 256, graph_calls: int = 20,
+                     replays: int = 10) -> dict:
+    """The multi-genome D-bound kernel at the probe's shapes (the first n
+    reads staged as probe_native_d stages them) at each list capacity of
+    Ks, beside its plain version on the card, on the same inputs, every
+    output equal; then the same chunk with Ns planted (a read's middle
+    base, another's first).  Timed as dbound_timing times dbound_1to1.  Its
+    latency bound: the D chain's steps (the longest read's; the D_seed
+    chain walks beside it) times the card's latency of one dependent row;
+    its byte bound: the reads and the outputs once over 3.35 TB/s."""
+    import torch
+    from bwbble_tpu_torch.engine import dbound, kernel
+    n = min(n, reads.count)
+    sq, ln, steps = _d_chunk(didx, reads, n)
+    sq_n = sq.clone()
+    sq_n[0, int(ln[0]) // 2] = 4
+    sq_n[1, 0] = 4
+    it = 8 if didx.idt == torch.int64 else 4
+    io_bytes = (sq.numel() + 4 * n + it * n * 2 * (sq.shape[1] + 1)
+                + it * n * 2 * (max(seed_len, 1) + 1) + n)
+    latency_ns = _row_latency_ns()
+    bound_ms = steps * latency_ns / 1e6
+    per_k, ok = [], True
+    for K in Ks:
+        got = dbound.calc_d_chunk(didx, sq, ln, seed_len, K)    # warm-up
+        got_n = dbound.calc_d_chunk(didx, sq_n, ln, seed_len, K)
+        torch.cuda.synchronize()
+        ref, plain_ms = _plain_ms(
+            lambda: dbound.calc_d_chunk_plain(didx, sq, ln, seed_len, K))
+        ref_n = dbound.calc_d_chunk_plain(didx, sq_n, ln, seed_len, K)
+        equal = all(torch.equal(a, b) for a, b in zip(got, ref))
+        equal_n = all(torch.equal(a, b) for a, b in zip(got_n, ref_n))
+
+        def launch(K=K):
+            kernel.dbound_mg(didx, sq, ln, seed_len, K)
+
+        host_ms = _host_ms(launch, graph_calls)
+        torch.cuda.synchronize()
+        ms = _graph_ms(launch, graph_calls, replays)
+        ok = ok and equal and equal_n
+        per_k.append(dict(
+            K=K, equal_to_plain=bool(equal), equal_with_ns=bool(equal_n),
+            overflow_share=float(got[2].float().mean()), ms=ms,
+            wrapper_host_ms=host_ms, plain_ms=plain_ms,
+            time_over_latency_bound=ms / bound_ms,
+            plain_over_kernel=plain_ms / ms))
+    return dict(ok=bool(ok), reads=n, Lmax=int(sq.shape[1]),
+                seed_len=int(seed_len), x64=didx.idt == torch.int64,
+                index_len=int(didx.length), by_K=per_k,
+                latency_bound_ms=bound_ms, steps=steps,
+                latency_ns_per_dependent_row=latency_ns,
+                byte_bound_ms=io_bytes / 3.35e12 * 1e3, registers=regs,
+                timed_by=f"CUDA graph of {graph_calls} launches x "
+                f"{replays} replays between two events", card=card)
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--genome-bp", type=int, default=GENOME_BP)
     ap.add_argument("--workdir", default=os.path.join(ROOT, ".bench_torch"))
-    ap.add_argument("--only", choices=("mesh_cards", "dbound"),
+    ap.add_argument("--only", choices=("mesh_cards", "dbound", "dbound_mg"),
                     default=None)
     args = ap.parse_args()
     threads = max(1, min(8, os.cpu_count() or 1))   # host gold / D scan
@@ -634,10 +743,12 @@ def main() -> int:
     regs = [r for r in report if r["kernel"] == "ring_search_kernel"]
     d_regs = {r["instantiation"]: r.get("registers") for r in report
               if r["kernel"] == "dbound_1to1_kernel"}
-    if len(regs) != 10 or len(d_regs) != 4:
+    mg_regs = {r["instantiation"]: r.get("registers") for r in report
+               if r["kernel"] == "dbound_mg_kernel"}
+    if len(regs) != 10 or len(d_regs) != 4 or len(mg_regs) != 4:
         fail("build", f"ring_search: not ten instantiations of the search "
-                      f"and four of dbound_1to1 in the ptxas report: "
-                      f"{report}")
+                      f"and four each of dbound_1to1 and dbound_mg in the "
+                      f"ptxas report: {report}")
 
     def last_line() -> None:
         print(json.dumps({"ok": True, "device": {
@@ -657,6 +768,26 @@ def main() -> int:
         if not d["ok"]:
             fail("dbound", "the kernel's bounds differ from the plain "
                            "version's")
+        last_line()
+        return 0
+
+    if args.only == "dbound_mg":
+        # the main world and its index, then the dbound_mg phase alone
+        wdir = os.path.join(args.workdir, f"chr21_{args.genome_bp}")
+        fa, fq_all = worlds.chr21_world(
+            wdir, genome_bp=args.genome_bp, num_reads=NUM_READS,
+            log=lambda m: emit("main_path.world", step=m))
+        if cli.main(["index", fa]) != 0:
+            fail("dbound_mg", "index failed")
+        idx = FMIndex.load(fa + ".bwt", load_sa=False)
+        d = dbound_mg_timing(from_fmindex(idx, device=dev),
+                             read_fastq(worlds.subset_fastq(fq_all, 256)),
+                             int(AlnParams().seed_length), (2, 64), mg_regs,
+                             card)
+        emit("dbound_mg", **d)
+        if not d["ok"]:
+            fail("dbound_mg", "the kernel's bounds differ from the plain "
+                              "version's")
         last_line()
         return 0
 
@@ -1081,6 +1212,7 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernel.LAUNCHES["ring_search"] = 0
+    kernel.LAUNCHES["dbound_mg"] = 0
     mark = host_mark()
     t = time.time()
     alns = align_reads_device(idx, didx, reads, params, cfg, d_cap=64,
@@ -1090,6 +1222,7 @@ def main() -> int:
     dt = time.time() - t
     host = host_since(mark)
     main_launches = kernel.LAUNCHES["ring_search"]
+    main_mg_launches = kernel.LAUNCHES["dbound_mg"]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     dev_aln = os.path.join(wdir, "device.aln")
     write_aln_file(dev_aln, alns)
@@ -1111,7 +1244,8 @@ def main() -> int:
         t_host=stats.get("t_host"),
         fallback_reads=stats.get("fallback_reads"),
         retried_reads=stats.get("retried_reads"),
-        prerouted=stats.get("prerouted"), launches=main_launches, **host,
+        prerouted=stats.get("prerouted"), launches=main_launches,
+        dbound_mg_launches=main_mg_launches, **host,
         n_work=stats.get("work_units"), pops=stats.get("pops"),
         rank_rows=stats.get("rank_rows"),
         frame_rd_rows=stats.get("frame_rd_rows"),
@@ -1165,6 +1299,17 @@ def main() -> int:
              t_search_of_timed_run=stats.get("t_search"), card=card)
     except Exception as ex:                      # report it, and go on
         emit("main_path.profile", ok=False, error=repr(ex)[:500])
+
+    # ------------------------------------------------------------- dbound_mg
+    # the multi-genome D-bound kernel at the probe's shapes (the main path's
+    # first 256 reads, at K = 2 and at its d_cap 64) beside its plain version
+    mg_line = dbound_mg_timing(didx, reads, int(params.seed_length), (2, 64),
+                               mg_regs, card)
+    emit("dbound_mg", main_path_launches=main_mg_launches, **mg_line)
+    if not mg_line["ok"] or main_mg_launches != 2:
+        fail("dbound_mg", "the kernel's bounds differ from the plain "
+                          "version's, or the main path's probe did not "
+                          "launch it twice")
 
     def path_line(n_reads, dt, stats, launches, **extra):
         """The common numbers of one driven path."""
@@ -1364,12 +1509,14 @@ def main() -> int:
         n_tp = t_launches["fixed_search_tp"]
         # a dispatch of the pipeline launches once a dp member
         t_ok = bool(t_same and n_tp > 0
-                    and sum(t_launches.values()) == n_tp
+                    and launched_only(t_launches, "fixed_search_tp",
+                                      "dbound_mg_tp")
                     and t_stats.get("launches", 0) * dp_ == n_tp)
         tp_runs[(dp_, tp_)] = (t_stats, n_tp)
         emit("tp_path", ok=t_ok, same_as_fixed_path=t_same, dp=dp_, tp=tp_,
              cards=1, shard_rows=mesh_.place(didx)[0].tp_tables[0].shape[0],
              table_rows=didx.num_blocks, tp_launches=n_tp,
+             dbound_tp_launches=t_launches["dbound_mg_tp"],
              dispatches=t_stats.get("launches"), peak_device_gb=t_peak,
              mesh_path_seconds=m_dt,
              **path_line(reads.count, t_dt, t_stats, n_tp))
@@ -2286,6 +2433,26 @@ def main() -> int:
         "library_ms": None, "latency_bound_ms": d_line["latency_bound_ms"],
         "time_over_latency_bound": d_line["time_over_latency_bound"],
         "registers": d_regs,
+    }, {
+        # the multi-genome D bounds: the dbound_mg phase's probe chunk at
+        # K = 64 (by_K: both of its K)
+        "name": "dbound_mg", "route": "cuda", "source": src,
+        "replaces": "bwbble_tpu/engine/dbound.py:calc_d",
+        "replaces_name": "no Pallas kernel: the XLA-compiled position loop "
+                         "of calc_d, run twice a multi-genome chunk by "
+                         "bwbble_tpu/engine/pipeline.py:_calc_d_chunk",
+        "instantiations": sorted(mg_regs),
+        "launches": main_mg_launches,
+        "max_abs_err": 0 if mg_line["ok"] else None,
+        "equal_to_plain": mg_line["ok"],
+        "reads": mg_line["reads"], "ms": mg_line["by_K"][-1]["ms"],
+        "plain_ms": mg_line["by_K"][-1]["plain_ms"],
+        "bound_ms": mg_line["latency_bound_ms"], "bound_by": "latency",
+        "library_ms": None, "latency_bound_ms": mg_line["latency_bound_ms"],
+        "byte_bound_ms": mg_line["byte_bound_ms"],
+        "time_over_latency_bound": mg_line["by_K"][-1][
+            "time_over_latency_bound"],
+        "registers": mg_regs, "by_K": mg_line["by_K"],
     },
         probe_entry("dma_wave", "benchmarks/dma_probe.py:99",
                     "_make (pallas_call :99, kernel :48)", k4_main,

@@ -112,7 +112,9 @@ def test_kernel_wrapper_never_runs_the_plain_version(small):
                            "fixed_search_tp_i64",
                            "fixed_search_seeded_tp_i64", "dbound_1to1",
                            "dbound_1to1_i64", "dbound_1to1_tp",
-                           "dbound_1to1_tp_i64"}
+                           "dbound_1to1_tp_i64", "dbound_mg",
+                           "dbound_mg_i64", "dbound_mg_tp",
+                           "dbound_mg_tp_i64"}
     seeds = (torch.zeros((reads.count, 4), dtype=torch.int32),
              torch.zeros((reads.count, 4), dtype=torch.int32),
              torch.ones((reads.count,), dtype=torch.int32))
@@ -128,6 +130,8 @@ def test_kernel_wrapper_never_runs_the_plain_version(small):
                                     EngineConfig(cap=512), seeds=sd)
     with pytest.raises(ValueError, match="CUDA"):
         kernel.dbound_1to1(didx, rc, ln, 32)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernel.dbound_mg(didx, rc, ln, 32, 16)
     assert kernel.LAUNCHES == before
 
 
