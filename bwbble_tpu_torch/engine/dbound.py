@@ -79,7 +79,7 @@ def calc_d(didx: DeviceIndex, seq, lengths, K: int = 32,
 
 def calc_d_chunk(didx: DeviceIndex, seq, lengths, seed_len: int, K: int):
     """D and D_seed bounds of a chunk of multi-genome reads at list capacity
-    K, the multi-genome pass of engine/pipeline.py:_calc_d_chunk: (D [B,
+    K, the multi-genome pass of engine/dpass.py:chunk_bounds: (D [B,
     Lmax+1, 2], Ds [B, max(seed_len, 1)+1, 2] in the index's type, overflow
     bool [B]: D's, or D_seed's where the read uses a seed).  Ds as for
     calc_d_1to1_chunk.  On a CUDA index one launch of the hand-written
@@ -154,7 +154,7 @@ def calc_d_1to1(didx: DeviceIndex, seq, lengths, max_len: int | None = None,
 
 def calc_d_1to1_chunk(didx: DeviceIndex, seq, lengths, seed_len: int):
     """D and D_seed bounds of a chunk of single-genome reads, the `-S` pass
-    of engine/pipeline.py:_calc_d_chunk: (D [B, Lmax+1, 2], Ds [B,
+    of engine/dpass.py:chunk_bounds: (D [B, Lmax+1, 2], Ds [B,
     max(seed_len, 1)+1, 2] in the index's type, overflow bool [B], all
     false).  Ds is the bound of a read's first seed_len bases for a read
     longer than seed_len, all zero for the others (calloc semantics,

@@ -46,6 +46,7 @@ import torch
 
 from bwbble_tpu_torch.align.params import AlnParams
 from bwbble_tpu_torch.engine.device_index import DeviceIndex
+from bwbble_tpu_torch.engine.dpass import chunk_bounds
 from bwbble_tpu_torch.engine.inexact import EngineConfig, inexact_search
 from bwbble_tpu_torch.engine.rank import sa_resolve
 
@@ -53,7 +54,9 @@ from bwbble_tpu_torch.engine.rank import sa_resolve
 @dataclasses.dataclass(eq=False)
 class Mesh:
     """A [dp, tp] grid of devices (`devices[d][t]`), and the index last
-    placed on it (`place`)."""
+    placed on it (`place`).  The alignment pipeline, handed a mesh, runs
+    its launches and its D-bound chunks through `inexact_search` and
+    `chunk_bounds`."""
     devices: tuple
     _placed: tuple | None = None     # (index given, its members)
 
@@ -90,6 +93,16 @@ class Mesh:
                 sa0=didx.sa0, tp_tables=tables if tp > 1 else None))
         self._placed = (didx, members)
         return members
+
+    def inexact_search(self, didx: DeviceIndex, rc, lengths, D, D_seed,
+                       params: AlnParams, cfg: EngineConfig,
+                       timers=None) -> dict:
+        return sharded_inexact_search(self, didx, rc, lengths, D, D_seed,
+                                      params, cfg, timers)
+
+    def chunk_bounds(self, didx: DeviceIndex, seq, lengths,
+                     params: AlnParams, K: int):
+        return sharded_calc_d_chunk(self, didx, seq, lengths, params, K)
 
 
 def peer_pairs(mesh: Mesh) -> list[tuple]:
@@ -201,13 +214,11 @@ def _launch_all(prepared: list) -> list:
 def sharded_calc_d_chunk(mesh: Mesh, didx: DeviceIndex, seq, lengths,
                          params: AlnParams, K: int):
     """The D full+seed pass of one batch over a (dp, tp) mesh: exactly the
-    math of pipeline._calc_d_chunk, reads split on dp and the index
+    math of engine.dpass.chunk_bounds, reads split on dp and the index
     range-sharded on tp.  Returns (D, Ds, overflow)."""
-    from bwbble_tpu_torch.engine.pipeline import _calc_d_chunk
     members = mesh.place(didx)
     (seq, lengths), B = _pad_batch((seq, lengths), len(members))
-    ln_np = lengths.cpu().numpy()
-    outs = [_calc_d_chunk(m, seq[s], lengths[s], ln_np[s], params, K)
+    outs = [chunk_bounds(m, seq[s], lengths[s], params, K)
             for m, s in zip(members, _slices(seq.shape[0], len(members)))]
     return tuple(_join([o[j] for o in outs], didx.device, B)
                  for j in range(3))
@@ -220,18 +231,15 @@ def sharded_align_step(mesh: Mesh, didx: DeviceIndex, seq, rc, lengths,
     bounds, inexact search, and SA resolution of each read's first
     alignment (`ref_pos`, -1 without one): everything `bwbble align` runs
     a batch (align_reads_inexact, inexact_match.c:46-66)."""
-    from bwbble_tpu_torch.engine.pipeline import _calc_d_chunk
     members = mesh.place(didx)
     arrs, B = _pad_batch((seq, rc, lengths), len(members))
-    ln_np = arrs[2].cpu().numpy()
     staged = _stage(members, arrs, (None, torch.int8, torch.int32))
     # every member's inputs staged, then its D pass (member by member),
     # then every member's search prepared and launched back to back
     # before any result is read
     prepared, dovs = [], []
-    for m, s, (seq_m, rc_m, ln_m) in zip(
-            members, _slices(arrs[0].shape[0], len(members)), staged):
-        D, Ds, dov = _calc_d_chunk(m, seq_m, ln_m, ln_np[s], params, d_cap)
+    for m, (seq_m, rc_m, ln_m) in zip(members, staged):
+        D, Ds, dov = chunk_bounds(m, seq_m, ln_m, params, d_cap)
         prepared.append(inexact_search(m, rc_m, ln_m, D, Ds, params, cfg,
                                        device=m.device, defer=True))
         dovs.append(dov)

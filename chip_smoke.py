@@ -678,11 +678,12 @@ def main() -> int:
                                                  inexact_search,
                                                  ring_statics, unpack_paths,
                                                  walk_paths)
-    from bwbble_tpu_torch.engine.pipeline import (LADDER, _calc_d_chunk,
+    from bwbble_tpu_torch.engine.dpass import (chunk_bounds,
+                                               native_scan_chunks)
+    from bwbble_tpu_torch.engine.pipeline import (LADDER,
                                                   align_reads_device,
                                                   deep_tier_cfg,
-                                                  gold_fallback_many,
-                                                  native_scan_chunks)
+                                                  gold_fallback_many)
     from bwbble_tpu_torch.formats.aln import read_aln_file, write_aln_file
     from bwbble_tpu_torch.formats.fasta import read_ann
     from bwbble_tpu_torch.formats.fastq import read_fastq
@@ -850,8 +851,8 @@ def main() -> int:
     def device_d(didx, rd, params, K):
         """D bounds of all of `rd` from one device pass at list width K."""
         ln = rd.lengths.astype(np.int32)
-        D, Ds, dov = _calc_d_chunk(didx, np.asarray(rd.seq, dtype=np.int8),
-                                   ln, ln, params, K)
+        D, Ds, dov = chunk_bounds(didx, np.asarray(rd.seq, dtype=np.int8),
+                                  ln, params, K)
         if bool(dov.any()):
             fail("kernels", f"device D pass overflowed its lists at K={K}")
         return D.cpu().numpy(), Ds.cpu().numpy()

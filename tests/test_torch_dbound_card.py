@@ -23,7 +23,7 @@ import torch
 
 from bwbble_tpu_torch import build_native, native
 from bwbble_tpu_torch.align.params import AlnParams
-from bwbble_tpu_torch.engine import dbound, kernel, pipeline
+from bwbble_tpu_torch.engine import dbound, dpass, kernel, pipeline
 from bwbble_tpu_torch.engine.device_index import from_fmindex
 from bwbble_tpu_torch.engine.inexact import EngineConfig
 from bwbble_tpu_torch.formats.aln import encode_alns
@@ -125,7 +125,7 @@ def test_alignment_launches_once_a_chunk_and_equals_the_plain_pass(
     assert kernel.LAUNCHES["dbound_1to1"] - n0 == 2
     assert [s["kernel"] for s in stats["spans"]
             if s["name"] == "dbounds.device"] == [1]
-    monkeypatch.setattr(pipeline, "calc_d_1to1_chunk",
+    monkeypatch.setattr(dpass, "calc_d_1to1_chunk",
                         dbound.calc_d_1to1_chunk_plain)
     n0 = kernel.LAUNCHES["dbound_1to1"]
     plain_stats: dict = {}
@@ -198,17 +198,17 @@ def test_mg_call_launches_twice_and_keeps_the_verdict(mg_world,
             stats=stats, **a["call"])
         return b"".join(encode_alns(x) for x in alns)
 
-    verdict = pipeline.probe_native_d(didx, reads, params, d_cap,
-                                      host_idx=idx)
+    verdict = dpass.probe_native_d(didx, reads, params, d_cap,
+                                   host_idx=idx)
     n0 = kernel.LAUNCHES["dbound_mg"]
     stats: dict = {}
     got = call(stats)
     assert kernel.LAUNCHES["dbound_mg"] - n0 == 2
     assert [s["kernel"] for s in stats["spans"]
             if s["name"] == "dbounds.probe"] == [1]
-    monkeypatch.setattr(pipeline, "calc_d_chunk", dbound.calc_d_chunk_plain)
-    assert pipeline.probe_native_d(didx, reads, params, d_cap,
-                                   host_idx=idx) == verdict == (d_cap, True)
+    monkeypatch.setattr(dpass, "calc_d_chunk", dbound.calc_d_chunk_plain)
+    assert dpass.probe_native_d(didx, reads, params, d_cap,
+                                host_idx=idx) == verdict == (d_cap, True)
     n0 = kernel.LAUNCHES["dbound_mg"]
     plain_stats: dict = {}
     assert call(plain_stats) == got

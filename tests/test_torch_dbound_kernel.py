@@ -14,7 +14,7 @@ import torch
 
 from bwbble_tpu_torch import worlds
 from bwbble_tpu_torch.align.params import AlnParams
-from bwbble_tpu_torch.engine import dbound, kernel, pipeline
+from bwbble_tpu_torch.engine import dbound, dpass, kernel, pipeline
 from bwbble_tpu_torch.engine.device_index import BLK, from_fmindex
 from bwbble_tpu_torch.engine.inexact import EngineConfig
 from bwbble_tpu_torch.formats.aln import encode_alns
@@ -122,7 +122,7 @@ def test_emulated_dbound_equals_plain_version(emu_lib, case, monkeypatch):
 
 def test_cpu_index_takes_the_plain_version(monkeypatch):
     """On the CPU the plain version runs and nothing is launched; the
-    chunk's bounds are _calc_d_chunk's single-genome result."""
+    chunk's bounds are dpass.chunk_bounds's single-genome result."""
     def boom(*a, **k):
         raise AssertionError("kernel wrapper called for a CPU index")
 
@@ -131,8 +131,8 @@ def test_cpu_index_takes_the_plain_version(monkeypatch):
     didx = from_fmindex(idx, device="cpu")
     before = dict(kernel.LAUNCHES)
     p = AlnParams(max_diff=2, is_multiref=False, seed_length=12)
-    D, Ds, ov = pipeline._calc_d_chunk(didx, seq.numpy(), lengths.numpy(),
-                                       lengths.numpy(), p, 16)
+    D, Ds, ov = dpass.chunk_bounds(didx, seq.numpy(), lengths.numpy(), p,
+                                   16)
     assert kernel.LAUNCHES == before
     D1, _ = dbound.calc_d_1to1(didx, seq, lengths, device="cpu")
     assert torch.equal(D, D1) and not ov.any()
@@ -206,7 +206,7 @@ def test_alignment_through_the_emulated_kernel(emu_lib, monkeypatch):
         kernel.count_launch(kernel.LAUNCHES, "dbound_1to1", rc)
         return D, Ds, ov
 
-    monkeypatch.setattr(pipeline, "calc_d_1to1_chunk", chunk)
+    monkeypatch.setattr(dpass, "calc_d_1to1_chunk", chunk)
     stats: dict = {}
     n0 = kernel.LAUNCHES["dbound_1to1"]
     assert _align_single(stats) == plain

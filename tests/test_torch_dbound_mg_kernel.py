@@ -24,9 +24,10 @@ from bwbble_tpu.engine.pipeline import _calc_d_chunk as j_calc_d_chunk
 from bwbble_tpu_torch import native as t_native
 from bwbble_tpu_torch import worlds
 from bwbble_tpu_torch.align.params import AlnParams
-from bwbble_tpu_torch.engine import dbound, kernel, pipeline
+from bwbble_tpu_torch.engine import dbound, dpass, kernel, pipeline
 from bwbble_tpu_torch.engine.device_index import from_fmindex
 from bwbble_tpu_torch.engine.inexact import EngineConfig
+from bwbble_tpu_torch.engine.spans import Spans
 from bwbble_tpu_torch.formats.aln import encode_alns
 from bwbble_tpu_torch.parallel import make_mesh
 from test_torch_fixed import both_indexes
@@ -195,8 +196,8 @@ def test_cpu_index_takes_the_plain_version(dense, monkeypatch):
     didx = from_fmindex(idx, device="cpu")
     before = dict(kernel.LAUNCHES)
     p = AlnParams(max_diff=4, is_multiref=True, seed_length=32)
-    D, Ds, ov = pipeline._calc_d_chunk(didx, seq.numpy(), lengths.numpy(),
-                                       lengths.numpy(), p, 7)
+    D, Ds, ov = dpass.chunk_bounds(didx, seq.numpy(), lengths.numpy(), p,
+                                   7)
     assert kernel.LAUNCHES == before
     D1, ov1 = dbound.calc_d(didx, seq, lengths, K=7, device="cpu")
     use = lengths > 32
@@ -208,7 +209,7 @@ def test_cpu_index_takes_the_plain_version(dense, monkeypatch):
 
 @pytest.fixture
 def through_emulator(emu_lib, monkeypatch):
-    """_calc_d_chunk's multi-genome chunks launch the emulated kernel, each
+    """dpass.chunk_bounds's multi-genome chunks launch the emulated kernel, each
     counted as kernel.dbound_mg counts it; returns the list of their K."""
     made: list = []
 
@@ -221,17 +222,17 @@ def through_emulator(emu_lib, monkeypatch):
         made.append(K)
         return D, Ds, ov
 
-    monkeypatch.setattr(pipeline, "calc_d_chunk", chunk)
+    monkeypatch.setattr(dpass, "calc_d_chunk", chunk)
     return made
 
 
 def _probe(dense, d_cap):
     idx, rd = dense
     stats: dict = {}
-    out = pipeline.probe_native_d(
+    out = dpass.probe_native_d(
         from_fmindex(idx, device="cpu"), rd,
         AlnParams(max_diff=4, is_multiref=True), d_cap, host_idx=idx,
-        spans=pipeline.Spans(stats))
+        spans=Spans(stats))
     return out, stats["spans"]
 
 

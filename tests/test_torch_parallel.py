@@ -32,8 +32,8 @@ from bwbble_tpu_torch.engine import inexact as t_inexact
 from bwbble_tpu_torch.engine import kernel
 from bwbble_tpu_torch.engine.device_index import from_fmindex
 from bwbble_tpu_torch.engine.inexact import EngineConfig, inexact_search
-from bwbble_tpu_torch.engine.pipeline import (_calc_d_chunk,
-                                              align_reads_device)
+from bwbble_tpu_torch.engine.dpass import chunk_bounds
+from bwbble_tpu_torch.engine.pipeline import align_reads_device
 from bwbble_tpu_torch.engine.rank import _take_rows, rank_all_dfs
 from bwbble_tpu_torch.formats.aln import encode_alns
 from bwbble_tpu_torch.formats.fastq import read_fastq
@@ -64,7 +64,7 @@ def world(small_world):
     rc = np.asarray(reads.rc[:n], dtype=np.int8)
     ln = reads.lengths[:n].astype(np.int32)
     p = AlnParams(max_diff=2)
-    D, Ds, _ = _calc_d_chunk(tdx, seq, ln, ln, p, 16)
+    D, Ds, _ = chunk_bounds(tdx, seq, ln, p, 16)
     one = inexact_search(tdx, rc, ln, D, Ds, p, CFG, device="cpu")
     return dict(jdx=jdx, tdx=tdx, seq=seq, rc=rc, ln=ln, D=D, Ds=Ds, one=one)
 
@@ -222,8 +222,7 @@ def test_tp_gather_equals_unsharded_rows(world):
     # batch of 10 reads to 12 lanes at dp = 3
     w = world
     p = AlnParams(max_diff=2)
-    ref = _calc_d_chunk(tdx, w["seq"][:10], w["ln"][:10], w["ln"][:10], p,
-                        16)
+    ref = chunk_bounds(tdx, w["seq"][:10], w["ln"][:10], p, 16)
     got = sharded_calc_d_chunk(make_mesh(3, 2, devices=CPU8), tdx,
                                w["seq"][:10], w["ln"][:10], p, 16)
     for a, b in zip(ref, got):

@@ -252,6 +252,29 @@ def test_quick_start_settings_stream_and_match_gold(dense_world,
         b"".join(encode_alns(a) for a in gold)
 
 
+def test_fixed_multigenome_call_probes_once(pipe_world,  # noqa: F811
+                                            native_lib,  # noqa: F811
+                                            monkeypatch):
+    """A fixed multi-genome call with the gold pool up whose probe keeps
+    the device D pass (d_cap 32 on a sparse world) probes once, inside the
+    call's one `dbounds` span, and hands its verdict to the D pass; its
+    records are the gold engine's."""
+    monkeypatch.setattr(t_native, "_native", native_lib)
+    monkeypatch.setattr(t_native, "_tried", True)
+    idx = pipe_world["idx"]
+    stats: dict = {}
+    alns = pipeline.align_reads_device(
+        idx, from_fmindex(idx, device="cpu"), pipe_world["reads"],
+        AlnParams(max_diff=2, batch_size=128, n_threads=2),
+        EngineConfig(cap=4096, acap=24), d_cap=32, stats=stats,
+        device="cpu")
+    names = collections.Counter(s["name"] for s in stats["spans"])
+    assert not stats.get("streamed") and stats["prerouted"] > 0
+    assert (names["dbounds"], names["dbounds.probe"]) == (1, 1)
+    assert names["dbounds.device"] >= 1
+    assert b"".join(encode_alns(a) for a in alns) == pipe_world["gold"]
+
+
 def test_gold_routed_call_spans(branch_run):
     """Settings outside the device engine's domain (-o 7): the whole call
     is one wait on the gold engine."""

@@ -41,8 +41,7 @@ from bwbble_tpu_torch.align.precalc import (build_precalc_device, load_pre,
 from bwbble_tpu_torch.engine import kernel
 from bwbble_tpu_torch.engine.device_index import from_fmindex
 from bwbble_tpu_torch.engine.inexact import EngineConfig, ring_statics
-from bwbble_tpu_torch.engine.pipeline import (_calc_d_chunk,
-                                              native_scan_chunks)
+from bwbble_tpu_torch.engine.dpass import chunk_bounds, native_scan_chunks
 from bwbble_tpu_torch.formats.fastq import read_fastq
 from bwbble_tpu_torch.index.fmindex import FMIndex
 from chip_smoke import LaunchEvents, ptxas_report
@@ -90,8 +89,8 @@ def easy_world_inputs(workdir: str, n_reads: int, dev, seeded: bool):
     rd = worlds.head_reads(read_fastq(fq), n_reads)
     params = AlnParams(max_diff=4, batch_size=8192, use_precalc=seeded)
     ln = rd.lengths.astype(np.int32)
-    D, Ds, _over = _calc_d_chunk(didx, np.asarray(rd.seq, dtype=np.int8),
-                                 ln, ln, params, 16)
+    D, Ds, _over = chunk_bounds(didx, np.asarray(rd.seq, dtype=np.int8), ln,
+                                params, 16)
     rc = np.asarray(rd.rc, dtype=np.int8)
     inputs = [torch.from_numpy(x).to(dev) for x in (rc, ln)] + [
         D.contiguous(), Ds.contiguous()]
